@@ -1,0 +1,24 @@
+"""k8s_operator_libs_tpu_torch — the device side of ``k8s_operator_libs_tpu``
+in PyTorch and CUDA, for NVIDIA Hopper cards.
+
+The JAX package runs the post-upgrade health battery on a TPU; this package
+runs the same battery on an H100 and prints reports of the same shape, so
+the control plane reads either. Each module sits at the same relative path
+as its JAX counterpart and keeps its public names. The package imports
+``torch``, never ``jax``, and nothing of ``k8s_operator_libs_tpu``.
+
+Layout:
+
+* ``api``    — the telemetry metric keys the health report emits.
+* ``ops``    — the probes: the matmul probe around a hand-written CUDA
+  matmul kernel, the flash-attention probe around a hand-written CUDA
+  flash kernel (``ops/csrc``), the probe harness and the attention oracles.
+* ``models`` — the burn-in transformer the gate trains for two steps.
+* ``tpu``    — the health gate (``tpu/health.py``), its CLI payload and the
+  subprocess gate.
+* ``utils``  — logging and device resolution.
+
+Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,125 @@
+"""The port's CUDA kernels on the card, against their plain versions.
+
+A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
+``nvcc``; elsewhere each one skips (decided inside the fixture, never at
+import). On the card:
+
+    python -m pytest tests/test_torch_cuda.py -q
+
+This file imports no JAX, so it runs where only PyTorch is installed.
+"""
+
+import math
+
+import pytest
+import torch
+
+from k8s_operator_libs_tpu_torch.models import burnin
+from k8s_operator_libs_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+from k8s_operator_libs_tpu_torch.ops.matmul import matmul, matmul_reference
+from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate
+
+pytestmark = pytest.mark.cuda
+
+#: Kernel vs plain flash attention: P is rounded to bf16 before P.V and
+#: both round the output to bf16 (one bf16 step, 2^-7 relative, apart).
+FLASH_ATOL, FLASH_RTOL = 2e-2, 2.0**-7
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(shape, gen, device):
+    return torch.randn(shape, generator=gen, device=device).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize(
+    "m,k,n",
+    [(1, 1, 1), (300, 200, 130), (129, 77, 257), (128, 1024, 128), (1024, 1024, 1024)],
+)
+def test_matmul_matches_plain_version(cuda, m, k, n):
+    gen = torch.Generator(device=cuda).manual_seed(m + k + n)
+    a, b = _randn((m, k), gen, cuda), _randn((k, n), gen, cuda)
+    before = matmul.launches
+    got = matmul(a, b)
+    assert matmul.launches == before + 1
+    want = matmul_reference(a, b)
+    torch.cuda.synchronize()
+    # bf16 products are exact in f32; only the summation order differs.
+    assert float((got - want).abs().max()) <= 1e-3 * math.sqrt(k)
+
+
+def test_matmul_takes_unaligned_operands(cuda):
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    flat = _randn((64 * 64 + 1,), gen, cuda)
+    a = flat[1:].view(64, 64)  # 2 bytes past a 16-byte boundary
+    b = _randn((64, 64), gen, cuda)
+    got = matmul(a, b)
+    assert float((got - matmul_reference(a, b)).abs().max()) <= 1e-3 * 8
+
+
+def test_matmul_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(16, 16, device=cuda)
+    with pytest.raises(TypeError):
+        matmul(x, x)
+    y = torch.zeros(16, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        matmul(y.t(), y)
+
+
+@pytest.mark.parametrize(
+    "shape", [(1, 4, 1024, 128), (2, 3, 100, 128), (1, 1, 1, 128), (1, 2, 200, 128)]
+)
+@pytest.mark.parametrize("causal", [True, False])
+def test_flash_matches_plain_version(cuda, shape, causal):
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v = (_randn(shape, gen, cuda) for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal).float()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_reference(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    excess = (got - want).abs() - (FLASH_ATOL + FLASH_RTOL * want.abs())
+    assert float(excess.max()) <= 0
+
+
+def test_flash_rejects_what_the_kernel_does_not_take(cuda):
+    q = torch.zeros(1, 1, 64, 32, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(NotImplementedError):
+        flash_attention(q, q, q)
+    f = torch.zeros(1, 1, 64, 128, device=cuda)
+    with pytest.raises(TypeError):
+        flash_attention(f, f, f)
+    g = torch.zeros(1, 1, 64, 128, device=cuda, dtype=torch.bfloat16, requires_grad=True)
+    with pytest.raises(NotImplementedError):
+        flash_attention(g, g, g)
+
+
+def test_burnin_step_on_card_matches_cpu(cuda):
+    cfg = burnin.BurninConfig(d_model=64, n_heads=4, d_ff=128, n_layers=1, seq_len=32, batch=2)
+    losses = {}
+    for dev in ("cpu", cuda):
+        params = burnin.init_params(torch.Generator().manual_seed(0), cfg, dev)
+        batch = burnin.synthetic_batch(torch.Generator().manual_seed(1), cfg, dev)
+        params, l1 = burnin.train_step(params, batch, cfg)
+        _, l2 = burnin.train_step(params, batch, cfg)
+        losses[str(dev)] = (float(l1), float(l2))
+    (c1, c2), (g1, g2) = losses["cpu"], losses["cuda"]
+    assert g2 < g1 and c2 < c1
+    # bf16 rounds at other places on the two devices.
+    assert g1 == pytest.approx(c1, rel=5e-3) and g2 == pytest.approx(c2, rel=5e-3)
+
+
+def test_gate_on_card_launches_both_kernels(cuda):
+    matmul.launches = flash_attention.launches = 0
+    report = IciHealthGate.tpu_defaults(device=cuda, matmul_size=256).run()
+    assert report.ok, report.failures
+    assert matmul.launches > 0 and flash_attention.launches == 4

@@ -9,15 +9,28 @@ Phases, in order; any failure raises and the script exits non-zero:
 2. build both CUDA kernels from ``k8s_operator_libs_tpu_torch/ops/csrc``
    (one ``nvcc`` a source, all at once) and show ``-Xptxas -v``;
 3. kernel phase: each kernel against its plain PyTorch version on the card
-   at the main path's shapes, with the tolerance stated, and timed beside
-   the plain version, one PyTorch library call (a yardstick the port never
-   calls) and the least time the card could take;
+   at the main path's shapes and at the burn-in's head_dims, with the
+   tolerance stated, and timed beside the plain version, one PyTorch
+   library call (a yardstick the port never calls) and the least time the
+   card could take. Each matmul row (``shape`` is M, K, N) asserts and
+   names the kernel it took: ``wgmma`` at the gate's and larger sizes, the
+   masked WMMA kernel at a shape TMA cannot describe. ``ms`` and
+   ``library_ms`` time a CUDA graph of back-to-back calls (the card's
+   time); ``call_ms`` and ``plain_ms`` time calls made one by one from
+   Python (the host's cost per call included);
 4. gate phase (the main path): ``IciHealthGate.tpu_defaults().run()`` on
    the card with every launch count set to 0 just before; the report must
-   be ok and both kernels must have been launched;
+   be ok, both kernels must have been launched, the chain's CUDA graph
+   must hold ``chain`` matmul launches by the wrapper's own count, and the
+   matmul kernel must have run exactly ``1 + 4 * chain`` times (one
+   numerics call, then the chain run once outside its graph and replayed
+   three times);
 5. the burn-in at ``BurninConfig()`` width: three train steps, the loss
    finite and falling;
-6. the CLI payload in a subprocess: its report must parse and be ok.
+6. the burn-in's forward at ``BurninConfig()`` width with the flash core
+   (head_dim 32), counts set to 0 just before: the kernel runs once a
+   layer and the logits match the plain core's;
+7. the CLI payload in a subprocess: its report must parse and be ok.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a card,
@@ -51,8 +64,31 @@ K1_ATOL_PER_SQRT_K = 1e-3
 K2_ATOL = 2e-2
 K2_RTOL = 2.0**-7
 
-MATMUL_SIZES = (1024, 2048, 4096)
-FLASH_SHAPE = (1, 4, 1024, 128)
+#: Burn-in logits with the flash core vs the plain core: the two cores
+#: round their bf16 outputs at different places, and one bf16 step of
+#: difference there reaches the logits through the bf16 residual stream.
+BURNIN_ATOL = 5e-2
+BURNIN_RTOL = 2e-2
+
+#: ((M, K, N), the kernel family it must take): the gate's size and two
+#: larger ones through ``wgmma``, and a shape TMA cannot describe (K and N
+#: not multiples of 8) through the masked WMMA kernel.
+MATMUL_CASES = (
+    ((1024, 1024, 1024), "wgmma"),
+    ((2048, 2048, 2048), "wgmma"),
+    ((4096, 4096, 4096), "wgmma"),
+    ((129, 77, 257), "wmma_masked"),
+)
+#: (shape, causal): the probe's shape both ways, ``BurninConfig()`` with the
+#: flash core, a common head_dim, and a size where the bound, not launch
+#: latency, sets the goal.
+FLASH_CASES = (
+    ((1, 4, 1024, 128), True),
+    ((1, 4, 1024, 128), False),
+    ((8, 4, 128, 32), True),
+    ((1, 4, 1024, 64), True),
+    ((2, 16, 4096, 128), True),
+)
 CLI_TIMEOUT_S = 600
 
 
@@ -64,19 +100,34 @@ def card_line() -> str:
     return out.splitlines()[0]
 
 
-def time_ms(fn, reps: int) -> float:
-    """Mean ms of one ``fn()`` on the card: CUDA events around ``reps``
-    calls after a warm-up."""
+def time_ms(fn, reps: int, graph: bool = True) -> float:
+    """Mean ms of one ``fn()`` on the card, from CUDA events after a
+    warm-up. With ``graph``, the ``reps`` calls are captured into one CUDA
+    graph and its replay is timed: the card's time for back-to-back calls,
+    the host's cost per call left out. Without, the calls are made from
+    Python one by one, host included."""
     import torch
 
     for _ in range(3):
         fn()
     torch.cuda.synchronize()
+    run = None
+    if graph:
+        captured = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(captured):
+            for _ in range(reps):
+                fn()
+        captured.replay()
+        torch.cuda.synchronize()
+        run = captured.replay
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    if run is not None:
+        run()
+    else:
+        for _ in range(reps):
+            fn()
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
@@ -98,46 +149,57 @@ def kernel_phase() -> list[dict]:
     from k8s_operator_libs_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
+        split_plan,
     )
-    from k8s_operator_libs_tpu_torch.ops.matmul import matmul, matmul_reference
+    from k8s_operator_libs_tpu_torch.ops.matmul import (
+        matmul,
+        matmul_path,
+        matmul_reference,
+    )
 
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator(device="cuda").manual_seed(0)
     rows = []
-    for n in MATMUL_SIZES:
-        a = torch.randn((n, n), generator=gen, device="cuda").to(torch.bfloat16)
-        b = torch.randn((n, n), generator=gen, device="cuda").to(torch.bfloat16)
+    for (m, k, n), family in MATMUL_CASES:
+        a = torch.randn((m, k), generator=gen, device="cuda").to(torch.bfloat16)
+        b = torch.randn((k, n), generator=gen, device="cuda").to(torch.bfloat16)
+        path = matmul_path(a, b)
+        if not path.startswith(family):
+            raise AssertionError(f"matmul {(m, k, n)} took {path}, not {family}")
         got = matmul(a, b)
         want = matmul_reference(a, b)
         torch.cuda.synchronize()
         err = float((got - want).abs().max())
-        tol = K1_ATOL_PER_SQRT_K * math.sqrt(n)
+        tol = K1_ATOL_PER_SQRT_K * math.sqrt(k)
         if not math.isfinite(err) or err > tol:
-            raise AssertionError(f"matmul {n}^3: max_abs_err {err} > {tol}")
-        flops = 2.0 * n**3
-        bound_ms, bound_by = bound(flops, 2 * (2 * n * n) + 4 * n * n)
-        reps = max(10, int(2e12 / flops))
+            raise AssertionError(f"matmul {(m, k, n)}: max_abs_err {err} > {tol}")
+        flops = 2.0 * m * k * n
+        bound_ms, bound_by = bound(flops, 2 * (m * k + k * n) + 4 * m * n)
+        reps = max(10, min(1000, int(2e12 / flops)))
         rows.append({
             "name": "matmul",
             "route": "cuda",
             "source": "k8s_operator_libs_tpu_torch/ops/csrc/matmul.cu",
             "replaces": "k8s_operator_libs_tpu/ops/matmul.py:32",
-            "shape": [n, n, n],
+            "shape": [m, k, n],
+            "path": path,
             "max_abs_err": err,
             "tol": tol,
             "ms": time_ms(lambda: matmul(a, b), reps),
-            "plain_ms": time_ms(lambda: matmul_reference(a, b), reps),
+            "call_ms": time_ms(lambda: matmul(a, b), reps, graph=False),
+            "plain_ms": time_ms(lambda: matmul_reference(a, b), reps, graph=False),
             "library_ms": time_ms(lambda: torch.matmul(a, b), reps),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         })
-    b_, h, s, d = FLASH_SHAPE
-    q, k, v = (
-        torch.randn(FLASH_SHAPE, generator=gen, device="cuda").to(torch.bfloat16)
-        for _ in range(3)
-    )
-    for causal in (True, False):
+    for shape, causal in FLASH_CASES:
+        b_, h, s, d = shape
+        q, k, v = (
+            torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(3)
+        )
         got = flash_attention(q, k, v, causal=causal).float()
         want = flash_attention_reference(q, k, v, causal=causal).float()
         torch.cuda.synchronize()
@@ -146,53 +208,80 @@ def kernel_phase() -> list[dict]:
         excess = float((diff - (K2_ATOL + K2_RTOL * want.abs())).max())
         if not math.isfinite(err) or excess > 0:
             raise AssertionError(
-                f"flash attention causal={causal}: max_abs_err {err} beyond "
-                f"{K2_ATOL} + {K2_RTOL}*|plain|"
+                f"flash attention {shape} causal={causal}: max_abs_err {err} "
+                f"beyond {K2_ATOL} + {K2_RTOL}*|plain|"
             )
         pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4.0 * d * pairs * b_ * h
         bound_ms, bound_by = bound(flops, 4 * b_ * h * s * d * 2)
+        split, blocks = split_plan(b_ * h, s, causal, sms)
+        reps = max(20, min(200, int(2e11 / flops)))
         rows.append({
             "name": "flash_attention_causal" if causal else "flash_attention",
             "route": "cuda",
             "source": "k8s_operator_libs_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "k8s_operator_libs_tpu/ops/flash_attention.py:44",
-            "shape": list(FLASH_SHAPE),
+            "shape": list(shape),
+            "split": split,
+            "blocks": blocks,
             "max_abs_err": err,
             "tol": f"{K2_ATOL} + {K2_RTOL}*|plain|",
-            "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal), 200),
+            "ms": time_ms(lambda: flash_attention(q, k, v, causal=causal), reps),
+            "call_ms": time_ms(
+                lambda: flash_attention(q, k, v, causal=causal), reps, graph=False
+            ),
             "plain_ms": time_ms(
-                lambda: flash_attention_reference(q, k, v, causal=causal), 50
+                lambda: flash_attention_reference(q, k, v, causal=causal),
+                max(5, reps // 4),
+                graph=False,
             ),
             "library_ms": time_ms(
                 lambda: F.scaled_dot_product_attention(q, k, v, is_causal=causal),
-                200,
+                reps,
             ),
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         })
+        del q, k, v, got, want, diff
     for row in rows:
         row["kernel_ms"] = row["ms"]
         row["share_of_bound"] = row["bound_ms"] / row["ms"]
     return rows
 
 
+def counts() -> dict:
+    """Every launch count of the port, by wrapper, and K1's by kernel."""
+    from k8s_operator_libs_tpu_torch.ops.flash_attention import flash_attention
+    from k8s_operator_libs_tpu_torch.ops.matmul import matmul
+
+    return {
+        "matmul": matmul.launches,
+        "flash_attention": flash_attention.launches,
+        "matmul_by_path": dict(matmul.path_launches),
+    }
+
+
+def reset_counts() -> None:
+    from k8s_operator_libs_tpu_torch.ops.flash_attention import flash_attention
+    from k8s_operator_libs_tpu_torch.ops.matmul import matmul
+
+    matmul.launches = 0
+    matmul.path_launches.clear()
+    flash_attention.launches = 0
+
+
 def gate_phase(kernel_ms_at_gate_size: float) -> dict:
     import torch
 
     from k8s_operator_libs_tpu_torch.ops import matmul as matmul_mod
-    from k8s_operator_libs_tpu_torch.ops.flash_attention import (
-        flash_attention,
-        flash_attention_probe,
-    )
-    from k8s_operator_libs_tpu_torch.ops.matmul import matmul, mxu_probe
+    from k8s_operator_libs_tpu_torch.ops.flash_attention import flash_attention_probe
+    from k8s_operator_libs_tpu_torch.ops.matmul import mxu_probe
     from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate
 
     gate = IciHealthGate.tpu_defaults(device="cuda")
-    matmul.launches = 0
-    flash_attention.launches = 0
+    reset_counts()
     report = gate.run()
-    launches = {"matmul": matmul.launches, "flash_attention": flash_attention.launches}
+    launches = counts()
     print(json.dumps({"gate_report": dataclasses.asdict(report)}), flush=True)
     if not report.ok:
         raise AssertionError(f"gate failed: {report.failures}")
@@ -202,8 +291,8 @@ def gate_phase(kernel_ms_at_gate_size: float) -> dict:
         raise AssertionError("gate: no flash-attention throughput")
     if not report.burnin_ok:
         raise AssertionError("gate: burn-in did not pass")
-    for name, count in launches.items():
-        if count <= 0:
+    for name in ("matmul", "flash_attention"):
+        if launches[name] <= 0:
             raise AssertionError(f"gate: the {name} kernel was never launched")
     n = gate.matmul_size
     chain = matmul_mod._auto_chain(n, True)
@@ -221,12 +310,13 @@ def gate_phase(kernel_ms_at_gate_size: float) -> dict:
         torch.cuda.synchronize()
         breakdown[name] = time.perf_counter() - start
 
-    # Is the timed chain bound by the host's launches? Compare the time to
-    # enqueue one chain with the time until it has run.
-    a_lp, _, b_scaled, _ = matmul_mod._probe_inputs(n, torch.bfloat16, device)
+    # Is the timed chain bound by the host? Compare the time to enqueue one
+    # replay of the captured chain with the time until it has run.
+    entry = matmul_mod._probe_entry(n, torch.bfloat16, device)
+    chain_graph, _ = matmul_mod._chain_graph(entry, chain)
     torch.cuda.synchronize()
     start = time.perf_counter()
-    matmul_mod._chained_matmul(a_lp, b_scaled, chain, True)
+    matmul_mod._replay_chain(chain_graph)
     enqueued = time.perf_counter() - start
     torch.cuda.synchronize()
     finished = time.perf_counter() - start
@@ -236,6 +326,7 @@ def gate_phase(kernel_ms_at_gate_size: float) -> dict:
         "kernel_us": kernel_ms_at_gate_size * 1e3,
         "launches": launches,
         "matmul_chain_links": chain,
+        "matmul_launches_in_the_chain_graph": dict(chain_graph.launches),
         "matmul_expected_launches": 1 + 4 * chain,
         "chain_tflops": report.mxu.tflops,
         "kernel_tflops": 2.0 * n**3 / (kernel_ms_at_gate_size * 1e-3) / 1e12,
@@ -244,6 +335,16 @@ def gate_phase(kernel_ms_at_gate_size: float) -> dict:
         "warm_probe_seconds": breakdown,
     }
     print(json.dumps({"gate": info}), flush=True)
+    if sum(chain_graph.launches.values()) != chain:
+        raise AssertionError(
+            f"gate: the chain's graph holds {dict(chain_graph.launches)} launches, "
+            f"not {chain}"
+        )
+    if launches["matmul"] != info["matmul_expected_launches"]:
+        raise AssertionError(
+            f"gate: matmul kernel launched {launches['matmul']} times, "
+            f"expected {info['matmul_expected_launches']}"
+        )
     return launches
 
 
@@ -270,6 +371,40 @@ def burnin_phase() -> list[float]:
     if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"burn-in loss not finite and falling: {losses}")
     return losses
+
+
+def burnin_flash_phase() -> dict:
+    import torch
+
+    from k8s_operator_libs_tpu_torch.models.burnin import (
+        BurninConfig,
+        forward,
+        init_params,
+        synthetic_batch,
+    )
+    cfg = BurninConfig(use_flash_attention=True)
+    params = init_params(torch.Generator().manual_seed(0), cfg, "cuda")
+    tokens = synthetic_batch(torch.Generator().manual_seed(1), cfg, "cuda")["tokens"]
+    reset_counts()
+    got = forward(params, tokens, cfg)
+    torch.cuda.synchronize()
+    launches = counts()
+    want = forward(params, tokens, BurninConfig())
+    diff = (got - want).abs()
+    excess = float((diff - (BURNIN_ATOL + BURNIN_RTOL * want.abs())).max())
+    info = {
+        "head_dim": cfg.head_dim,
+        "logits_shape": list(got.shape),
+        "max_abs_err": float(diff.max()),
+        "tol": f"{BURNIN_ATOL} + {BURNIN_RTOL}*|plain|",
+        "launches": launches,
+    }
+    print(json.dumps({"burnin_flash_forward": info}), flush=True)
+    if not bool(torch.isfinite(got).all()) or excess > 0:
+        raise AssertionError(f"burn-in flash forward disagrees with the plain core: {info}")
+    if launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"burn-in flash forward: kernel launches {launches}")
+    return launches
 
 
 def cli_phase() -> None:
@@ -322,12 +457,15 @@ def main() -> int:
         next(r["ms"] for r in rows if r["name"] == "matmul" and r["shape"][0] == 1024)
     )
     burnin_phase()
+    burnin_launches = burnin_flash_phase()
     cli_phase()
 
     for row in rows:
-        row["launches"] = launches[
-            "matmul" if row["name"] == "matmul" else "flash_attention"
-        ]
+        kernel = "matmul" if row["name"] == "matmul" else "flash_attention"
+        row["launches"] = launches[kernel]
+        row["launches_burnin_flash_forward"] = burnin_launches[kernel]
+        if kernel == "matmul":
+            row["path_launches"] = launches["matmul_by_path"].get(row["path"], 0)
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({

@@ -17,6 +17,8 @@ Layout:
 * ``tpu``    — the health gate (``tpu/health.py``), its CLI payload and the
   subprocess gate.
 * ``utils``  — logging and device resolution.
+* ``tools``  — ``kernel_ab``: this checkout's kernels timed beside another
+  checkout's on one card.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

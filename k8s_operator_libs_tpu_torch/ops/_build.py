@@ -46,18 +46,24 @@ NVCC_FLAGS = (
 NVCC_TIMEOUT_S = 600.0
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_OUT_I, _OUT_LL = ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_longlong)
 
 #: Library name -> {C entry point -> argument types}. Every pointer and the
 #: stream are ``c_void_p``: without ``argtypes`` ctypes passes a Python int
-#: as a 32-bit C int and cuts the pointer.
+#: as a 32-bit C int and cuts the pointer. Every entry returns a CUDA error
+#: code; an entry with a result writes it through its last argument.
 SIGNATURES: dict[str, dict[str, list]] = {
     "matmul": {
-        # (a, b, c, M, N, K, stream)
-        "k1_matmul_bf16_f32": [_P, _P, _P, _I, _I, _I, _P],
+        # (a, b, c, M, N, K, stream, *path launched)
+        "k1_matmul_bf16_f32": [_P, _P, _P, _I, _I, _I, _P, _OUT_I],
+        # (a, b, M, N, K) -> the kernel the call above takes
+        "k1_matmul_path": [_P, _P, _I, _I, _I],
     },
     "flash_attention": {
-        # (q, k, v, out, batch_heads, seq, head_dim, causal, stream)
-        "k2_flash_attention_bf16": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+        # (q, k, v, out, scratch, batch_heads, seq, head_dim, causal, split, stream)
+        "k2_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        # (batch_heads, seq, head_dim, split, *f32 elements of scratch)
+        "k2_scratch_elems": [_I, _I, _I, _I, _OUT_LL],
     },
 }
 

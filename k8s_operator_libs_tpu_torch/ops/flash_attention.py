@@ -13,6 +13,9 @@ together.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from ..utils.device import DeviceLike, resolve_device
@@ -25,8 +28,41 @@ log = get_logger("ops.flash_attention")
 
 _MASKED = -1e30
 
-#: head_dim values the CUDA kernel is built for.
-KERNEL_HEAD_DIMS = (128,)
+#: head_dim values the CUDA kernel is built for: the gate's burn-in (16),
+#: ``BurninConfig()`` (32), a common width (64) and the probe (128).
+KERNEL_HEAD_DIMS = (16, 32, 64, 128)
+
+#: Query rows and keys in one tile of the kernel (BQ = BKV in
+#: ``csrc/flash_attention.cu``).
+KERNEL_TILE = 64
+
+#: K/V tiles a chunk holds at most when a Q tile's K/V range is split over
+#: several blocks (``split_plan``).
+SPLIT_TILES = 4
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def split_plan(batch_heads: int, seq: int, causal: bool, sms: int) -> tuple[int, int]:
+    """How the kernel cuts its work: ``(split, blocks)``.
+
+    The kernel runs one block per (batch*head, Q tile) when that grid alone
+    gives every one of the card's ``sms`` SMs two blocks, or when no Q
+    tile sees more than ``SPLIT_TILES`` K/V tiles (``split`` 0). Otherwise
+    each Q tile's K/V range is cut into chunks of at most ``SPLIT_TILES``
+    tiles, one block each, and a second kernel combines them. ``blocks``
+    counts the blocks that do work.
+    """
+    n_q = _cdiv(seq, KERNEL_TILE)
+
+    def kv_tiles(iq: int) -> int:
+        return min(n_q, iq + 1) if causal else n_q
+
+    split = 0 if batch_heads * n_q >= 2 * sms or n_q <= SPLIT_TILES else SPLIT_TILES
+    per_head = sum(_cdiv(kv_tiles(iq), split) if split else 1 for iq in range(n_q))
+    return split, batch_heads * per_head
 
 
 def flash_attention_reference(
@@ -50,9 +86,11 @@ def flash_attention(
 ) -> torch.Tensor:
     """Attention over (batch, heads, seq, head_dim), forward only.
 
-    A CUDA tensor goes through the kernel (bf16, contiguous, head_dim 128, any
-    seq) on the current stream; each launch adds one to
-    ``flash_attention.launches``. A CPU tensor takes
+    A CUDA tensor goes through the kernel (bf16, contiguous, head_dim in
+    ``KERNEL_HEAD_DIMS``, any seq) on the current stream; each call that
+    runs adds one to ``flash_attention.launches``, whether the work takes
+    one kernel or two (``split_plan``), and a call captured into a CUDA
+    graph adds nothing. A CPU tensor takes
     :func:`flash_attention_reference`.
     """
     if q.dim() != 4 or q.shape != k.shape or q.shape != v.shape:
@@ -75,19 +113,42 @@ def flash_attention(
         raise ValueError("the CUDA flash kernel takes contiguous operands")
     if any(t.requires_grad for t in (q, k, v)):
         raise NotImplementedError("the CUDA flash kernel is forward-only")
+    split, elems = _plan(b * h, s, d, causal, q.device.index)
     out = torch.empty_like(q)
+    scratch = None
+    if elems:
+        scratch = torch.empty(elems, dtype=torch.float32, device=q.device)
     lib = _build.load("flash_attention")
     with torch.cuda.device(q.device):
         rc = lib.k2_flash_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            b * h, s, d, int(causal), _build.stream_handle(q),
+            None if scratch is None else scratch.data_ptr(),
+            b * h, s, d, int(causal), split, _build.stream_handle(q),
         )
     _build.check(lib, rc, "flash attention kernel launch")
-    flash_attention.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        flash_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(
+    batch_heads: int, seq: int, head_dim: int, causal: bool, device_index: int
+) -> tuple[int, int]:
+    """``(split, scratch)`` for a call: :func:`split_plan`'s split at the
+    card's SM count, and the f32 elements of scratch the C side asks for
+    at that split (0: none). Worked out once a shape, off the per-call
+    path."""
+    sms = torch.cuda.get_device_properties(device_index).multi_processor_count
+    split = split_plan(batch_heads, seq, causal, sms)[0]
+    lib = _build.load("flash_attention")
+    elems = ctypes.c_longlong()
+    rc = lib.k2_scratch_elems(batch_heads, seq, head_dim, split, ctypes.byref(elems))
+    _build.check(lib, rc, "flash attention scratch size")
+    return split, elems.value
 
 # Field-compatible alias kept for the public API (tpu.health report types).
 FlashAttentionReport = ProbeReport

@@ -12,8 +12,11 @@ package's, where the probe drives the TPU's matrix unit (MXU).
 
 from __future__ import annotations
 
+import ctypes
 import time
-from dataclasses import dataclass
+from collections import Counter
+from dataclasses import dataclass, field
+from typing import Callable
 
 import numpy as np
 import torch
@@ -38,9 +41,13 @@ def matmul_reference(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """C[M,N] = A[M,K] @ B[K,N] with f32 output.
 
-    A CUDA tensor goes through the kernel (bf16, contiguous, any shape: the
-    kernel masks ragged edges) on the current stream; each launch adds one
-    to ``matmul.launches``. A CPU tensor takes :func:`matmul_reference`.
+    A CUDA tensor goes through one of the kernels of ``csrc/matmul.cu``
+    (bf16, contiguous, any shape: :func:`matmul_path` says which) on the
+    current stream. Each launch that runs adds one to ``matmul.launches``
+    and to its kernel's entry of ``matmul.path_launches``; a launch
+    captured into a CUDA graph adds to ``matmul.captured`` instead, and
+    each replay of the graph adds what its capture counted
+    (:func:`_replay_chain`). A CPU tensor takes :func:`matmul_reference`.
     """
     if a.dim() != 2 or b.dim() != 2 or a.shape[1] != b.shape[0]:
         raise ValueError(
@@ -58,17 +65,45 @@ def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     n = b.shape[1]
     out = torch.empty((m, n), dtype=torch.float32, device=a.device)
     lib = _build.load("matmul")
+    path = ctypes.c_int(-1)
     with torch.cuda.device(a.device):
         rc = lib.k1_matmul_bf16_f32(
             a.data_ptr(), b.data_ptr(), out.data_ptr(), m, n, k,
-            _build.stream_handle(a),
+            _build.stream_handle(a), ctypes.byref(path),
         )
     _build.check(lib, rc, "matmul kernel launch")
-    matmul.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        matmul.captured[MATMUL_PATHS[path.value]] += 1
+    else:
+        _count_launches(Counter({MATMUL_PATHS[path.value]: 1}))
     return out
 
 
+#: The kernels of ``csrc/matmul.cu``, by the number its ``k1_matmul_path``
+#: returns: the masked WMMA kernel for operands TMA cannot describe
+#: (K or N not a multiple of 8, a base not 16-byte aligned), and the
+#: ``wgmma`` kernel with 128x64 or 128x256 output tiles.
+MATMUL_PATHS = ("wmma_masked", "wgmma_128x64", "wgmma_128x256")
+
 matmul.launches = 0
+matmul.path_launches = Counter()
+matmul.captured = Counter()
+
+
+def _count_launches(by_path: Counter) -> None:
+    """Count kernel launches that ran on the card, by kernel."""
+    matmul.launches += sum(by_path.values())
+    matmul.path_launches.update(by_path)
+
+
+def matmul_path(a: torch.Tensor, b: torch.Tensor) -> str:
+    """The kernel :func:`matmul` takes for these CUDA operands."""
+    m, k = a.shape
+    lib = _build.load("matmul")
+    with torch.cuda.device(a.device):
+        code = lib.k1_matmul_path(a.data_ptr(), b.data_ptr(), m, b.shape[1], k)
+    _build.check(lib, max(0, -code), "matmul path")
+    return MATMUL_PATHS[code]
 
 
 @dataclass
@@ -79,21 +114,41 @@ class MxuReport:
     error: str = ""
 
 
-#: FLOPs per timed chain when auto-chaining on the card. A chain is timed
-#: with CUDA events, so it need only be long enough that the launch of its
-#: first link and the event pair are small beside it: 2.5e12 FLOP is 1164
-#: links at 1024, some 40 ms on an H100 (PERF.md).
+#: FLOPs per timed chain when auto-chaining on the card. A chain is one
+#: CUDA graph replay timed with CUDA events, so it need only be long enough
+#: that the replay's launch and the event pair are small beside it: 2.5e12
+#: FLOP is 1164 links at 1024, about 10 ms on an H100 (PERF.md).
 _CHAIN_FLOP_BUDGET = 2.5e12
 
 #: Auto-chain upper bound, so that small probe sizes stay bounded in wall
 #: clock instead of chasing the FLOP budget with many thousand launches.
 _CHAIN_MAX = 4096
 
-#: (size, dtype, device) -> (a_lp, b_lp, b_scaled, reference). The probe's
-#: inputs are fixed (seeded), so the host reference product — the expensive
-#: part of a repeat run — never changes, and the gate re-probes on every
-#: validation.
-_PROBE_CACHE: dict[tuple, tuple] = {}
+
+@dataclass
+class _ChainGraph:
+    """A timed chain captured into a CUDA graph, with the kernel launches
+    the wrapper counted while capturing it (the launches one replay runs)."""
+
+    graph: torch.cuda.CUDAGraph
+    launches: Counter
+
+
+@dataclass
+class _ProbeEntry:
+    """The probe's inputs for one (size, dtype, device): ``inputs`` is
+    (a_lp, b_lp, b_scaled, reference). ``chains`` holds the chains
+    captured over these very tensors, by length, so the graphs live as
+    long as the memory they read."""
+
+    inputs: tuple
+    chains: dict[int, _ChainGraph] = field(default_factory=dict)
+
+
+#: (size, dtype, device) -> _ProbeEntry. The probe's inputs are fixed
+#: (seeded), so the host reference product — the expensive part of a
+#: repeat run — never changes, and the gate re-probes on every validation.
+_PROBE_CACHE: dict[tuple, _ProbeEntry] = {}
 
 
 def _chained_matmul(
@@ -112,6 +167,62 @@ def _chained_matmul(
     for _ in range(chain):
         acc = product(acc.to(a.dtype), b)
     return acc[0, 0]
+
+
+def _replay_chain(chain_graph: _ChainGraph) -> None:
+    """One replay of a captured chain: the launches its capture counted
+    run, and are counted."""
+    chain_graph.graph.replay()
+    _count_launches(chain_graph.launches)
+
+
+def _chain_graph(entry: _ProbeEntry, chain: int) -> tuple[_ChainGraph, bool]:
+    """The ``chain`` links of :func:`_chained_matmul` through the kernel as
+    one CUDA graph, so that each timed run is one launch from the host and
+    the host's dispatch stays out of the rate, as the JAX package's single
+    compiled ``fori_loop`` keeps it out. Captured at the first call for an
+    entry and a chain length, after one run of the chain outside the
+    capture (the warm-up: it loads the kernel and does the library's
+    one-time set-up), and kept in ``entry``; the second value says whether
+    this call captured."""
+    cached = entry.chains.get(chain)
+    if cached is not None:
+        return cached, False
+    a, _, b, _ = entry.inputs
+    _chained_matmul(a, b, chain, use_pallas=True)
+    torch.cuda.synchronize(a.device)
+    graph = torch.cuda.CUDAGraph()
+    before = Counter(matmul.captured)
+    with torch.cuda.graph(graph):
+        _chained_matmul(a, b, chain, use_pallas=True)
+    cached = _ChainGraph(graph, matmul.captured - before)
+    entry.chains[chain] = cached
+    return cached, True
+
+
+def _chain_runner(
+    entry: _ProbeEntry, chain: int, use_pallas: bool, on_accel: bool
+) -> Callable[[], object]:
+    """What one timed run executes, warmed up once. Through the kernel on
+    the card: a replay of the captured chain (the capture's own warm-up
+    run, or one replay, is the warm-up). Otherwise the plain loop."""
+    if on_accel and use_pallas:
+        chain_graph, captured = _chain_graph(entry, chain)
+
+        def replay() -> None:
+            _replay_chain(chain_graph)
+
+        if not captured:
+            replay()
+        return replay
+
+    a, _, b, _ = entry.inputs
+
+    def loop() -> torch.Tensor:
+        return _chained_matmul(a, b, chain, use_pallas)
+
+    loop()
+    return loop
 
 
 def _auto_chain(size: int, on_accel: bool) -> int:
@@ -145,7 +256,7 @@ def mxu_probe(
         return MxuReport(ok=False, error=str(e))
 
 
-def _probe_inputs(size: int, dtype: torch.dtype, device: torch.device) -> tuple:
+def _probe_entry(size: int, dtype: torch.dtype, device: torch.device) -> _ProbeEntry:
     cache_key = (size, str(dtype), str(device))
     cached = _PROBE_CACHE.get(cache_key)
     if cached is None:
@@ -161,7 +272,7 @@ def _probe_inputs(size: int, dtype: torch.dtype, device: torch.device) -> tuple:
             a_lp.float().cpu().numpy() @ b_lp.float().cpu().numpy()
         )
         b_scaled = torch.from_numpy(b / np.sqrt(size)).to(dtype).to(device)
-        cached = (a_lp, b_lp, b_scaled, reference)
+        cached = _ProbeEntry((a_lp, b_lp, b_scaled, reference))
         _PROBE_CACHE[cache_key] = cached
     return cached
 
@@ -177,7 +288,8 @@ def _mxu_probe_on_default_device(
     on_accel = device.type == "cuda"
     if chain <= 0:
         chain = _auto_chain(size, on_accel)
-    a_lp, b_lp, b_scaled, reference = _probe_inputs(size, dtype, device)
+    entry = _probe_entry(size, dtype, device)
+    a_lp, b_lp, _, reference = entry.inputs
     product = matmul if use_pallas else matmul_reference
 
     # The numerics check runs on every probe — it is the probe.
@@ -193,21 +305,22 @@ def _mxu_probe_on_default_device(
             error=f"numerics mismatch: max_abs_err={max_err:.4f} > {tol:.4f}",
         )
 
+    run = _chain_runner(entry, chain, use_pallas, on_accel)
+
     def timed() -> float:
         """Seconds one chain takes on the device."""
         if on_accel:
             start = torch.cuda.Event(enable_timing=True)
             end = torch.cuda.Event(enable_timing=True)
             start.record()
-            _chained_matmul(a_lp, b_scaled, chain, use_pallas)
+            run()
             end.record()
             end.synchronize()
             return start.elapsed_time(end) / 1e3
         start_s = time.perf_counter()
-        float(_chained_matmul(a_lp, b_scaled, chain, use_pallas))
+        float(run())
         return time.perf_counter() - start_s
 
-    timed()  # warm-up outside the timed samples
     elapsed = float(np.median([timed() for _ in range(iters)]))
     flops = 2.0 * size**3 * chain
     report = MxuReport(ok=True, tflops=flops / elapsed / 1e12, max_abs_err=max_err)

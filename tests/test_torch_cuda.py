@@ -15,11 +15,18 @@ import pytest
 import torch
 
 from k8s_operator_libs_tpu_torch.models import burnin
+from k8s_operator_libs_tpu_torch.ops import matmul as matmul_mod
 from k8s_operator_libs_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
+    split_plan,
 )
-from k8s_operator_libs_tpu_torch.ops.matmul import matmul, matmul_reference
+from k8s_operator_libs_tpu_torch.ops.matmul import (
+    matmul,
+    matmul_path,
+    matmul_reference,
+    mxu_probe,
+)
 from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate
 
 pytestmark = pytest.mark.cuda
@@ -42,15 +49,26 @@ def _randn(shape, gen, device):
 
 
 @pytest.mark.parametrize(
-    "m,k,n",
-    [(1, 1, 1), (300, 200, 130), (129, 77, 257), (128, 1024, 128), (1024, 1024, 1024)],
+    "m,k,n,path",
+    [
+        (1, 1, 1, "wmma_masked"),
+        (300, 200, 130, "wmma_masked"),
+        (129, 77, 257, "wmma_masked"),
+        (128, 1024, 128, "wgmma_128x64"),
+        (200, 72, 136, "wgmma_128x64"),
+        (1024, 1024, 1024, "wgmma_128x64"),
+        (1000, 136, 2056, "wgmma_128x256"),
+        (2048, 2048, 2048, "wgmma_128x256"),
+    ],
 )
-def test_matmul_matches_plain_version(cuda, m, k, n):
+def test_matmul_matches_plain_version(cuda, m, k, n, path):
     gen = torch.Generator(device=cuda).manual_seed(m + k + n)
     a, b = _randn((m, k), gen, cuda), _randn((k, n), gen, cuda)
-    before = matmul.launches
+    assert matmul_path(a, b) == path
+    before, before_path = matmul.launches, matmul.path_launches[path]
     got = matmul(a, b)
     assert matmul.launches == before + 1
+    assert matmul.path_launches[path] == before_path + 1
     want = matmul_reference(a, b)
     torch.cuda.synchronize()
     # bf16 products are exact in f32; only the summation order differs.
@@ -62,6 +80,7 @@ def test_matmul_takes_unaligned_operands(cuda):
     flat = _randn((64 * 64 + 1,), gen, cuda)
     a = flat[1:].view(64, 64)  # 2 bytes past a 16-byte boundary
     b = _randn((64, 64), gen, cuda)
+    assert matmul_path(a, b) == "wmma_masked"
     got = matmul(a, b)
     assert float((got - matmul_reference(a, b)).abs().max()) <= 1e-3 * 8
 
@@ -76,10 +95,27 @@ def test_matmul_rejects_what_the_kernel_does_not_take(cuda):
 
 
 @pytest.mark.parametrize(
-    "shape", [(1, 4, 1024, 128), (2, 3, 100, 128), (1, 1, 1, 128), (1, 2, 200, 128)]
+    "shape,split",
+    [
+        ((1, 4, 1024, 128), True),
+        ((2, 3, 100, 128), False),
+        ((1, 1, 1, 128), False),
+        ((1, 2, 200, 128), False),
+        ((1, 2, 1000, 16), True),
+        ((1, 2, 1000, 32), True),
+        ((1, 2, 1000, 64), True),
+        ((1, 2, 1000, 128), True),
+        ((2, 4, 77, 16), False),
+        ((8, 4, 128, 32), False),
+        ((2, 4, 77, 64), False),
+        ((1, 4, 1024, 64), True),
+    ],
 )
 @pytest.mark.parametrize("causal", [True, False])
-def test_flash_matches_plain_version(cuda, shape, causal):
+def test_flash_matches_plain_version(cuda, shape, split, causal):
+    b, h, s, _ = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (split_plan(b * h, s, causal, sms)[0] > 0) == split
     gen = torch.Generator(device=cuda).manual_seed(sum(shape))
     q, k, v = (_randn(shape, gen, cuda) for _ in range(3))
     before = flash_attention.launches
@@ -92,7 +128,7 @@ def test_flash_matches_plain_version(cuda, shape, causal):
 
 
 def test_flash_rejects_what_the_kernel_does_not_take(cuda):
-    q = torch.zeros(1, 1, 64, 32, device=cuda, dtype=torch.bfloat16)
+    q = torch.zeros(1, 1, 64, 24, device=cuda, dtype=torch.bfloat16)
     with pytest.raises(NotImplementedError):
         flash_attention(q, q, q)
     f = torch.zeros(1, 1, 64, 128, device=cuda)
@@ -118,8 +154,44 @@ def test_burnin_step_on_card_matches_cpu(cuda):
     assert g1 == pytest.approx(c1, rel=5e-3) and g2 == pytest.approx(c2, rel=5e-3)
 
 
+def test_burnin_flash_forward_on_card_matches_plain_core(cuda):
+    """``BurninConfig()`` width (head_dim 32) with the flash core: the
+    forward runs through the kernel, once a layer."""
+    cfg = burnin.BurninConfig(use_flash_attention=True)
+    plain_cfg = burnin.BurninConfig()
+    params = burnin.init_params(torch.Generator().manual_seed(0), cfg, cuda)
+    batch = burnin.synthetic_batch(torch.Generator().manual_seed(1), cfg, cuda)
+    before = flash_attention.launches
+    got = burnin.forward(params, batch["tokens"], cfg)
+    assert flash_attention.launches == before + cfg.n_layers
+    want = burnin.forward(params, batch["tokens"], plain_cfg)
+    torch.cuda.synchronize()
+    assert torch.isfinite(got).all()
+    # The two cores round their bf16 outputs at different places (P is bf16
+    # in the kernel); one bf16 step of difference there reaches the logits
+    # through the bf16 residual stream.
+    excess = (got - want).abs() - (5e-2 + 2e-2 * want.abs())
+    assert float(excess.max()) <= 0
+    with pytest.raises(NotImplementedError, match="forward-only"):
+        burnin.train_step(params, batch, cfg)
+
+
+def test_probe_chain_is_one_graph_replay(cuda):
+    size, iters = 1024, 3
+    chain = matmul_mod._auto_chain(size, True)
+    for _ in range(2):  # the first probe captures the chain, the second reuses it
+        before = matmul.launches
+        report = mxu_probe(size=size, iters=iters, device=cuda)
+        assert report.ok, report.error
+        assert report.tflops > 0
+        assert matmul.launches - before == 1 + (iters + 1) * chain
+    entry = matmul_mod._probe_entry(size, torch.bfloat16, cuda)
+    assert sum(entry.chains[chain].launches.values()) == chain
+
+
 def test_gate_on_card_launches_both_kernels(cuda):
     matmul.launches = flash_attention.launches = 0
     report = IciHealthGate.tpu_defaults(device=cuda, matmul_size=256).run()
     assert report.ok, report.failures
-    assert matmul.launches > 0 and flash_attention.launches == 4
+    assert matmul.launches == 1 + 4 * matmul_mod._auto_chain(256, True)
+    assert flash_attention.launches == 4

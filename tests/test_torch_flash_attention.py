@@ -6,6 +6,7 @@ import numpy as np
 import pytest
 import torch
 
+from k8s_operator_libs_tpu.models.burnin import BurninConfig as JaxBurninConfig
 from k8s_operator_libs_tpu.ops.flash_attention import (
     flash_attention as jax_flash_attention,
 )
@@ -20,6 +21,7 @@ from k8s_operator_libs_tpu.ops.ring_attention import (
 from k8s_operator_libs_tpu.ops.ulysses import (
     local_causal_attention as jax_local_causal_attention,
 )
+from k8s_operator_libs_tpu_torch.models.burnin import BurninConfig
 from k8s_operator_libs_tpu_torch.ops import flash_attention as port
 from k8s_operator_libs_tpu_torch.ops.probe_harness import host_qkv, quantize
 from k8s_operator_libs_tpu_torch.ops.ring_attention import reference_attention
@@ -40,9 +42,10 @@ def _qkv(shape, seed=7):
     return host_qkv(shape, seed)
 
 
+@pytest.mark.parametrize("head_dim", [16, 32, 64])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_version_matches_pallas_interpret_f32(causal):
-    q, k, v = _qkv((2, 2, 64, 16))
+def test_plain_version_matches_pallas_interpret_f32(causal, head_dim):
+    q, k, v = _qkv((2, 2, 64, head_dim))
     want = np.asarray(
         jax_flash_attention(
             *(jnp.asarray(t) for t in (q, k, v)),
@@ -54,9 +57,10 @@ def test_plain_version_matches_pallas_interpret_f32(causal):
     np.testing.assert_allclose(got.numpy(), want, atol=1e-5, rtol=1e-4)
 
 
+@pytest.mark.parametrize("head_dim", [16, 32, 64])
 @pytest.mark.parametrize("causal", [True, False])
-def test_plain_version_matches_pallas_interpret_bf16(causal):
-    q, k, v = _qkv((2, 2, 64, 16))
+def test_plain_version_matches_pallas_interpret_bf16(causal, head_dim):
+    q, k, v = _qkv((2, 2, 64, head_dim))
     want = np.asarray(
         jax_flash_attention(
             *(jnp.asarray(t).astype(jnp.bfloat16) for t in (q, k, v)),
@@ -70,6 +74,50 @@ def test_plain_version_matches_pallas_interpret_bf16(causal):
     assert got.dtype == torch.bfloat16
     # Both round the f32 result to bf16; the probe's tolerance.
     np.testing.assert_allclose(got.float().numpy(), want, atol=2e-2, rtol=0)
+
+
+def test_kernel_takes_the_burn_in_head_dims():
+    """The JAX package runs its flash core at the burn-in's own head_dim:
+    ``BurninConfig()`` width and the health gate's burn-in
+    (k8s_operator_libs_tpu/tpu/health.py, d_model 64 over 4 heads)."""
+    gate_burnin = JaxBurninConfig(d_model=64, n_heads=4, d_ff=128, n_layers=1, seq_len=32)
+    for head_dim in (JaxBurninConfig().head_dim, BurninConfig().head_dim, gate_burnin.head_dim):
+        assert head_dim in port.KERNEL_HEAD_DIMS
+    assert 128 in port.KERNEL_HEAD_DIMS  # the probe's
+
+
+@pytest.mark.parametrize(
+    "bh,seq,causal,want",
+    [
+        (4, 1024, True, (4, 160)),  # the probe's shape: 64 blocks unsplit
+        (4, 1024, False, (4, 256)),
+        (32, 128, True, (0, 64)),  # BurninConfig() with the flash core
+        (32, 4096, True, (0, 2048)),  # enough Q tiles to fill the card
+        (2, 200, True, (0, 8)),  # one chunk would cover every range
+    ],
+)
+def test_split_plan(bh, seq, causal, want):
+    assert port.split_plan(bh, seq, causal, sms=132) == want
+
+
+@pytest.mark.parametrize("seq", [1, 63, 64, 65, 700, 1000, 1024])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_plan_counts_every_key_tile_once(seq, causal):
+    """The chunks of each Q tile cover its K/V tiles (those up to the
+    diagonal when causal) without overlap: the blocks' tiles add up."""
+    tile = port.KERNEL_TILE
+    split, blocks = port.split_plan(3, seq, causal, sms=132)
+    n = -(-seq // tile)
+    kv = [min(n, iq + 1) if causal else n for iq in range(n)]
+    if split == 0:
+        assert blocks == 3 * n
+        return
+    chunks = [-(-t // split) for t in kv]
+    assert blocks == 3 * sum(chunks)
+    for t, c in zip(kv, chunks):
+        bounds = [i * t // c for i in range(c + 1)]
+        assert bounds[0] == 0 and bounds[-1] == t
+        assert all(0 < hi - lo <= split for lo, hi in zip(bounds, bounds[1:]))
 
 
 def test_cpu_tensor_counts_no_launch():

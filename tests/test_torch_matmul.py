@@ -6,6 +6,7 @@ interpret mode on the same numpy inputs.
 """
 
 import re
+from collections import Counter
 
 import jax.numpy as jnp
 import numpy as np
@@ -130,7 +131,8 @@ def test_probe_cache_is_keyed_by_size_dtype_device():
 
 
 def test_probe_inputs_follow_the_numpy_seed():
-    a_lp, b_lp, b_scaled, reference = port._probe_inputs(64, torch.bfloat16, torch.device("cpu"))
+    entry = port._probe_entry(64, torch.bfloat16, torch.device("cpu"))
+    a_lp, b_lp, b_scaled, reference = entry.inputs
     rng = np.random.default_rng(0)
     a = rng.standard_normal((64, 64), dtype=np.float32)
     b = rng.standard_normal((64, 64), dtype=np.float32)
@@ -156,6 +158,114 @@ def test_chain_keeps_its_data_dependency():
         acc = acc.to(torch.bfloat16).float() @ b_t.float()
     got = port._chained_matmul(a_t, b_t, chain=3, use_pallas=True)
     assert float(got) == pytest.approx(float(acc[0, 0]), rel=1e-5, abs=1e-6)
+
+
+def test_chain_length_at_the_gate_size():
+    # 2.5e12 FLOP over 2 * 1024^3 a link.
+    assert port._auto_chain(1024, on_accel=True) == 1164
+
+
+def test_cpu_probe_runs_the_plain_loop_and_captures_no_graph(monkeypatch):
+    def no_graph(*args):
+        raise AssertionError("the CPU path captures no CUDA graph")
+
+    runs = []
+    real = port._chained_matmul
+
+    def spy(a, b, chain, use_pallas):
+        runs.append(chain)
+        return real(a, b, chain, use_pallas)
+
+    monkeypatch.setattr(port, "_chain_graph", no_graph)
+    monkeypatch.setattr(port, "_chained_matmul", spy)
+    report = port.mxu_probe(device="cpu", size=64, iters=3)
+    assert report.ok, report.error
+    assert runs == [1] * 4  # the warm-up and three timed runs, one link each
+    assert port._PROBE_CACHE[(64, str(torch.bfloat16), "cpu")].chains == {}
+
+
+class _FakeGraph:
+    def __init__(self):
+        self.replays = 0
+
+    def replay(self):
+        self.replays += 1
+
+
+def test_replay_counts_the_launches_the_graph_holds():
+    graph = _FakeGraph()
+    before, before_path = port.matmul.launches, port.matmul.path_launches["wgmma_128x64"]
+    port._replay_chain(port._ChainGraph(graph, Counter(wgmma_128x64=7)))
+    assert graph.replays == 1 and port.matmul.launches == before + 7
+    assert port.matmul.path_launches["wgmma_128x64"] == before_path + 7
+
+
+@pytest.mark.parametrize("held", [5, 3])
+def test_capture_keeps_the_count_the_wrapper_made(monkeypatch, held):
+    """A captured chain holds what the wrapper counted while capturing, not
+    the chain length it was asked for: a graph that took a different number
+    of launches replays that number."""
+
+    class _Capture:
+        def __init__(self, graph):
+            pass
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    capturing = []
+
+    def fake_chain(a, b, chain, use_pallas):
+        if capturing:
+            port.matmul.captured["wgmma_128x64"] += held
+        capturing.append(True)
+
+    monkeypatch.setattr(port, "_chained_matmul", fake_chain)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda device=None: None)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
+    monkeypatch.setattr(torch.cuda, "graph", _Capture)
+    entry = port._ProbeEntry((torch.zeros(2, 2), None, torch.zeros(2, 2), None))
+    chain_graph, captured = port._chain_graph(entry, chain=5)
+    assert captured and capturing == [True, True]  # warm-up, then the capture
+    assert chain_graph.launches == Counter(wgmma_128x64=held)
+    assert port._chain_graph(entry, chain=5) == (chain_graph, False)
+    assert entry.chains == {5: chain_graph}
+
+
+@pytest.mark.parametrize("captured", [True, False])
+def test_chain_runner_on_the_card_replays_the_captured_chain(monkeypatch, captured):
+    """Through the kernel on the card each timed run is one replay. The
+    warm-up is the run outside the capture when this call captured, else
+    one replay, so a probe adds 1 + (iters + 1) * chain launches."""
+    graph = _FakeGraph()
+    chain_graph = port._ChainGraph(graph, Counter(wgmma_128x64=5))
+    monkeypatch.setattr(port, "_chain_graph", lambda entry, chain: (chain_graph, captured))
+    a = torch.zeros(4, 4, dtype=torch.bfloat16)
+    entry = port._ProbeEntry((a, a, a, None))
+    before = port.matmul.launches
+    run = port._chain_runner(entry, chain=5, use_pallas=True, on_accel=True)
+    warm = 0 if captured else 1
+    assert graph.replays == warm and port.matmul.launches == before + 5 * warm
+    for _ in range(3):
+        run()
+    assert graph.replays == warm + 3 and port.matmul.launches == before + 5 * (warm + 3)
+
+
+def test_chain_runner_keeps_the_plain_loop_without_the_kernel(monkeypatch):
+    def no_graph(*args):
+        raise AssertionError("use_pallas=False captures no CUDA graph")
+
+    monkeypatch.setattr(port, "_chain_graph", no_graph)
+    a, b = _operands(16, 16, 16, seed=6)
+    a_t = torch.from_numpy(a).to(torch.bfloat16)
+    b_t = torch.from_numpy(b / 4).to(torch.bfloat16)
+    entry = port._ProbeEntry((a_t, None, b_t, None))
+    run = port._chain_runner(entry, chain=3, use_pallas=False, on_accel=True)
+    want = port._chained_matmul(a_t, b_t, 3, use_pallas=False)
+    assert float(run()) == float(want)
 
 
 def test_probe_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):

@@ -24,13 +24,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    must hold ``chain`` matmul launches by the wrapper's own count, and the
    matmul kernel must have run exactly ``1 + 4 * chain`` times (one
    numerics call, then the chain run once outside its graph and replayed
-   three times);
-5. the burn-in at ``BurninConfig()`` width: three train steps, the loss
+   three times). The gate forms a world of one NCCL rank process per card
+   for its collective battery and its sharded burn-in; neither launches a
+   kernel of the port, so the counts are the parent's;
+5. collectives phase, on an NCCL world of ``torch.cuda.device_count()``
+   ranks: the collective battery (``run_ici_probes``, all four ops ok, each
+   op's ``elapsed_s`` and the time of its call from here), the quick
+   battery twice, first and warm (checks ok, ``mxu_tflops`` and
+   ``probe_latency_s`` in its metrics), and the gate at ``tpu_defaults()``
+   twice (first and warm ``elapsed_s``: what forming the world costs), its
+   collectives ok. With two or more cards the per-link tier, the sharded
+   burn-in and the ring and Ulysses probes must be ok too; with one card a
+   line says they were not run;
+6. the burn-in at ``BurninConfig()`` width: three train steps, the loss
    finite and falling;
-6. the burn-in's forward at ``BurninConfig()`` width with the flash core
+7. the burn-in's forward at ``BurninConfig()`` width with the flash core
    (head_dim 32), counts set to 0 just before: the kernel runs once a
    layer and the logits match the plain core's;
-7. the CLI payload in a subprocess: its report must parse and be ok.
+8. the CLI payload in a subprocess: its report must parse and be ok.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a card,
@@ -274,6 +285,7 @@ def gate_phase(kernel_ms_at_gate_size: float) -> dict:
     import torch
 
     from k8s_operator_libs_tpu_torch.ops import matmul as matmul_mod
+    from k8s_operator_libs_tpu_torch.ops.collectives import run_ici_probes
     from k8s_operator_libs_tpu_torch.ops.flash_attention import flash_attention_probe
     from k8s_operator_libs_tpu_torch.ops.matmul import mxu_probe
     from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate
@@ -297,18 +309,22 @@ def gate_phase(kernel_ms_at_gate_size: float) -> dict:
     n = gate.matmul_size
     chain = matmul_mod._auto_chain(n, True)
 
-    # Where a warm gate run's wall time goes: each probe again, alone.
-    device = torch.device("cuda")
+    # Where a warm gate run's wall time goes: each probe again, alone, on
+    # the gate's own device (the matmul probe's inputs are cached by it).
+    device = gate.world_devices()[0]
+    world = gate._world
     breakdown = {}
     for name, probe in (
+        ("collective_battery", lambda: run_ici_probes(world, payload_mb=gate.payload_mb)),
         ("mxu_probe", lambda: mxu_probe(size=n, use_pallas=True, device=device)),
-        ("burnin", lambda: gate._burnin(device)),
+        ("burnin", lambda: gate._burnin(world)),
         ("flash_attention_probe", lambda: flash_attention_probe(device=device)),
     ):
         start = time.perf_counter()
         probe()
         torch.cuda.synchronize()
         breakdown[name] = time.perf_counter() - start
+    gate.close()
 
     # Is the timed chain bound by the host? Compare the time to enqueue one
     # replay of the captured chain with the time until it has run.
@@ -346,6 +362,97 @@ def gate_phase(kernel_ms_at_gate_size: float) -> dict:
             f"expected {info['matmul_expected_launches']}"
         )
     return launches
+
+
+def collectives_phase(card: str) -> dict:
+    """The collective battery, the quick battery and the gate's collectives
+    on an NCCL world of every card. Every line printed carries the card's
+    name and power limit."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.ops import collectives
+    from k8s_operator_libs_tpu_torch.ops.probe_harness import quick_battery
+    from k8s_operator_libs_tpu_torch.parallel.mesh import World, available_devices
+    from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate
+
+    def show(key: str, value) -> None:
+        print(json.dumps({key: value, "card": card}), flush=True)
+
+    n = torch.cuda.device_count()
+    version = torch.cuda.nccl.version()
+    show("nccl", {
+        "version": ".".join(map(str, version)) if isinstance(version, tuple) else version,
+        "world_size": n,
+    })
+    world = World(available_devices())
+    if world.backend != "nccl":
+        raise AssertionError(f"a world of cards joined through {world.backend}")
+    try:
+        start = time.perf_counter()
+        world.start()
+        form_s = time.perf_counter() - start
+        reports, ops = [], []
+        for check in (
+            collectives.psum_check,
+            collectives.all_gather_check,
+            collectives.reduce_scatter_check,
+            collectives.ppermute_ring,
+            collectives.psum_bandwidth,
+        ):
+            start = time.perf_counter()
+            reports.append(check(world, "x"))
+            ops.append({
+                **dataclasses.asdict(reports[-1]),
+                "call_s": time.perf_counter() - start,
+            })
+        show("collective_ops", {"world_form_s": form_s, "ops": ops})
+        battery = collectives.run_ici_probes(world)
+        if [r.op for r in battery] != ["psum", "all_gather", "reduce_scatter", "ppermute_ring"]:
+            raise AssertionError(f"battery ops: {[r.op for r in battery]}")
+        failed = [f"{r.op}: {r.error}" for r in reports + battery if not r.ok]
+        if failed:
+            raise AssertionError(f"collective battery failed: {failed}")
+        # First and warm: the first builds the 256^2 matmul probe's inputs
+        # and host reference, as the first run of a periodic loop does.
+        for run in ("first", "warm"):
+            quick = quick_battery(world)
+            show("quick_battery", {"run": run, **dataclasses.asdict(quick)})
+            if not quick.ok or not {"mxu_tflops", "probe_latency_s"} <= set(quick.metrics):
+                raise AssertionError(f"quick battery: {quick}")
+    finally:
+        world.close()
+
+    gate = IciHealthGate.tpu_defaults()
+    try:
+        first, warm = gate.run(), gate.run()
+    finally:
+        gate.close()
+    info = {
+        "first_elapsed_s": first.elapsed_s,
+        "warm_elapsed_s": warm.elapsed_s,
+        "collectives": [dataclasses.asdict(c) for c in warm.collectives],
+        "links": [dataclasses.asdict(h) for h in warm.links],
+        "burnin_ok": warm.burnin_ok,
+        "ring_attention": warm.ring_attention and dataclasses.asdict(warm.ring_attention),
+        "ulysses": warm.ulysses and dataclasses.asdict(warm.ulysses),
+    }
+    show("gate_collectives", info)
+    for report in (first, warm):
+        if not report.ok:
+            raise AssertionError(f"gate failed: {report.failures}")
+        if not report.collectives or not all(c.ok for c in report.collectives):
+            raise AssertionError(f"gate collectives: {report.collectives}")
+    if n < 2:
+        show("not_run", "the per-link tier, the ring floor, the dp x tp sharding of "
+             "the burn-in (dp 1 x tp 1 here) and the ring and Ulysses probes need "
+             "two or more cards; this machine has one")
+    else:
+        if len(warm.links) != n or not all(h.ok for h in warm.links):
+            raise AssertionError(f"per-link tier: {warm.links}")
+        if not (warm.ring_attention and warm.ring_attention.ok
+                and warm.ulysses and warm.ulysses.ok and warm.burnin_ok):
+            raise AssertionError("sharded burn-in or sequence-parallel probes failed")
+    return info
 
 
 def burnin_phase() -> list[float]:
@@ -456,6 +563,7 @@ def main() -> int:
     launches = gate_phase(
         next(r["ms"] for r in rows if r["name"] == "matmul" and r["shape"][0] == 1024)
     )
+    collectives_phase(card)
     burnin_phase()
     burnin_launches = burnin_flash_phase()
     cli_phase()

@@ -10,10 +10,15 @@ as its JAX counterpart and keeps its public names. The package imports
 Layout:
 
 * ``api``    — the telemetry metric keys the health report emits.
-* ``ops``    — the probes: the matmul probe around a hand-written CUDA
-  matmul kernel, the flash-attention probe around a hand-written CUDA
-  flash kernel (``ops/csrc``), the probe harness and the attention oracles.
-* ``models`` — the burn-in transformer the gate trains for two steps.
+* ``ops``    — the probes: the collective battery (NCCL), the matmul
+  probe around a hand-written CUDA matmul kernel, the flash-attention
+  probe around a hand-written CUDA flash kernel (``ops/csrc``), ring and
+  Ulysses attention, the probe harness with the quick battery, and the
+  attention oracles.
+* ``models`` — the burn-in transformer the gate trains for two steps,
+  sharded dp x tp over the cards.
+* ``parallel`` — the world of rank processes, one a card, and the process
+  groups of its mesh axes.
 * ``tpu``    — the health gate (``tpu/health.py``), its CLI payload and the
   subprocess gate.
 * ``utils``  — logging and device resolution.

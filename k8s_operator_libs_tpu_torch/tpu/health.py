@@ -1,4 +1,4 @@
-"""The post-upgrade health gate on one NVIDIA card.
+"""The post-upgrade health gate on a node's NVIDIA cards.
 
 The upgrade state machine lets a node back into service only after this
 battery passes on it (``IciHealthGate.validation_hook()`` plugs into
@@ -8,18 +8,23 @@ and prints one ``HealthReport`` JSON line that the control plane parses.
 The names, the report shape and the CLI flags are the JAX package's, so
 either package's report parses into the other's ``HealthReport``.
 
-On one device the battery is:
+The battery, in the JAX gate's order, on a world of one rank process per
+card (``parallel.mesh.World``: NCCL between cards, gloo between CPU ranks):
 
-1. **matmul probe** (``ops.matmul``): numerics-checked throughput of the
-   hand-written CUDA matmul kernel;
-2. **burn-in** (``models.burnin``): two train steps, the loss must fall;
-3. **flash-attention probe** (``ops.flash_attention``): numerics-checked
-   throughput of the hand-written CUDA flash kernel.
+1. **collective battery** (``ops.collectives``): psum, all_gather and
+   reduce_scatter checked exactly, the ring exchange timed; with more than
+   one card, the ring floor and each ring hop timed alone (per-link tier);
+2. **matmul probe** (``ops.matmul``): numerics-checked throughput of the
+   hand-written CUDA matmul kernel, on one card;
+3. **burn-in** (``models.burnin``): two train steps sharded dp x tp over
+   the world, the loss must fall;
+4. **ring and Ulysses attention probes** over the world, with more than
+   one card;
+5. **flash-attention probe** (``ops.flash_attention``): numerics-checked
+   throughput of the hand-written CUDA flash kernel, on one card.
 
-The collective battery, the per-link tier and the sequence-parallel probes
-need more than one device; this port runs on one so far
-(ROADMAP queue A, item A1), returns ``collectives=[]`` and ``links=[]``,
-and says so in its log.
+The world is formed at a gate's first run and serves its later runs; a
+world that fails is dropped and the next run forms a new one.
 """
 
 from __future__ import annotations
@@ -32,19 +37,21 @@ from typing import Optional, Protocol
 
 import torch
 
-from ..ops.collectives import CollectiveReport, LinkProbeReport
+from ..ops.collectives import (
+    CollectiveReport,
+    LinkProbeReport,
+    ppermute_per_link,
+    run_ici_probes,
+)
 from ..ops.flash_attention import FlashAttentionReport, flash_attention_probe
 from ..ops.matmul import MxuReport, mxu_probe
-from ..ops.ring_attention import RingAttentionReport
-from ..ops.ulysses import UlyssesReport
+from ..ops.ring_attention import RingAttentionReport, ring_attention_probe
+from ..ops.ulysses import UlyssesReport, ulysses_probe
+from ..parallel.mesh import World, available_devices
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.log import get_logger
 
 log = get_logger("tpu.health")
-
-_MULTI_DEVICE_ITEM = (
-    "ROADMAP queue A, item A1 (NCCL collective battery and multi-GPU gate)"
-)
 
 
 @dataclass
@@ -58,7 +65,7 @@ class HealthReport:
     flash: Optional[FlashAttentionReport] = None
     elapsed_s: float = 0.0
     failures: list[str] = field(default_factory=list)
-    #: Per-hop link reports; empty on one device.
+    #: Per-hop link reports; empty on one device or with the tier off.
     links: list[LinkProbeReport] = field(default_factory=list)
     #: Slice-wide gang battery only: how many processes formed the world
     #: and how many devices passed.
@@ -185,8 +192,8 @@ class HealthGate(Protocol):
 
 class IciHealthGate:
     """The health gate. The class keeps the JAX package's name so a reader
-    finds its counterpart; on the card it probes the tensor cores and the
-    burn-in, and the links once the multi-GPU tier lands."""
+    finds its counterpart; on the cards it probes the links, the tensor
+    cores, a sharded train step and attention."""
 
     def __init__(
         self,
@@ -199,13 +206,11 @@ class IciHealthGate:
         run_seq_parallel_probes: bool = False,
         run_flash_attention: bool = False,
         devices: Optional[list] = None,
-        device: DeviceLike = None,
+        local_device: DeviceLike = None,
         run_link_probes: bool = True,
         link_peer_names: Optional[list[str]] = None,
+        device: DeviceLike = None,
     ) -> None:
-        #: The ring floor, the payload and the link-tier knobs act only on
-        #: more than one device (ROADMAP queue A, item A1); they are kept
-        #: so that to_cli_args() and main() stay the JAX payload's.
         self.min_ring_gbytes_per_s = min_ring_gbytes_per_s
         self.min_mxu_tflops = min_mxu_tflops
         self.payload_mb = payload_mb
@@ -214,17 +219,22 @@ class IciHealthGate:
         #: Pallas); off, it runs the plain product.
         self.use_pallas_matmul = use_pallas_matmul
         self.run_burnin = run_burnin
+        #: Per-link tier: each ring hop timed alone, on more than one rank.
         self.run_link_probes = run_link_probes
+        #: Gang rank -> node name, for the link map's peer ids.
         self.link_peer_names = list(link_peer_names or []) or None
         self.run_seq_parallel_probes = run_seq_parallel_probes
         self.run_flash_attention = run_flash_attention
-        #: More than one device raises in run() until the multi-GPU slice.
+        #: The world's devices, one rank each; ``None`` means what
+        #: ``device`` names: every visible card (``None`` or ``cuda``), one
+        #: card (``cuda:<i>``) or one CPU rank (``cpu``).
         self.devices = devices
-        #: The device the probes run on (default ``cuda``).
         self.device = device
-        # (cfg, params, batch) keyed by device: the burn-in's inputs are the
-        # same on every run, so they are made once.
-        self._burnin_cache: dict[str, tuple] = {}
+        #: The device of the single-device probes (matmul, flash);
+        #: default the world's first.
+        self.local_device = local_device
+        # Formed at the first run and reused; dropped when it fails.
+        self._world: Optional[World] = None
 
     @classmethod
     def tpu_defaults(cls, **overrides) -> "IciHealthGate":
@@ -275,30 +285,80 @@ class IciHealthGate:
             args += ["--link-peers", ",".join(self.link_peer_names)]
         return args
 
-    def _single_device(self) -> torch.device:
-        if self.devices is not None and len(self.devices) > 1:
-            raise NotImplementedError(
-                f"the gate runs on one device so far; {len(self.devices)} "
-                f"devices need the multi-GPU battery: {_MULTI_DEVICE_ITEM}"
-            )
+    def world_devices(self) -> list[torch.device]:
+        """The devices the gate's world spans; asking for a card where none
+        is visible raises."""
         if self.devices:
-            return resolve_device(self.devices[0])
-        return resolve_device(self.device)
+            return [resolve_device(d) for d in self.devices]
+        return available_devices(self.device)
+
+    def _get_world(self, devices: list[torch.device]) -> World:
+        if self._world is not None and self._world.error is not None:
+            self._world = None
+        if self._world is None:
+            self._world = World(devices)
+        return self._world
+
+    def close(self) -> None:
+        """Stop the gate's world (the next run forms a new one)."""
+        if self._world is not None:
+            self._world.close()
+            self._world = None
 
     def run(self) -> HealthReport:
         start = time.perf_counter()
         failures: list[str] = []
-        device = self._single_device()
-        log.info(
-            "gate on one device (%s): the collective and per-link tiers need "
-            "more than one, so collectives=[] and links=[] (%s)",
-            device, _MULTI_DEVICE_ITEM,
+        devices = self.world_devices()
+        single_device = resolve_device(
+            self.local_device if self.local_device is not None else devices[0]
         )
+        world = self._get_world(devices)
+        n = world.size
+
+        collectives = run_ici_probes(world, "x", payload_mb=self.payload_mb)
+        for c in collectives:
+            if not c.ok:
+                failures.append(f"{c.op}: {c.error}")
+        ring = next((c for c in collectives if c.op == "ppermute_ring"), None)
+        # One rank has no links: the floor is met vacuously, not failed.
+        if (
+            ring is not None
+            and ring.ok
+            and n > 1
+            and self.min_ring_gbytes_per_s > 0
+            and ring.gbytes_per_s < self.min_ring_gbytes_per_s
+        ):
+            failures.append(
+                f"ring bandwidth {ring.gbytes_per_s:.2f} GB/s below floor "
+                f"{self.min_ring_gbytes_per_s:.2f}"
+            )
+
+        links: list[LinkProbeReport] = []
+        if self.run_link_probes and n > 1:
+            # A failed hop fails the gate like a failed collective; a slow
+            # one is a telemetry verdict, graded by the control plane.
+            from ..ops.collectives import make_peer_resolver
+
+            peer_of, owns_hop = make_peer_resolver(self.link_peer_names)
+            links = [
+                hop
+                for hop in ppermute_per_link(
+                    world, "x",
+                    payload_mb=min(self.payload_mb, 1.0),
+                    peer_of=peer_of,
+                )
+                if owns_hop(hop)
+            ]
+            for hop in links:
+                if not hop.ok:
+                    failures.append(
+                        f"link {hop.src}->{hop.dst} ({hop.peer}): {hop.error}"
+                    )
 
         mxu = mxu_probe(
             size=self.matmul_size,
             use_pallas=self.use_pallas_matmul,
-            device=device,
+            device=single_device,
         )
         if not mxu.ok:
             failures.append(f"mxu: {mxu.error}")
@@ -310,58 +370,68 @@ class IciHealthGate:
 
         burnin_ok: Optional[bool] = None
         if self.run_burnin:
-            burnin_ok = self._burnin(device)
+            burnin_ok = self._burnin(world)
             if not burnin_ok:
                 failures.append("burn-in train step failed")
 
+        ring_attn: Optional[RingAttentionReport] = None
+        ulysses: Optional[UlyssesReport] = None
         if self.run_seq_parallel_probes:
-            # Not a failure — there is no fabric to probe — but say so.
-            log.warning(
-                "seq-parallel probes skipped: a single device has no links "
-                "to exercise"
-            )
+            if n > 1:
+                ring_attn = ring_attention_probe(
+                    world, "x", seq_per_device=64, head_dim=32
+                )
+                if not ring_attn.ok:
+                    failures.append(f"ring attention: {ring_attn.error}")
+                ulysses = ulysses_probe(world, "x", seq_per_device=64, head_dim=32)
+                if not ulysses.ok:
+                    failures.append(f"ulysses: {ulysses.error}")
+            else:
+                # Not a failure (one card has no links to exercise), but
+                # said, so the empty fields do not read as "ran and passed".
+                log.warning(
+                    "seq-parallel probes skipped: a single device has no "
+                    "links to exercise"
+                )
 
         flash: Optional[FlashAttentionReport] = None
         if self.run_flash_attention:
-            flash = flash_attention_probe(device=device)
+            flash = flash_attention_probe(device=single_device)
             if not flash.ok:
                 failures.append(f"flash attention: {flash.error}")
 
+        # One node is one host: the slice-wide agreement across hosts
+        # (slice_agreement) waits for the multi-host gang.
         report = HealthReport(
             ok=not failures,
+            collectives=collectives,
             mxu=mxu,
             burnin_ok=burnin_ok,
+            ring_attention=ring_attn,
+            ulysses=ulysses,
             flash=flash,
+            links=links,
             elapsed_s=time.perf_counter() - start,
             failures=failures,
+            process_count=1,
         )
         log.info("health gate: %s", report.summary())
         return report
 
-    def _burnin(self, device: torch.device) -> bool:
-        """Two train steps of the gate's own small config; the loss must be
+    def _burnin(self, world: World) -> bool:
+        """Two train steps of the gate's small config, sharded dp x tp over
+        the world (tp 2 on an even number of ranks); the loss must be
         finite and fall."""
         try:
-            from ..models.burnin import (
-                BurninConfig,
-                init_params,
-                synthetic_batch,
-                train_step,
-            )
+            from ..models.burnin import BurninConfig, sharded_losses
 
-            key = str(device)
-            if key not in self._burnin_cache:
-                cfg = BurninConfig(
-                    d_model=64, n_heads=4, d_ff=128, n_layers=1,
-                    seq_len=32, batch=2,
-                )
-                params = init_params(torch.Generator().manual_seed(0), cfg, device)
-                batch = synthetic_batch(torch.Generator().manual_seed(1), cfg, device)
-                self._burnin_cache[key] = (cfg, params, batch)
-            cfg, params, batch = self._burnin_cache[key]
-            params, loss1 = train_step(params, batch, cfg)
-            _, loss2 = train_step(params, batch, cfg)
-            l1, l2 = float(loss1), float(loss2)
+            n = world.size
+            tp = 2 if n % 2 == 0 and n > 1 else 1
+            cfg = BurninConfig(
+                d_model=64, n_heads=4, d_ff=128, n_layers=1,
+                seq_len=32, batch=max(2, (n // tp) * 2),
+            )
+            l1, l2 = world.run(sharded_losses, {"dp": n // tp, "tp": tp}, cfg)[0]
             return math.isfinite(l1) and math.isfinite(l2) and l2 < l1
         except Exception as e:  # noqa: BLE001 - any crash = unhealthy node
             log.error("burn-in failed: %s", e)
@@ -380,6 +450,25 @@ class IciHealthGate:
             return report.ok
 
         return hook
+
+
+def cache_warmup_hook(gate: Optional[HealthGate] = None):
+    """Post-maintenance hook: run one battery while the node is still
+    drained, so the gate that follows finds its world formed and its
+    kernels built. A warm-up is not a gate: the result is logged and the
+    hook always reports done (an unhealthy node is the validation gate's
+    to catch)."""
+    warm_gate = gate or IciHealthGate()
+
+    def hook(node) -> bool:
+        report = warm_gate.run()
+        log.info(
+            "post-maintenance warm-up on node %s: %s",
+            node.name, report.summary(),
+        )
+        return True
+
+    return hook
 
 
 class SubprocessHealthGate:
@@ -564,7 +653,10 @@ def main(argv: Optional[list[str]] = None) -> int:
         run_link_probes=not args.no_link_probes,
         link_peer_names=[n for n in args.link_peers.split(",") if n] or None,
     )
-    report = gate.run()
+    try:
+        report = gate.run()
+    finally:
+        gate.close()
     print(json.dumps(dataclasses.asdict(report)), flush=True)
     if not report.ok:
         return 1

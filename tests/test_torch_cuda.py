@@ -1,8 +1,11 @@
-"""The port's CUDA kernels on the card, against their plain versions.
+"""The port's CUDA kernels on the card, against their plain versions, and
+its NCCL worlds.
 
-A CUDA kernel has no CPU mode, so every test here needs an NVIDIA card and
-``nvcc``; elsewhere each one skips (decided inside the fixture, never at
-import). On the card:
+A CUDA kernel has no CPU mode and NCCL needs cards, so every test here
+needs an NVIDIA card (and ``nvcc`` for the kernels); elsewhere each one
+skips (decided inside the fixture, never at import). The tests of a world
+of two or more cards skip, inside their fixture, on a one-card machine. On
+the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
@@ -15,6 +18,7 @@ import pytest
 import torch
 
 from k8s_operator_libs_tpu_torch.models import burnin
+from k8s_operator_libs_tpu_torch.ops import collectives
 from k8s_operator_libs_tpu_torch.ops import matmul as matmul_mod
 from k8s_operator_libs_tpu_torch.ops.flash_attention import (
     flash_attention,
@@ -27,6 +31,10 @@ from k8s_operator_libs_tpu_torch.ops.matmul import (
     matmul_reference,
     mxu_probe,
 )
+from k8s_operator_libs_tpu_torch.ops.probe_harness import quick_battery
+from k8s_operator_libs_tpu_torch.ops.ring_attention import ring_attention_probe
+from k8s_operator_libs_tpu_torch.ops.ulysses import ulysses_probe
+from k8s_operator_libs_tpu_torch.parallel.mesh import World
 from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate
 
 pytestmark = pytest.mark.cuda
@@ -195,3 +203,96 @@ def test_gate_on_card_launches_both_kernels(cuda):
     assert report.ok, report.failures
     assert matmul.launches == 1 + 4 * matmul_mod._auto_chain(256, True)
     assert flash_attention.launches == 4
+
+
+# ----------------------------------------------------------------------
+# NCCL worlds.
+# ----------------------------------------------------------------------
+
+BATTERY_OPS = ["psum", "all_gather", "reduce_scatter", "ppermute_ring"]
+
+
+@pytest.fixture(scope="module")
+def one_card_world():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA card: NCCL runs between cards")
+    world = World(["cuda:0"])
+    yield world
+    world.close()
+
+
+@pytest.fixture(scope="module")
+def cards_world():
+    if not torch.cuda.is_available() or torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more NVIDIA cards: links run between cards")
+    world = World([torch.device("cuda", i) for i in range(torch.cuda.device_count())])
+    yield world
+    world.close()
+
+
+def test_nccl_battery_on_one_card(one_card_world):
+    assert one_card_world.backend == "nccl"
+    reports = collectives.run_ici_probes(one_card_world)
+    assert [r.op for r in reports] == BATTERY_OPS
+    assert all(r.ok for r in reports), [r.error for r in reports]
+    assert reports[-1].error == "single device"
+    assert collectives.slice_agreement(one_card_world, "x", True) == (1, 1)
+
+
+def test_quick_battery_on_one_card(one_card_world):
+    report = quick_battery(one_card_world)
+    assert report.ok, report.error
+    assert report.checks == {"ring_allreduce": True, "mxu": True}
+    assert {"mxu_tflops", "probe_latency_s"} <= set(report.metrics)
+    assert report.links is None
+
+
+def test_gate_collectives_on_one_card(cuda):
+    gate = IciHealthGate.tpu_defaults(devices=["cuda:0"], matmul_size=256)
+    try:
+        first, warm = gate.run(), gate.run()
+    finally:
+        gate.close()
+    for report in (first, warm):
+        assert report.ok, report.failures
+        assert [c.op for c in report.collectives] == BATTERY_OPS
+        assert report.burnin_ok is True and report.links == []
+    assert warm.elapsed_s < first.elapsed_s
+
+
+def test_links_between_cards(cards_world):
+    hops = collectives.ppermute_per_link(cards_world, payload_mb=1.0)
+    n = cards_world.size
+    assert [(h.src, h.dst) for h in hops] == [(i, (i + 1) % n) for i in range(n)]
+    assert all(h.ok and h.gbytes_per_s > 0 for h in hops), [h.error for h in hops]
+    assert collectives.psum_bandwidth(cards_world).ok
+
+
+def test_sharded_burnin_between_cards(cards_world):
+    n = cards_world.size
+    tp = 2 if n % 2 == 0 else 1
+    cfg = burnin.BurninConfig(
+        d_model=64, n_heads=4, d_ff=128, n_layers=1, seq_len=32,
+        batch=max(2, (n // tp) * 2),
+    )
+    per_rank = cards_world.run(burnin.sharded_losses, {"dp": n // tp, "tp": tp}, cfg)
+    l1, l2 = per_rank[0]
+    assert all(losses == per_rank[0] for losses in per_rank)
+    assert math.isfinite(l1) and l2 < l1
+
+
+def test_seq_parallel_probes_between_cards(cards_world):
+    for probe in (ring_attention_probe, ulysses_probe):
+        report = probe(cards_world, "x", seq_per_device=64, head_dim=32)
+        assert report.ok and report.tokens_per_s > 0, report.error
+
+
+def test_gate_between_cards(cards_world):
+    gate = IciHealthGate.tpu_defaults(matmul_size=256)
+    try:
+        report = gate.run()
+    finally:
+        gate.close()
+    assert report.ok, report.failures
+    assert len(report.links) == torch.cuda.device_count()
+    assert report.ring_attention.ok and report.ulysses.ok and report.burnin_ok

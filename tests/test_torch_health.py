@@ -8,6 +8,7 @@ guard at the end checks.
 
 import ast
 import dataclasses
+import functools
 import json
 import os
 import subprocess
@@ -53,21 +54,59 @@ PORT_DIR = REPO / "k8s_operator_libs_tpu_torch"
 
 #: Small CPU gate: every tier of the one-device battery, quick.
 SMALL_GATE = dict(device="cpu", matmul_size=128)
+#: The collective battery's ops, in the JAX gate's order.
+BATTERY_OPS = ["psum", "all_gather", "reduce_scatter", "ppermute_ring"]
+#: Knobs both gates run on the CPU (no Pallas kernel, which has no CPU
+#: lowering outside interpret mode).
+PARITY_KNOBS = dict(payload_mb=0.1, matmul_size=128, run_seq_parallel_probes=True)
 
 
 @pytest.fixture(scope="module")
 def port_report():
-    report = port.IciHealthGate.tpu_defaults(**SMALL_GATE).run()
+    gate = port.IciHealthGate.tpu_defaults(**SMALL_GATE)
+    report = gate.run()
+    gate.close()
     assert report.ok, report.failures
     return report
+
+
+@pytest.fixture(scope="module")
+def gate_reports():
+    """n -> (the port's report on n CPU ranks, the JAX gate's on n CPU
+    devices), at ``PARITY_KNOBS``; each made once."""
+    made = {}
+
+    def get(n):
+        if n not in made:
+            gate = port.IciHealthGate(devices=["cpu"] * n, **PARITY_KNOBS)
+            ours = gate.run()
+            gate.close()
+            theirs = jax_health.IciHealthGate(
+                devices=jax.devices("cpu")[:n], **PARITY_KNOBS
+            ).run()
+            made[n] = (ours, theirs)
+        return made[n]
+
+    return get
 
 
 def test_gate_runs_ok_on_cpu(port_report):
     assert port_report.mxu.ok and port_report.mxu.tflops > 0
     assert port_report.burnin_ok is True
     assert port_report.flash.ok and port_report.flash.tokens_per_s > 0
-    assert port_report.collectives == [] and port_report.links == []
+    assert [c.op for c in port_report.collectives] == BATTERY_OPS
+    assert port_report.links == []
     assert port_report.process_count == 1 and port_report.failures == []
+
+
+def test_one_device_gate_runs_the_collective_battery_as_jax_does(gate_reports):
+    ours, theirs = gate_reports(1)
+    assert [(c.op, c.ok, c.error) for c in ours.collectives] == [
+        (c.op, c.ok, c.error) for c in theirs.collectives
+    ]
+    assert [c.op for c in ours.collectives] == BATTERY_OPS
+    assert all(c.ok for c in ours.collectives)
+    assert ours.collectives[-1].error == "single device"
 
 
 def test_tpu_defaults_turn_kernels_on_and_leave_floors_at_zero():
@@ -117,18 +156,14 @@ def test_jax_report_parses_into_port_report():
     assert ours.summary() == theirs.summary()
 
 
-def test_observation_keys_match_jax_for_the_tiers_both_ran(port_report):
-    cpus = jax.devices("cpu")[:1]
-    theirs = jax_health.IciHealthGate(
-        payload_mb=0.1, matmul_size=128, run_burnin=True, devices=cpus,
-    ).run()
-    assert theirs.ok, theirs.failures
-    collective_ops = {c.op for c in theirs.collectives}
-    our_checks, our_metrics = port_report.observation()
+@pytest.mark.parametrize("n", [1, 2])
+def test_observation_keys_match_jax_for_the_tiers_both_ran(gate_reports, n):
+    ours, theirs = gate_reports(n)
+    assert ours.ok and theirs.ok, (ours.failures, theirs.failures)
+    our_checks, our_metrics = ours.observation()
     their_checks, their_metrics = theirs.observation()
-    # The port ran no collective tier; flash ran only in the port.
-    assert set(their_checks) - collective_ops == set(our_checks) - {"flash_attention"}
-    assert set(their_metrics) - {"ring_gbytes_per_s"} == set(our_metrics) - {"tokens_per_s"}
+    assert our_checks == their_checks
+    assert set(our_metrics) == set(their_metrics)
 
 
 KNOBS = [
@@ -199,22 +234,40 @@ def test_gate_defaults_to_cuda_and_raises_without_a_card(monkeypatch):
         port.IciHealthGate(matmul_size=64).run()
 
 
-def test_more_than_one_device_names_the_roadmap_item():
-    gate = port.IciHealthGate(devices=["cpu", "cpu"], run_seq_parallel_probes=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gate.run()
+def test_more_than_one_device_names_the_roadmap_item(gate_reports):
+    """More than one device: an ok report with the JAX gate's collectives,
+    links and sequence-parallel fields."""
+    ours, theirs = gate_reports(2)
+    assert ours.ok, ours.failures
+    assert [(c.op, c.ok, c.error) for c in ours.collectives] == [
+        (c.op, c.ok, c.error) for c in theirs.collectives
+    ]
+    assert [(h.src, h.dst, h.peer, h.ok) for h in ours.links] == [
+        (h.src, h.dst, h.peer, h.ok) for h in theirs.links
+    ] == [(0, 1, "device-1", True), (1, 0, "device-0", True)]
+    for probe in ("ring_attention", "ulysses"):
+        mine, ref = getattr(ours, probe), getattr(theirs, probe)
+        assert mine.ok and ref.ok and mine.tokens_per_s > 0
+    assert ours.burnin_ok is theirs.burnin_ok is True
 
 
 def test_burnin_crash_is_a_failed_report(monkeypatch):
     from k8s_operator_libs_tpu_torch.models import burnin
 
-    def boom(*args, **kwargs):
-        raise RuntimeError("backward exploded")
-
-    monkeypatch.setattr(burnin, "train_step", boom)
-    report = port.IciHealthGate(device="cpu", matmul_size=64).run()
+    # A config its ranks cannot build: the burn-in raises in every rank.
+    monkeypatch.setattr(
+        burnin, "BurninConfig", functools.partial(burnin.BurninConfig, n_experts=2)
+    )
+    gate = port.IciHealthGate(device="cpu", matmul_size=64)
+    report = gate.run()
     assert not report.ok and report.burnin_ok is False
     assert "burn-in train step failed" in report.failures
+    assert all(c.ok for c in report.collectives)
+    # The world a rank failed in is dropped; the next run forms a new one.
+    monkeypatch.undo()
+    report = gate.run()
+    gate.close()
+    assert report.ok and report.burnin_ok is True, report.failures
 
 
 NS = "gpu-driver"
@@ -262,6 +315,21 @@ def test_failing_gate_keeps_nodes_out_of_service():
     states = _roll(gate.validation_hook(), max_passes=8)
     assert "upgrade-done" not in states.values()
     assert "validation-required" in states.values()
+
+
+def test_cache_warmup_hook_runs_the_gate_and_always_reports_done():
+    gate = port.IciHealthGate(
+        device="cpu", matmul_size=64, run_burnin=False, min_mxu_tflops=1e9
+    )
+    hook = port.cache_warmup_hook(gate)
+    try:
+        assert hook(make_node("gpu-0")) is True
+        # The warm-up formed the gate's world; the gate's own run reuses it.
+        world = gate._world
+        assert world is not None and world.error is None
+        assert not gate.run().ok and gate._world is world
+    finally:
+        gate.close()
 
 
 def test_subprocess_gate_runs_the_port_payload():

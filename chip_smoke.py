@@ -32,7 +32,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    op's ``elapsed_s`` and the time of its call from here), the quick
    battery twice, first and warm (checks ok, ``mxu_tflops`` and
    ``probe_latency_s`` in its metrics), and the gate at ``tpu_defaults()``
-   twice (first and warm ``elapsed_s``: what forming the world costs), its
+   twice (first and warm ``elapsed_s``: what forming the world costs, with
+   the world's own split of it into spawn and import, device context,
+   process-group join and first all-reduce), its
    collectives ok. With two or more cards the per-link tier, the sharded
    burn-in and the ring and Ulysses probes must be ok too; with one card a
    line says they were not run;
@@ -329,7 +331,7 @@ def gate_phase(kernel_ms_at_gate_size: float) -> dict:
     # Is the timed chain bound by the host? Compare the time to enqueue one
     # replay of the captured chain with the time until it has run.
     entry = matmul_mod._probe_entry(n, torch.bfloat16, device)
-    chain_graph, _ = matmul_mod._chain_graph(entry, chain)
+    chain_graph, _ = matmul_mod._chain_graph(entry, chain, use_pallas=True)
     torch.cuda.synchronize()
     start = time.perf_counter()
     matmul_mod._replay_chain(chain_graph)
@@ -405,7 +407,9 @@ def collectives_phase(card: str) -> dict:
                 **dataclasses.asdict(reports[-1]),
                 "call_s": time.perf_counter() - start,
             })
-        show("collective_ops", {"world_form_s": form_s, "ops": ops})
+        show("collective_ops", {
+            "world_form_s": form_s, "world_form_phases_s": world.form_times, "ops": ops,
+        })
         battery = collectives.run_ici_probes(world)
         if [r.op for r in battery] != ["psum", "all_gather", "reduce_scatter", "ppermute_ring"]:
             raise AssertionError(f"battery ops: {[r.op for r in battery]}")
@@ -425,11 +429,13 @@ def collectives_phase(card: str) -> dict:
     gate = IciHealthGate.tpu_defaults()
     try:
         first, warm = gate.run(), gate.run()
+        form_phases = gate._world.form_times
     finally:
         gate.close()
     info = {
         "first_elapsed_s": first.elapsed_s,
         "warm_elapsed_s": warm.elapsed_s,
+        "world_form_phases_s": form_phases,
         "collectives": [dataclasses.asdict(c) for c in warm.collectives],
         "links": [dataclasses.asdict(h) for h in warm.links],
         "burnin_ok": warm.burnin_ok,

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Callable, Optional, Sequence, Union
+from typing import Callable, Optional, Union
 
 import numpy as np
 import torch
@@ -236,39 +236,23 @@ def default_peer_name(rank: int) -> str:
 
 def make_peer_resolver(
     member_names: Optional[list] = None,
-    rank_hosts: Optional[Sequence[int]] = None,
-    my_host: int = 0,
 ) -> tuple[Callable[[int], str], Callable[[LinkProbeReport], bool]]:
     """The one peer-id policy every battery shape shares, so the full gate
     and the quick battery emit the same link-map keys. Returns
-    ``(peer_of, owns_hop)``:
+    ``(peer_of, owns_hop)``: ``peer_of(rank)`` is the rank's link-map peer
+    id and ``owns_hop(hop)`` says whether this host publishes the hop.
 
-    * ``peer_of(rank)``: a rank on another host resolves to
-      ``member_names[host]`` (gang rank -> node name) when that host is
-      covered; ranks on this host, and uncovered hosts, keep
-      :func:`default_peer_name`;
-    * ``owns_hop(hop)``: True for hops whose source rank is on this host,
-      so each host publishes its own outgoing links.
-
-    ``rank_hosts[r]`` is the host index of rank ``r``; without it every
-    rank is on this host, as in one node's world.
+    A world spans one node, so every rank is on this host: each keeps its
+    :func:`default_peer_name` tag and every hop is this host's own.
+    ``member_names`` (gang rank -> node name) names ranks on other hosts
+    once a world spans hosts; until then it resolves no rank.
     """
 
-    def host_of(rank: int) -> int:
-        return my_host if rank_hosts is None else rank_hosts[rank]
-
     def peer_of(rank: int) -> str:
-        host = host_of(rank)
-        if (
-            member_names is not None
-            and host != my_host
-            and 0 <= host < len(member_names)
-        ):
-            return str(member_names[host])
         return default_peer_name(rank)
 
     def owns_hop(hop: LinkProbeReport) -> bool:
-        return host_of(hop.src) == my_host
+        return True
 
     return peer_of, owns_hop
 
@@ -397,28 +381,18 @@ def slice_agreement(world: World, axis: str = "x", local_ok: bool = True) -> tup
 
 
 def run_ici_probes(
-    world: Optional[World] = None,
+    world: World,
     axis: str = "x",
     payload_mb: float = 4.0,
 ) -> list[CollectiveReport]:
-    """The collective battery over one axis: psum, all_gather and
-    reduce_scatter checked exactly, and the ring exchange timed. With no
-    world given, every visible card forms one for this call."""
-    own = world is None
-    if own:
-        from ..parallel.mesh import available_devices
-
-        world = World(available_devices())
-    try:
-        reports = [
-            psum_check(world, axis),
-            all_gather_check(world, axis),
-            reduce_scatter_check(world, axis),
-            ppermute_ring(world, axis, payload_mb=payload_mb),
-        ]
-    finally:
-        if own:
-            world.close()
+    """The collective battery over one axis of ``world``: psum, all_gather
+    and reduce_scatter checked exactly, and the ring exchange timed."""
+    reports = [
+        psum_check(world, axis),
+        all_gather_check(world, axis),
+        reduce_scatter_check(world, axis),
+        ppermute_ring(world, axis, payload_mb=payload_mb),
+    ]
     for r in reports:
         log.info(
             "collective probe %s: %s%s",

@@ -138,11 +138,11 @@ class _ChainGraph:
 class _ProbeEntry:
     """The probe's inputs for one (size, dtype, device): ``inputs`` is
     (a_lp, b_lp, b_scaled, reference). ``chains`` holds the chains
-    captured over these very tensors, by length, so the graphs live as
-    long as the memory they read."""
+    captured over these very tensors, by (length, ``use_pallas``), so the
+    graphs live as long as the memory they read."""
 
     inputs: tuple
-    chains: dict[int, _ChainGraph] = field(default_factory=dict)
+    chains: dict[tuple[int, bool], _ChainGraph] = field(default_factory=dict)
 
 
 #: (size, dtype, device) -> _ProbeEntry. The probe's inputs are fixed
@@ -176,38 +176,41 @@ def _replay_chain(chain_graph: _ChainGraph) -> None:
     _count_launches(chain_graph.launches)
 
 
-def _chain_graph(entry: _ProbeEntry, chain: int) -> tuple[_ChainGraph, bool]:
-    """The ``chain`` links of :func:`_chained_matmul` through the kernel as
-    one CUDA graph, so that each timed run is one launch from the host and
-    the host's dispatch stays out of the rate, as the JAX package's single
-    compiled ``fori_loop`` keeps it out. Captured at the first call for an
-    entry and a chain length, after one run of the chain outside the
-    capture (the warm-up: it loads the kernel and does the library's
-    one-time set-up), and kept in ``entry``; the second value says whether
-    this call captured."""
-    cached = entry.chains.get(chain)
+def _chain_graph(
+    entry: _ProbeEntry, chain: int, use_pallas: bool
+) -> tuple[_ChainGraph, bool]:
+    """The ``chain`` links of :func:`_chained_matmul`, through the kernel or
+    the plain product, as one CUDA graph, so that each timed run is one
+    launch from the host and the host's dispatch stays out of the rate, as
+    the JAX package's single compiled ``fori_loop`` keeps it out. Captured
+    at the first call for an entry, a chain length and a product, after
+    one run of the chain outside the capture (the warm-up: it loads the
+    kernel and does the library's one-time set-up), and kept in
+    ``entry``; the second value says whether this call captured."""
+    key = (chain, use_pallas)
+    cached = entry.chains.get(key)
     if cached is not None:
         return cached, False
     a, _, b, _ = entry.inputs
-    _chained_matmul(a, b, chain, use_pallas=True)
+    _chained_matmul(a, b, chain, use_pallas)
     torch.cuda.synchronize(a.device)
     graph = torch.cuda.CUDAGraph()
     before = Counter(matmul.captured)
     with torch.cuda.graph(graph):
-        _chained_matmul(a, b, chain, use_pallas=True)
+        _chained_matmul(a, b, chain, use_pallas)
     cached = _ChainGraph(graph, matmul.captured - before)
-    entry.chains[chain] = cached
+    entry.chains[key] = cached
     return cached, True
 
 
 def _chain_runner(
     entry: _ProbeEntry, chain: int, use_pallas: bool, on_accel: bool
 ) -> Callable[[], object]:
-    """What one timed run executes, warmed up once. Through the kernel on
-    the card: a replay of the captured chain (the capture's own warm-up
-    run, or one replay, is the warm-up). Otherwise the plain loop."""
-    if on_accel and use_pallas:
-        chain_graph, captured = _chain_graph(entry, chain)
+    """What one timed run executes, warmed up once. On the card: a replay
+    of the captured chain (the capture's own warm-up run, or one replay,
+    is the warm-up). On the CPU: the plain loop."""
+    if on_accel:
+        chain_graph, captured = _chain_graph(entry, chain, use_pallas)
 
         def replay() -> None:
             _replay_chain(chain_graph)

@@ -104,22 +104,13 @@ def run_checked_probe(
 
 
 def run_world_probe(world, fn: Callable, *args) -> ProbeReport:
-    """A probe run by ``fn(*args)`` in every rank of ``world`` (default:
-    every visible card, for this call), as one report: the ranks agree on
-    the numbers, so the first failure or rank 0's report. A failed world is
-    a failed report."""
-    from ..parallel.mesh import World, available_devices
-
-    own = world is None
+    """A probe run by ``fn(*args)`` in every rank of ``world``, as one
+    report: the ranks agree on the numbers, so the first failure or rank
+    0's report. A failed world is a failed report."""
     try:
-        if own:
-            world = World(available_devices())
         reports = world.run(fn, *args)
     except Exception as e:  # noqa: BLE001 - a dead link is a failed probe
         return ProbeReport(ok=False, error=str(e))
-    finally:
-        if own and world is not None:
-            world.close()
     return next((r for r in reports if not r.ok), reports[0])
 
 
@@ -145,7 +136,7 @@ class QuickBatteryReport:
 
 
 def quick_battery(
-    world=None,
+    world,
     axis: str = "x",
     payload_mb: float = 0.25,
     matmul_size: int = 256,
@@ -161,9 +152,8 @@ def quick_battery(
     purpose, as in the JAX package (no kernel, burn-in or attention here).
 
     ``peer_of`` maps destination ranks to link-map peer ids;
-    ``link_src_filter`` keeps only the hops this caller owns. With no world
-    given, every visible card forms one for this call. Failures degrade to
-    verdicts, never raise.
+    ``link_src_filter`` keeps only the hops this caller owns. Failures
+    degrade to verdicts, never raise.
     """
     from ..api.telemetry_v1alpha1 import (
         METRIC_MXU_TFLOPS,
@@ -172,7 +162,6 @@ def quick_battery(
         METRIC_WORST_LINK_GBYTES_PER_S,
         METRIC_WORST_LINK_LATENCY_S,
     )
-    from ..parallel.mesh import World, available_devices
     from .collectives import ppermute_per_link, psum_bandwidth
     from .matmul import mxu_probe
 
@@ -181,10 +170,7 @@ def quick_battery(
     metrics: dict[str, float] = {}
     links: Optional[dict[str, dict]] = None
     error = ""
-    own = world is None
     try:
-        if own:
-            world = World(available_devices())
         ring = psum_bandwidth(world, axis, payload_mb=payload_mb)
         checks["ring_allreduce"] = ring.ok
         if ring.gbytes_per_s:
@@ -194,7 +180,7 @@ def quick_battery(
     except Exception as e:  # noqa: BLE001 - a failed probe is a verdict
         checks["ring_allreduce"] = False
         error = str(e)
-    if probe_links and world is not None:
+    if probe_links:
         try:
             hops = ppermute_per_link(
                 world, axis, payload_mb=payload_mb, peer_of=peer_of
@@ -223,8 +209,9 @@ def quick_battery(
                 error = str(e)
     if run_matmul:
         try:
-            device = world.devices[0] if world is not None else None
-            mxu = mxu_probe(size=matmul_size, use_pallas=False, device=device)
+            mxu = mxu_probe(
+                size=matmul_size, use_pallas=False, device=world.devices[0]
+            )
             checks["mxu"] = mxu.ok
             if mxu.ok and mxu.tflops:
                 metrics[METRIC_MXU_TFLOPS] = round(mxu.tflops, 4)
@@ -234,8 +221,6 @@ def quick_battery(
             checks["mxu"] = False
             if not error:
                 error = str(e)
-    if own and world is not None:
-        world.close()
     elapsed = time.perf_counter() - start
     metrics[METRIC_PROBE_LATENCY_S] = round(elapsed, 4)
     ok = all(checks.values()) if checks else False
@@ -252,7 +237,7 @@ def quick_battery(
 
 
 def slice_gang_quick_battery(
-    world=None,
+    world,
     axis: str = "x",
     member_names: Optional[list] = None,
     payload_mb: float = 0.25,
@@ -278,12 +263,11 @@ def slice_gang_quick_battery(
 
 
 def run_quick_probe_cycle(
-    publisher,
-    battery: Optional[Callable[[], QuickBatteryReport]] = None,
+    publisher, battery: Callable[[], QuickBatteryReport]
 ) -> QuickBatteryReport:
-    """One quick-probe publish cycle: run the battery (injectable, for a
-    world built in advance) and hand its checks, metrics and link map to
-    ``publisher.publish``."""
-    report = battery() if battery is not None else quick_battery()
+    """One quick-probe publish cycle: run ``battery`` (a quick battery over
+    a world the caller keeps, e.g. ``lambda: quick_battery(world)``) and
+    hand its checks, metrics and link map to ``publisher.publish``."""
+    report = battery()
     publisher.publish(report.checks, report.metrics, links=report.links)
     return report

@@ -172,7 +172,7 @@ def _ring_probe_rank(axis: str, batch: int, heads: int, seq_per_device: int,
 
 
 def ring_attention_probe(
-    world=None,
+    world,
     axis: str = "sp",
     *,
     batch: int = 2,

@@ -123,7 +123,7 @@ def _ulysses_probe_rank(axis: str, batch: int, heads: int, seq_per_device: int,
 
 
 def ulysses_probe(
-    world=None,
+    world,
     axis: str = "sp",
     *,
     batch: int = 2,

@@ -100,6 +100,9 @@ class World:
         self.call_timeout_s = call_timeout_s
         #: Why the world went down; every later call raises with it.
         self.error: Optional[str] = None
+        #: Where forming the world went, in seconds, each phase the slowest
+        #: rank's (:data:`FORM_PHASES`); empty until the world has formed.
+        self.form_times: dict[str, float] = {}
         self._procs: list = []
         self._conns: list = []
         self._dir: Optional[str] = None
@@ -129,6 +132,8 @@ class World:
         self._finalizer = weakref.finalize(
             self, _shutdown, self._procs, self._conns, self._dir
         )
+        spawned = time.time()
+        start = time.perf_counter()
         for rank in range(self.size):
             parent, child = ctx.Pipe()
             proc = ctx.Process(
@@ -141,11 +146,13 @@ class World:
             child.close()
             self._procs.append(proc)
             self._conns.append(parent)
-        start = time.perf_counter()
-        self._gather("forming the world", self.form_timeout_s)
+        stamps = self._gather("forming the world", self.form_timeout_s)
+        self.form_times = _form_times(spawned, stamps)
+        self.form_times["total"] = time.perf_counter() - start
         log.info(
-            "world of %d %s rank(s) formed in %.2f s",
-            self.size, self.backend, time.perf_counter() - start,
+            "world of %d %s rank(s) formed in %.2f s (%s)",
+            self.size, self.backend, self.form_times["total"],
+            ", ".join(f"{k} {v:.2f} s" for k, v in self.form_times.items()),
         )
         return self
 
@@ -215,6 +222,25 @@ class World:
         raise WorldError(message)
 
 
+#: The phases of forming a world, each timed in every rank: from the spawn
+#: until the rank runs (a new interpreter, ``import torch`` and this
+#: package), the device's context, joining the process group (NCCL makes
+#: its communicator here), and the first all-reduce.
+FORM_PHASES = ("spawn_import", "device_context", "group_init", "first_collective")
+
+
+def _form_times(spawned: float, stamps: Sequence[Sequence[float]]) -> dict[str, float]:
+    """Each phase's seconds in the slowest rank, from the wall-clock stamps
+    each rank took at the end of each phase (the host's clock, which the
+    ranks share)."""
+    times: dict[str, float] = {}
+    for i, phase in enumerate(FORM_PHASES):
+        times[phase] = max(
+            rank[i] - (rank[i - 1] if i else spawned) for rank in stamps
+        )
+    return times
+
+
 def _shutdown(procs, conns, directory, graceful: bool = True) -> None:
     if graceful:
         for conn in conns:
@@ -242,7 +268,9 @@ def _shutdown(procs, conns, directory, graceful: bool = True) -> None:
 def _rank_main(rank: int, devices: list[str], init_method: str,
                timeout_s: float, conn) -> None:
     """A rank process: join the group, then run what the world sends until
-    it sends ``None`` or goes away."""
+    it sends ``None`` or goes away. Its answer to the join is the wall-clock
+    time at the end of each of :data:`FORM_PHASES`."""
+    stamps = [time.time()]
     device = torch.device(devices[rank])
     try:
         options: dict = {}
@@ -250,12 +278,14 @@ def _rank_main(rank: int, devices: list[str], init_method: str,
             # A peer that dies makes a collective raise instead of block.
             os.environ.setdefault("TORCH_NCCL_ASYNC_ERROR_HANDLING", "1")
             torch.cuda.set_device(device)
+            torch.empty(1, device=device)  # the context, made here to time it
             backend = "nccl"
             options["device_id"] = device
         else:
             # Ranks share the host's cores with each other and the caller.
             torch.set_num_threads(1)
             backend = "gloo"
+        stamps.append(time.time())
         dist.init_process_group(
             backend,
             init_method=init_method,
@@ -264,14 +294,16 @@ def _rank_main(rank: int, devices: list[str], init_method: str,
             timeout=timedelta(seconds=timeout_s),
             **options,
         )
+        stamps.append(time.time())
         joined = torch.ones(1, device=device)
         dist.all_reduce(joined)
         if int(joined.item()) != len(devices):
             raise RuntimeError(f"{int(joined.item())} of {len(devices)} ranks joined")
+        stamps.append(time.time())
     except Exception:  # noqa: BLE001 - reported to the world, which fails
         conn.send(("error", traceback.format_exc()))
         return
-    conn.send(("ok", None))
+    conn.send(("ok", stamps))
     try:
         while True:
             try:

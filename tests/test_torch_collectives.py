@@ -20,7 +20,7 @@ from k8s_operator_libs_tpu.ops import probe_harness as jax_harness
 from k8s_operator_libs_tpu.parallel.mesh import single_axis_mesh as jax_mesh
 from k8s_operator_libs_tpu_torch.ops import collectives as port
 from k8s_operator_libs_tpu_torch.ops import probe_harness as port_harness
-from k8s_operator_libs_tpu_torch.parallel.mesh import World, WorldError
+from k8s_operator_libs_tpu_torch.parallel.mesh import FORM_PHASES, World, WorldError
 
 try:
     from jax import shard_map
@@ -124,13 +124,15 @@ def test_peer_resolver_matches_jax(pair):
     assert all(our_owns(h) and jax_owns(h) for h in hops)
 
 
-def test_peer_resolver_names_ranks_on_other_hosts():
-    peer_of, owns_hop = port.make_peer_resolver(
-        ["node-a", "node-b"], rank_hosts=[0, 0, 1, 1], my_host=0
-    )
-    assert [peer_of(r) for r in range(4)] == ["device-0", "device-1", "node-b", "node-b"]
-    hop = port.LinkProbeReport(src=2, dst=3, peer="node-b", ok=True)
-    assert not owns_hop(hop)
+def test_world_times_each_phase_of_forming(pair):
+    world, _ = pair
+    world.start()
+    assert list(world.form_times) == [*FORM_PHASES, "total"]
+    total = world.form_times["total"]
+    assert total > 0 and world.form_times["spawn_import"] > 0
+    # Each phase is one rank's stretch of what the caller waited for; the
+    # ranks' clock is the host's, read apart by a few milliseconds at most.
+    assert all(0 <= v <= total + 0.5 for v in world.form_times.values())
 
 
 def test_slice_agreement(pair):

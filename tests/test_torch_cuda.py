@@ -194,7 +194,21 @@ def test_probe_chain_is_one_graph_replay(cuda):
         assert report.tflops > 0
         assert matmul.launches - before == 1 + (iters + 1) * chain
     entry = matmul_mod._probe_entry(size, torch.bfloat16, cuda)
-    assert sum(entry.chains[chain].launches.values()) == chain
+    assert sum(entry.chains[(chain, True)].launches.values()) == chain
+
+
+def test_plain_probe_chain_is_one_graph_replay(cuda):
+    """The quick battery's plain 256^2 chain is captured too, so its rate is
+    the card's: the plain product launches no kernel of ours."""
+    size = 256
+    chain = matmul_mod._auto_chain(size, True)
+    before = matmul.launches
+    report = mxu_probe(size=size, use_pallas=False, device=cuda)
+    assert report.ok, report.error
+    assert matmul.launches == before
+    entry = matmul_mod._probe_entry(size, torch.bfloat16, cuda)
+    assert (chain, False) in entry.chains
+    assert not entry.chains[(chain, False)].launches
 
 
 def test_gate_on_card_launches_both_kernels(cuda):

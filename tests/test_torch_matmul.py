@@ -228,11 +228,11 @@ def test_capture_keeps_the_count_the_wrapper_made(monkeypatch, held):
     monkeypatch.setattr(torch.cuda, "CUDAGraph", _FakeGraph)
     monkeypatch.setattr(torch.cuda, "graph", _Capture)
     entry = port._ProbeEntry((torch.zeros(2, 2), None, torch.zeros(2, 2), None))
-    chain_graph, captured = port._chain_graph(entry, chain=5)
+    chain_graph, captured = port._chain_graph(entry, chain=5, use_pallas=True)
     assert captured and capturing == [True, True]  # warm-up, then the capture
     assert chain_graph.launches == Counter(wgmma_128x64=held)
-    assert port._chain_graph(entry, chain=5) == (chain_graph, False)
-    assert entry.chains == {5: chain_graph}
+    assert port._chain_graph(entry, chain=5, use_pallas=True) == (chain_graph, False)
+    assert entry.chains == {(5, True): chain_graph}
 
 
 @pytest.mark.parametrize("captured", [True, False])
@@ -242,7 +242,9 @@ def test_chain_runner_on_the_card_replays_the_captured_chain(monkeypatch, captur
     one replay, so a probe adds 1 + (iters + 1) * chain launches."""
     graph = _FakeGraph()
     chain_graph = port._ChainGraph(graph, Counter(wgmma_128x64=5))
-    monkeypatch.setattr(port, "_chain_graph", lambda entry, chain: (chain_graph, captured))
+    monkeypatch.setattr(
+        port, "_chain_graph", lambda entry, chain, use_pallas: (chain_graph, captured)
+    )
     a = torch.zeros(4, 4, dtype=torch.bfloat16)
     entry = port._ProbeEntry((a, a, a, None))
     before = port.matmul.launches
@@ -254,18 +256,43 @@ def test_chain_runner_on_the_card_replays_the_captured_chain(monkeypatch, captur
     assert graph.replays == warm + 3 and port.matmul.launches == before + 5 * (warm + 3)
 
 
-def test_chain_runner_keeps_the_plain_loop_without_the_kernel(monkeypatch):
+@pytest.mark.parametrize("use_pallas", [True, False])
+def test_chain_runner_keeps_the_plain_loop_without_the_kernel(monkeypatch, use_pallas):
+    """Off the card there is no graph to capture: each timed run is the
+    loop itself, through the kernel's plain version or the plain product."""
+
     def no_graph(*args):
-        raise AssertionError("use_pallas=False captures no CUDA graph")
+        raise AssertionError("the CPU captures no CUDA graph")
 
     monkeypatch.setattr(port, "_chain_graph", no_graph)
     a, b = _operands(16, 16, 16, seed=6)
     a_t = torch.from_numpy(a).to(torch.bfloat16)
     b_t = torch.from_numpy(b / 4).to(torch.bfloat16)
     entry = port._ProbeEntry((a_t, None, b_t, None))
-    run = port._chain_runner(entry, chain=3, use_pallas=False, on_accel=True)
+    run = port._chain_runner(entry, chain=3, use_pallas=use_pallas, on_accel=False)
     want = port._chained_matmul(a_t, b_t, 3, use_pallas=False)
     assert float(run()) == float(want)
+
+
+def test_chain_runner_on_the_card_captures_the_plain_chain_too(monkeypatch):
+    """The plain product's chain is one graph replay on the card as well, so
+    the quick battery's rate is the card's and not the host's dispatch."""
+    graph = _FakeGraph()
+    asked = []
+
+    def fake_graph(entry, chain, use_pallas):
+        asked.append((chain, use_pallas))
+        return port._ChainGraph(graph, Counter()), True
+
+    monkeypatch.setattr(port, "_chain_graph", fake_graph)
+    a = torch.zeros(4, 4, dtype=torch.bfloat16)
+    entry = port._ProbeEntry((a, a, a, None))
+    before = port.matmul.launches
+    run = port._chain_runner(entry, chain=7, use_pallas=False, on_accel=True)
+    run()
+    assert asked == [(7, False)] and graph.replays == 1
+    # The plain product launches no kernel of ours, so nothing is counted.
+    assert port.matmul.launches == before
 
 
 def test_probe_without_a_card_raises_instead_of_using_the_cpu(monkeypatch):

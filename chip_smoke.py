@@ -43,7 +43,22 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. the burn-in's forward at ``BurninConfig()`` width with the flash core
    (head_dim 32), counts set to 0 just before: the kernel runs once a
    layer and the logits match the plain core's;
-8. the CLI payload in a subprocess: its report must parse and be ok.
+8. the CLI payload in a subprocess: its report must parse and be ok;
+9. device-class phase (the GPU node roll's probe pod): the node's GPU
+   Feature Discovery labels built from the card's own facts must make the
+   node detector see a GPU node of ``torch.cuda.device_count()`` cards;
+   the validation pod built for it must ask for that many
+   ``nvidia.com/gpu``; and its container command runs as a kubelet would
+   (``python`` is this interpreter, the container's environment applies
+   with the kernel-cache host path mapped to a temporary directory, the
+   ready file lies in a temporary directory), twice on one cache: cold
+   (``nvcc`` runs inside the pod) and warm. Each run must write its ready
+   file within ``POD_READY_TIMEOUT_S``, print an ok report with the
+   matmul and flash probes ok, launch each kernel as often as the gate
+   phase did (the payload's own counts, from its stderr line) and still
+   be alive (parked) after; then it is stopped. The line
+   ``{"device_class": ...}`` gives the seconds to Ready, the report's
+   ``elapsed_s``, ``mxu_tflops``, flash ok and the build seconds of each.
 
 The last lines are the kernel table as one JSON object, the card's name
 and power limit, and ``{"ok": true, "device": {...}}``. Without a card,
@@ -103,6 +118,8 @@ FLASH_CASES = (
     ((2, 16, 4096, 128), True),
 )
 CLI_TIMEOUT_S = 600
+#: Seconds a probe pod's payload may take to write its ready file.
+POD_READY_TIMEOUT_S = 600
 
 
 def card_line() -> str:
@@ -542,6 +559,134 @@ def cli_phase() -> None:
         raise AssertionError(f"CLI gate failed: {report.failures}")
 
 
+def _last_json(path: str, key: str = "") -> dict:
+    with open(path) as f:
+        for line in reversed(f.read().splitlines()):
+            if line.startswith("{") and (not key or key in json.loads(line)):
+                return json.loads(line)
+    raise AssertionError(f"no JSON line{' with ' + key if key else ''} in {path}")
+
+
+def run_probe_pod(container: dict, host_paths: dict, workdir: str, label: str) -> dict:
+    """Run the pod's container command as the kubelet would, until its ready
+    file appears; check it parked; stop it. ``host_paths`` maps a hostPath
+    the pod mounts to the directory that stands for it here."""
+    import signal
+
+    from k8s_operator_libs_tpu_torch.tpu.health import HealthReport
+
+    argv = list(container["command"])
+    argv[0] = sys.executable
+    ready = os.path.join(workdir, f"{label}.ready")
+    argv[argv.index("--ready-file") + 1] = ready
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    for item in container["env"]:
+        env[item["name"]] = host_paths.get(item["value"], item["value"])
+    out_path = os.path.join(workdir, f"{label}.out")
+    err_path = os.path.join(workdir, f"{label}.err")
+    with open(out_path, "w") as out, open(err_path, "w") as err:
+        start = time.perf_counter()
+        proc = subprocess.Popen(argv, cwd=workdir, env=env, stdout=out, stderr=err,
+                                start_new_session=True)
+        try:
+            while not os.path.exists(ready):
+                if proc.poll() is not None:
+                    with open(err_path) as f:
+                        tail = f.read()[-3000:]
+                    raise AssertionError(
+                        f"{label} probe pod exited {proc.returncode} before Ready: {tail}"
+                    )
+                if time.perf_counter() - start > POD_READY_TIMEOUT_S:
+                    raise AssertionError(
+                        f"{label} probe pod not Ready within {POD_READY_TIMEOUT_S} s"
+                    )
+                time.sleep(0.05)
+            seconds_to_ready = time.perf_counter() - start
+            time.sleep(1.0)
+            parked = proc.poll() is None
+        finally:
+            try:
+                os.killpg(proc.pid, signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+            try:
+                proc.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait(timeout=30)
+    report = HealthReport.from_dict(_last_json(out_path))
+    kernels = _last_json(err_path, "kernels")["kernels"]
+    if not parked:
+        raise AssertionError(f"{label} probe pod did not park after its pass")
+    if not (report.ok and report.mxu and report.mxu.ok and report.flash and report.flash.ok):
+        raise AssertionError(f"{label} probe pod report: {report.summary()}")
+    return {
+        "seconds_to_ready": seconds_to_ready,
+        "elapsed_s": report.elapsed_s,
+        "mxu_tflops": report.mxu.tflops,
+        "flash_ok": report.flash.ok,
+        "flash_tokens_per_s": report.flash.tokens_per_s,
+        "build_s": kernels["build_s"],
+        "launches": kernels["launches"],
+    }
+
+
+def device_class_phase(card: str, gate_launches: dict) -> dict:
+    """The GPU node's labels, detection and probe pod, and the pod's
+    payload run cold and warm on one kernel cache."""
+    import tempfile
+
+    import torch
+
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.tpu.detector import TpuNodeDetector
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
+        ValidationPodManager,
+        ValidationPodSpec,
+    )
+
+    count = torch.cuda.device_count()
+    node = Node.new("gpu-node-0", labels=local_gpu_labels())
+    info = TpuNodeDetector().detect(node)
+    if info is None or info.chips != count:
+        raise AssertionError(f"detector on {node.labels}: {info}")
+    spec = ValidationPodSpec(tpu_chips=count)
+    (container,) = ValidationPodManager(None, spec).build_pod(node.name).spec["containers"]
+    limits = container["resources"]["limits"]
+    if limits != {"nvidia.com/gpu": str(count)}:
+        raise AssertionError(f"probe pod limits: {limits}")
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="probe-pod-") as workdir:
+        host_paths = {spec.compile_cache_dir: os.path.join(workdir, "kernel-cache")}
+        for label in ("cold", "warm"):
+            runs[label] = run_probe_pod(container, host_paths, workdir, label)
+    result = {
+        "node_labels": node.labels,
+        "product": info.topology.accelerator,
+        "chips": info.chips,
+        "slice_id": info.slice_id,
+        "limits": limits,
+        "command": container["command"],
+        **runs,
+    }
+    print(json.dumps({"device_class": result, "card": card}), flush=True)
+    cold, warm = runs["cold"], runs["warm"]
+    if not all(cold["build_s"].get(lib, 0.0) > 0 for lib in ("matmul", "flash_attention")):
+        raise AssertionError(f"the cold pod did not build both kernels: {cold['build_s']}")
+    if any(warm["build_s"].values()):
+        raise AssertionError(f"the warm pod built again: {warm['build_s']}")
+    for label, run in runs.items():
+        for lib in ("matmul", "flash_attention"):
+            if run["launches"][lib] != gate_launches[lib]:
+                raise AssertionError(
+                    f"{label} probe pod launched {lib} {run['launches'][lib]} times, "
+                    f"the gate phase {gate_launches[lib]}"
+                )
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -573,11 +718,13 @@ def main() -> int:
     burnin_phase()
     burnin_launches = burnin_flash_phase()
     cli_phase()
+    pod = device_class_phase(card, launches)
 
     for row in rows:
         kernel = "matmul" if row["name"] == "matmul" else "flash_attention"
         row["launches"] = launches[kernel]
         row["launches_burnin_flash_forward"] = burnin_launches[kernel]
+        row["launches_validation_pod"] = pod["cold"]["launches"][kernel]
         if kernel == "matmul":
             row["path_launches"] = launches["matmul_by_path"].get(row["path"], 0)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -6,8 +6,11 @@ plain C interface, loaded with ``ctypes``:
     nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
          -Xcompiler -fPIC -Xptxas -v -o <name>-<digest>.so csrc/<name>.cu
 
-The libraries are built at first use into ``build/torch_kernels/`` at the
-root of the checkout. A library's file name carries a digest of its source
+The libraries are built at first use into the directory that
+``K8S_OPERATOR_LIBS_TORCH_KERNEL_DIR`` names, read at each call, and without
+it into ``build/torch_kernels/`` at the root of the checkout. The probe pod
+points the variable at a host directory, so the pods of one node build
+each library once. A library's file name carries a digest of its source
 and the flags, so an edited source builds anew and an unchanged one loads
 at once. A lock file serialises concurrent builds, so several processes that
 start together build each library once. ``nvcc``'s ``-Xptxas -v`` report
@@ -34,7 +37,10 @@ from typing import Iterable
 import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
+#: The build directory when ``KERNEL_DIR_ENV`` is unset.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
+#: Environment variable naming the build directory.
+KERNEL_DIR_ENV = "K8S_OPERATOR_LIBS_TORCH_KERNEL_DIR"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -69,6 +75,10 @@ SIGNATURES: dict[str, dict[str, list]] = {
 
 _loaded: dict[str, ctypes.CDLL] = {}
 
+#: Seconds :func:`load` spent building each library in this process (0.0
+#: where it found the library built).
+BUILD_SECONDS: dict[str, float] = {}
+
 
 def _nvcc() -> str:
     path = shutil.which("nvcc")
@@ -91,8 +101,14 @@ def _digest(name: str) -> str:
     return h.hexdigest()[:16]
 
 
+def build_dir() -> Path:
+    """Where the libraries are built: ``$K8S_OPERATOR_LIBS_TORCH_KERNEL_DIR``,
+    else ``build/torch_kernels/`` in the checkout."""
+    return Path(os.environ.get(KERNEL_DIR_ENV) or BUILD_DIR)
+
+
 def library_path(name: str) -> Path:
-    return BUILD_DIR / f"{name}-{_digest(name)}.so"
+    return build_dir() / f"{name}-{_digest(name)}.so"
 
 
 def ptxas_report(name: str) -> str:
@@ -112,9 +128,10 @@ def build(names: Iterable[str] = tuple(SIGNATURES)) -> dict[str, float]:
     if not torch.cuda.is_available():
         raise RuntimeError("no CUDA device is visible: the kernels run only on the card")
     nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    directory = build_dir()
+    directory.mkdir(parents=True, exist_ok=True)
     seconds = {name: 0.0 for name in names}
-    with open(BUILD_DIR / "lock", "w") as lock:
+    with open(directory / "lock", "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         running = []
         try:
@@ -155,7 +172,7 @@ def load(name: str) -> ctypes.CDLL:
     lib = _loaded.get(name)
     if lib is not None:
         return lib
-    build([name])
+    BUILD_SECONDS.update(build([name]))
     lib = ctypes.CDLL(str(library_path(name)))
     for fn_name, argtypes in SIGNATURES[name].items():
         fn = getattr(lib, fn_name)

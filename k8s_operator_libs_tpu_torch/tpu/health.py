@@ -37,14 +37,19 @@ from typing import Optional, Protocol
 
 import torch
 
+from ..ops import _build
 from ..ops.collectives import (
     CollectiveReport,
     LinkProbeReport,
     ppermute_per_link,
     run_ici_probes,
 )
-from ..ops.flash_attention import FlashAttentionReport, flash_attention_probe
-from ..ops.matmul import MxuReport, mxu_probe
+from ..ops.flash_attention import (
+    FlashAttentionReport,
+    flash_attention,
+    flash_attention_probe,
+)
+from ..ops.matmul import MxuReport, matmul, mxu_probe
 from ..ops.ring_attention import RingAttentionReport, ring_attention_probe
 from ..ops.ulysses import UlyssesReport, ulysses_probe
 from ..parallel.mesh import World, available_devices
@@ -52,6 +57,16 @@ from ..utils.device import DeviceLike, resolve_device
 from ..utils.log import get_logger
 
 log = get_logger("tpu.health")
+
+#: Host directory the probe pod mounts for the kernel build
+#: (``ops/_build.py``, through ``K8S_OPERATOR_LIBS_TORCH_KERNEL_DIR``), so
+#: the probe pods of one node run ``nvcc`` once; a changed kernel source or
+#: flag set gets a new file name and builds once more. Root-owned
+#: ``/var/cache``, not ``/tmp``: the probe loads the ``.so`` files it finds
+#: there into a process that holds every card, so a directory under a
+#: world-writable parent would let any host user plant code in the probe
+#: (and lets tmp cleaners evict the build).
+KERNEL_CACHE_DIR = "/var/cache/gpu-health-kernels"
 
 
 @dataclass
@@ -559,6 +574,60 @@ class SubprocessHealthGate:
         )
 
 
+class SliceScopedGate:
+    """Slice-granular memoization of the health gate.
+
+    A passing run on one node vouches for the other nodes of its slice, the
+    nodes its detector groups together (``tpu.detector``: an NVLink domain
+    that spans nodes, or an explicit slice label; an HGX node is a slice of
+    its own). This wrapper runs the gate once per slice and serves the
+    cached pass to the slice's other nodes; failures are not cached, so a
+    flapping link is probed again every pass.
+
+    A cached pass expires after ``max_age_seconds``, so a pass earned in one
+    rollout does not carry into the next; :meth:`reset` forgets every pass
+    at a known rollout boundary (e.g. when bumping the driver version).
+    """
+
+    def __init__(
+        self,
+        gate: HealthGate,
+        detector=None,
+        max_age_seconds: float = 1800.0,
+    ) -> None:
+        from .detector import TpuNodeDetector
+
+        self.gate = gate
+        self.detector = detector or TpuNodeDetector()
+        self.max_age_seconds = max_age_seconds
+        self._passed_at: dict[str, float] = {}
+
+    def reset(self) -> None:
+        """Forget cached passes (call at the start of a new rollout)."""
+        self._passed_at.clear()
+
+    def validation_hook(self):
+        def hook(node) -> bool:
+            info = self.detector.detect(node)
+            slice_id = info.slice_id if info is not None else node.name
+            passed_at = self._passed_at.get(slice_id)
+            if passed_at is not None:
+                if time.monotonic() - passed_at < self.max_age_seconds:
+                    return True
+                del self._passed_at[slice_id]  # stale: probe again
+            report = self.gate.run()
+            if report.ok:
+                self._passed_at[slice_id] = time.monotonic()
+            else:
+                log.warning(
+                    "slice %s failed the health gate: %s",
+                    slice_id, "; ".join(report.failures),
+                )
+            return report.ok
+
+        return hook
+
+
 def build_parser():
     """The payload's flags: the JAX payload's, less the gang, publish and
     XLA-cache flags, plus ``--device``."""
@@ -626,11 +695,13 @@ def main(argv: Optional[list[str]] = None) -> int:
     """Probe-pod payload: ``python -m k8s_operator_libs_tpu_torch.tpu.health``.
 
     Runs the gate battery on the card (or on ``--device``), prints the
-    report as one JSON line, and on pass writes ``--ready-file`` — the
-    pod's readinessProbe watches that file. ``--park`` keeps the process
+    report as one JSON line (and on stderr one line of the seconds spent
+    building each kernel and the launches of each), and on pass writes
+    ``--ready-file`` — the pod's readinessProbe watches that file. ``--park`` keeps the process
     alive after a pass; on failure the process exits non-zero.
     """
     import json
+    import sys
 
     args = build_parser().parse_args(argv)
 
@@ -658,6 +729,12 @@ def main(argv: Optional[list[str]] = None) -> int:
     finally:
         gate.close()
     print(json.dumps(dataclasses.asdict(report)), flush=True)
+    # What the run cost in kernel builds and launched, for the pod's log.
+    print(json.dumps({"kernels": {
+        "build_s": dict(_build.BUILD_SECONDS),
+        "launches": {"matmul": matmul.launches,
+                     "flash_attention": flash_attention.launches},
+    }}), file=sys.stderr, flush=True)
     if not report.ok:
         return 1
     if args.ready_file:

@@ -9,10 +9,14 @@ the card:
 
     python -m pytest tests/test_torch_cuda.py -q
 
-This file imports no JAX, so it runs where only PyTorch is installed.
+This file imports no JAX, so it runs where only PyTorch is installed. The
+GPU node roll (``-k roll``) drives the JAX package's state machine, whose
+control plane imports no JAX either (``tests/test_torch_roll.py``).
 """
 
 import math
+import os
+from pathlib import Path
 
 import pytest
 import torch
@@ -310,3 +314,40 @@ def test_gate_between_cards(cards_world):
     assert report.ok, report.failures
     assert len(report.links) == torch.cuda.device_count()
     assert report.ring_attention.ok and report.ulysses.ok and report.burnin_ok
+
+
+def test_gpu_node_roll_on_the_card(cuda, tmp_path):
+    """One GPU node, labelled from the card's own facts, rolled to a new
+    driver; the probe pod's payload runs on the card with a fresh kernel
+    cache (so ``nvcc`` runs inside the pod) and lets the node back in."""
+    from test_torch_roll import NS, GpuRoll
+
+    from k8s_operator_libs_tpu_torch.ops._build import KERNEL_DIR_ENV
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.tpu.health import HealthReport
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import ValidationPodSpec
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    env[KERNEL_DIR_ENV] = str(tmp_path / "kernel-cache")
+    spec = ValidationPodSpec(tpu_chips=torch.cuda.device_count())
+    with GpuRoll(spec, {"gpu-0": local_gpu_labels()}, tmp_path, env=env,
+                 extra_args=[], payload_timeout_s=600.0) as roll:
+        done = roll.drive(GpuRoll.all_done, 600.0)
+        states = roll.states()
+        history = dict(roll.executor.history)
+    assert done, states
+    assert states == {"gpu-0": "upgrade-done"}
+    assert history == {roll.pod_name("gpu-0"): True}
+    report = HealthReport.from_dict(roll.report("gpu-0"))
+    assert report.ok, report.failures
+    assert report.mxu.ok and report.mxu.tflops > 0
+    assert report.flash is not None and report.flash.ok
+    kernels = roll.kernel_line("gpu-0")
+    assert kernels["launches"]["matmul"] > 0 and kernels["launches"]["flash_attention"] > 0
+    assert all(kernels["build_s"][lib] > 0 for lib in ("matmul", "flash_attention"))
+    assert sorted(p.name.split("-")[0] for p in (tmp_path / "kernel-cache").glob("*.so")) == [
+        "flash_attention", "matmul",
+    ]
+    assert not roll.cluster.list("Pod", namespace=NS, label_selector=spec.pod_selector)

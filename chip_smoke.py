@@ -58,10 +58,41 @@ Phases, in order; any failure raises and the script exits non-zero:
    phase did (the payload's own counts, from its stderr line) and still
    be alive (parked) after; then it is stopped. The line
    ``{"device_class": ...}`` gives the seconds to Ready, the report's
-   ``elapsed_s``, ``mxu_tflops``, flash ok and the build seconds of each.
+   ``elapsed_s``, ``mxu_tflops``, flash ok and the build seconds of each;
+10. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
+    from the card, against a dict-backed client (``DictClient``: Node,
+    Pod, Event, NodeHealthReport), its gate the port's
+    ``SubprocessHealthGate`` at ``tpu_defaults()``, so each cycle is the
+    card's payload with both kernels. A passing cycle must write
+    ``TpuIciHealthy=True`` and, through ``ReportPublisher``, a
+    NodeHealthReport whose ``mxu_tflops`` is the report's; its payload must
+    launch each kernel as often as the gate phase (the child's own counts,
+    from its stderr line). A cycle with ``--min-mxu-tflops 1e9`` and
+    ``failure_threshold=1`` must write ``False`` and one Warning Event. A
+    live pod holding ``nvidia.com/gpu`` on the node must skip the cycle
+    without running the gate. One quick-tier cycle,
+    ``run_quick_probe_loop(once=True)``, forms a world of every card and
+    publishes a report. ``{"monitor": ...}`` gives each cycle's wall seconds
+    (the child included) and the payload's launches;
+11. gang phase: the payload as a slice gang pod, a child process with
+    ``--coordinator 127.0.0.1:<free port> --num-processes 1 --process-id 0
+    --publish-report`` (``NODE_NAME`` set, the kubeconfig pointing at
+    ``ApiStub``, an HTTP front of the same kind of dict-backed client). Its
+    ranks join through the TCP store; its report must say
+    ``process_count`` 1, ``slice_devices_total`` = the cards, and
+    ``slice=`` in its summary and ready file, be published as the node's
+    NodeHealthReport, and launch each kernel as often as the gate phase.
+    With two or more cards, two such children, each with its own half of
+    the cards in ``CUDA_VISIBLE_DEVICES`` and ``--num-processes 2``: both
+    ready files must read ``slice=N/N over 2 hosts`` and each report's
+    hop to the other child must name the other member's node.
+    ``{"gang": ...}`` gives each child's world formation split as
+    ``World.form_times`` does, the TCP join included.
 
-The last lines are the kernel table as one JSON object, the card's name
-and power limit, and ``{"ok": true, "device": {...}}``. Without a card,
+The last lines are the kernel table as one JSON object (each row with the
+launches of the gate, the burn-in forward, the probe pod, the monitor's
+payload and the gang's payload), the card's name and power limit, and
+``{"ok": true, "device": {...}}``. Without a card,
 or run from a directory that holds only this file, it exits non-zero and
 prints no result.
 """
@@ -72,9 +103,13 @@ import dataclasses
 import json
 import math
 import os
+import re
+import socket
 import subprocess
 import sys
+import threading
 import time
+from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -120,6 +155,9 @@ FLASH_CASES = (
 CLI_TIMEOUT_S = 600
 #: Seconds a probe pod's payload may take to write its ready file.
 POD_READY_TIMEOUT_S = 600
+#: The monitored node and the gang's nodes.
+MONITOR_NODE = "gpu-node-0"
+GANG_NODES = ("gang-node-0", "gang-node-1")
 
 
 def card_line() -> str:
@@ -687,6 +725,434 @@ def device_class_phase(card: str, gate_launches: dict) -> dict:
     return result
 
 
+# ----------------------------------------------------------------------
+# The monitor and the slice gang.
+# ----------------------------------------------------------------------
+
+class DictClient:
+    """The operator's client, as far as the monitor and the report
+    publisher use it, over dicts: Node, Pod, Event and NodeHealthReport,
+    resourceVersions checked on update, errors with the API's reasons."""
+
+    CLUSTER_SCOPED = ("Node", "NodeHealthReport")
+
+    def __init__(self) -> None:
+        self.objects: dict[tuple, dict] = {}
+        self.version = 0
+        self.lock = threading.Lock()
+
+    def _key(self, kind: str, name: str, namespace: str) -> tuple:
+        return (kind, "" if kind in self.CLUSTER_SCOPED else namespace or "default", name)
+
+    def _stored(self, key: tuple) -> dict:
+        from k8s_operator_libs_tpu_torch.kube.client import NotFoundError
+
+        if key not in self.objects:
+            raise NotFoundError(f"{key[0]} {key[2]} not found")
+        return self.objects[key]
+
+    def _put(self, key: tuple, raw: dict):
+        from k8s_operator_libs_tpu_torch.kube.objects import wrap
+
+        self.version += 1
+        raw["metadata"]["resourceVersion"] = str(self.version)
+        self.objects[key] = raw
+        return wrap(json.loads(json.dumps(raw)))
+
+    def get(self, kind: str, name: str, namespace: str = ""):
+        from k8s_operator_libs_tpu_torch.kube.objects import wrap
+
+        with self.lock:
+            return wrap(json.loads(json.dumps(self._stored(self._key(kind, name, namespace)))))
+
+    def list(self, kind: str, namespace: str = "", label_selector=None, field_selector=None):
+        from k8s_operator_libs_tpu_torch.kube.objects import wrap
+
+        wanted = dict(p.split("=", 1) for p in (label_selector or "").split(",") if p)
+        fields = dict(p.split("=", 1) for p in (field_selector or "").split(",") if p)
+        out = []
+        with self.lock:
+            for (k, ns, _), raw in sorted(self.objects.items()):
+                labels = raw["metadata"].get("labels") or {}
+                if k != kind or (namespace and ns != namespace):
+                    continue
+                if any(labels.get(a) != b for a, b in wanted.items()):
+                    continue
+                node = (raw.get("spec") or {}).get("nodeName")
+                if "spec.nodeName" in fields and node != fields["spec.nodeName"]:
+                    continue
+                out.append(wrap(json.loads(json.dumps(raw))))
+        return out
+
+    def create(self, obj):
+        from k8s_operator_libs_tpu_torch.kube.client import AlreadyExistsError
+
+        raw = json.loads(json.dumps(obj.raw))
+        key = self._key(raw["kind"], raw["metadata"]["name"], raw["metadata"].get("namespace", ""))
+        with self.lock:
+            if key in self.objects:
+                raise AlreadyExistsError(f"{key[0]} {key[2]} already exists")
+            raw["metadata"]["uid"] = f"uid-{self.version + 1}"
+            return self._put(key, raw)
+
+    def _replace(self, obj, status_only: bool):
+        from k8s_operator_libs_tpu_torch.kube.client import ConflictError
+
+        raw = json.loads(json.dumps(obj.raw))
+        key = self._key(raw["kind"], raw["metadata"]["name"], raw["metadata"].get("namespace", ""))
+        with self.lock:
+            stored = self._stored(key)
+            rv = raw["metadata"].get("resourceVersion")
+            if rv and rv != stored["metadata"]["resourceVersion"]:
+                raise ConflictError(f"{key[0]} {key[2]}: stale resourceVersion {rv}")
+            if status_only:
+                stored = json.loads(json.dumps(stored))
+                stored["status"] = raw.get("status") or {}
+                raw = stored
+            return self._put(key, raw)
+
+    def update(self, obj):
+        return self._replace(obj, status_only=False)
+
+    def update_status(self, obj):
+        return self._replace(obj, status_only=True)
+
+    def patch(self, kind: str, name: str, namespace: str = "", patch=None, patch_type="merge"):
+        def merge(target: dict, change: dict) -> None:
+            for k, v in change.items():
+                if v is None:
+                    target.pop(k, None)
+                elif isinstance(v, dict) and isinstance(target.get(k), dict):
+                    merge(target[k], v)
+                else:
+                    target[k] = v
+
+        key = self._key(kind, name, namespace)
+        with self.lock:
+            raw = json.loads(json.dumps(self._stored(key)))
+            merge(raw, patch or {})
+            return self._put(key, raw)
+
+    def delete(self, kind: str, name: str, namespace: str = "") -> None:
+        key = self._key(kind, name, namespace)
+        with self.lock:
+            self._stored(key)
+            del self.objects[key]
+
+
+class ApiStub(ThreadingHTTPServer):
+    """A ``DictClient`` behind the API's REST paths on 127.0.0.1, for the
+    port's ``RestClient`` in a child process (the payload's
+    ``--publish-report``)."""
+
+    daemon_threads = True
+    PATH = re.compile(
+        r"^/(?:api/v1|apis/[^/]+/[^/]+)(?:/namespaces/(?P<ns>[^/]+))?"
+        r"/(?P<plural>[^/?]+)(?:/(?P<name>[^/?]+))?(?:/(?P<sub>status))?"
+    )
+
+    def __init__(self, client: DictClient) -> None:
+        from k8s_operator_libs_tpu_torch.kube.rest import RESOURCES
+
+        kinds = {plural: kind for kind, (_, plural, _) in RESOURCES.items()}
+        stub = self
+
+        class Handler(BaseHTTPRequestHandler):
+            def _serve(self) -> None:
+                from k8s_operator_libs_tpu_torch.kube.objects import wrap
+
+                m = stub.PATH.match(self.path)
+                length = int(self.headers.get("Content-Length") or 0)
+                body = json.loads(self.rfile.read(length)) if length else None
+                try:
+                    kind = kinds[m.group("plural")]
+                    ns, name = m.group("ns") or "", m.group("name") or ""
+                    if self.command == "GET" and name:
+                        out = client.get(kind, name, ns).raw
+                    elif self.command == "GET":
+                        out = {"items": [o.raw for o in client.list(kind, ns)]}
+                    elif self.command == "POST":
+                        out = client.create(wrap(body)).raw
+                    elif self.command == "PUT":
+                        out = client._replace(wrap(body), m.group("sub") == "status").raw
+                    else:
+                        raise ValueError(f"{self.command} is not served here")
+                    code = 200
+                except Exception as e:  # noqa: BLE001 - answered as the API does
+                    reason = getattr(e, "reason", "BadRequest")
+                    code = {"NotFound": 404, "AlreadyExists": 409, "Conflict": 409}.get(reason, 400)
+                    out = {"kind": "Status", "reason": reason, "message": str(e), "code": code}
+                data = json.dumps(out).encode()
+                self.send_response(code)
+                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
+
+            do_GET = do_POST = do_PUT = _serve
+
+            def log_message(self, fmt, *args):  # noqa: D102
+                pass
+
+        super().__init__(("127.0.0.1", 0), Handler)
+        self.thread = threading.Thread(target=self.serve_forever, daemon=True)
+
+    @property
+    def url(self) -> str:
+        return f"http://127.0.0.1:{self.server_address[1]}"
+
+    def __enter__(self) -> "ApiStub":
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.shutdown()
+        self.server_close()
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def child_env(**extra) -> dict:
+    env = dict(os.environ)
+    env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra)
+    return env
+
+
+def payload_lines(stderr: str) -> dict:
+    """The payload's stderr line of kernel builds, launches and world."""
+    for line in reversed(stderr.splitlines()):
+        if line.startswith("{") and "kernels" in line:
+            return json.loads(line)
+    raise AssertionError(f"no kernels line on the payload's stderr: {stderr[-2000:]}")
+
+
+def check_launches(label: str, launches: dict, gate_launches: dict) -> None:
+    for lib in ("matmul", "flash_attention"):
+        if launches[lib] != gate_launches[lib]:
+            raise AssertionError(
+                f"{label} launched {lib} {launches[lib]} times, the gate phase "
+                f"{gate_launches[lib]}"
+            )
+
+
+def monitor_phase(card: str, gate_launches: dict) -> dict:
+    """Monitor cycles on the card: pass, fail, busy, quick tier."""
+    from k8s_operator_libs_tpu_torch.kube.events import EventRecorder
+    from k8s_operator_libs_tpu_torch.kube.objects import Node, Pod, condition_status
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate, SubprocessHealthGate
+    from k8s_operator_libs_tpu_torch.tpu.monitor import (
+        ICI_HEALTHY_CONDITION,
+        ReportPublisher,
+        TpuHealthMonitor,
+        make_quick_probe_guard,
+        run_quick_probe_loop,
+    )
+
+    client = DictClient()
+    node = Node.new(MONITOR_NODE, labels=local_gpu_labels())
+    node.set_ready(True)
+    client.create(node)
+
+    def condition() -> str:
+        return condition_status(client.get("Node", MONITOR_NODE).status, ICI_HEALTHY_CONDITION)
+
+    def cycle(gate) -> tuple:
+        monitor = TpuHealthMonitor(
+            client, MONITOR_NODE, gate=gate, failure_threshold=1, success_threshold=1,
+            recorder=EventRecorder(client), report_publisher=ReportPublisher(client, MONITOR_NODE),
+        )
+        start = time.perf_counter()
+        report = monitor.check_once()
+        return report, time.perf_counter() - start
+
+    def subprocess_gate(**overrides):
+        return SubprocessHealthGate(
+            cli_args=IciHealthGate.tpu_defaults(**overrides).to_cli_args(),
+            timeout_seconds=CLI_TIMEOUT_S, env=child_env(), cwd=REPO,
+        )
+
+    info: dict = {"node_labels": node.labels}
+    gate = subprocess_gate()
+    report, info["pass_wall_s"] = cycle(gate)
+    payload = payload_lines(gate.last_stderr)
+    info["pass_launches"] = payload["kernels"]["launches"]
+    info["pass_world_form_times"] = payload["world"]["form_times"]
+    info["pass_elapsed_s"] = report.elapsed_s if report else None
+    info["pass_condition"] = condition()
+    published = client.get("NodeHealthReport", MONITOR_NODE).raw
+    info["report_mxu_tflops"] = published["status"]["metrics"].get("mxu_tflops")
+    info["report_score"] = published["status"]["score"]
+    if report is None or not report.ok:
+        raise AssertionError(f"monitor: the passing cycle failed: {report and report.failures}")
+    if info["pass_condition"] != "True":
+        raise AssertionError(f"monitor: condition {info['pass_condition']} after a pass")
+    if info["report_mxu_tflops"] != report.mxu.tflops:
+        raise AssertionError(
+            f"monitor: NodeHealthReport mxu_tflops {info['report_mxu_tflops']}, "
+            f"the card's {report.mxu.tflops}"
+        )
+
+    gate = subprocess_gate(min_mxu_tflops=1e9)
+    report, info["fail_wall_s"] = cycle(gate)
+    info["fail_launches"] = payload_lines(gate.last_stderr)["kernels"]["launches"]
+    info["fail_condition"] = condition()
+    warnings = [e.raw for e in client.list("Event") if e.raw["type"] == "Warning"]
+    info["warning_events"] = [e["message"] for e in warnings]
+    if report is None or report.ok or info["fail_condition"] != "False" or len(warnings) != 1:
+        raise AssertionError(f"monitor: the failing cycle: {info}")
+
+    class Counted:
+        runs = 0
+
+        def run(self):
+            Counted.runs += 1
+            raise AssertionError("the gate ran on a busy node")
+
+    busy = Pod.new("trainer", namespace="default")
+    busy.node_name = MONITOR_NODE
+    busy.spec["containers"] = [{"name": "t", "resources": {"limits": {"nvidia.com/gpu": "1"}}}]
+    busy.raw["status"] = {"phase": "Running"}
+    client.create(busy)
+    skipped, _ = cycle(Counted())
+    info["busy_skipped"] = skipped is None and Counted.runs == 0
+    client.delete("Pod", "trainer", "default")
+    if not info["busy_skipped"]:
+        raise AssertionError("monitor: a busy node was probed")
+
+    start = time.perf_counter()
+    # A heartbeat of 0 writes every cycle: the full tier's report is fresh,
+    # and the quick tier's healthy checks would otherwise be debounced.
+    rc = run_quick_probe_loop(
+        ReportPublisher(client, MONITOR_NODE, source="quick-probe", heartbeat_seconds=0.0),
+        once=True,
+        skip_cycle=make_quick_probe_guard(client, MONITOR_NODE),
+    )
+    info["quick_wall_s"] = time.perf_counter() - start
+    quick = client.get("NodeHealthReport", MONITOR_NODE).raw
+    info["quick_report"] = {k: quick["status"][k] for k in ("checks", "metrics")}
+    print(json.dumps({"monitor": info, "card": card}), flush=True)
+    # The quick battery's own checks (the report's spec keeps the source
+    # that created it: a status write leaves the spec).
+    if rc != 0 or quick["status"]["checks"] != {"ring_allreduce": True, "mxu": True}:
+        raise AssertionError(f"monitor: quick tier rc {rc}: {quick['status']}")
+    check_launches("monitor payload", info["pass_launches"], gate_launches)
+    return info
+
+
+def gang_phase(card: str, gate_launches: dict) -> dict:
+    """The payload as a slice gang pod: one child on every card, then (with
+    two or more cards) two children on half the cards each."""
+    import tempfile
+
+    import torch
+
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
+    from k8s_operator_libs_tpu_torch.tpu.health import HealthReport
+
+    n = torch.cuda.device_count()
+    client = DictClient()
+    for name in GANG_NODES:
+        client.create(Node.new(name))
+    info: dict = {}
+    with ApiStub(client) as stub, tempfile.TemporaryDirectory(prefix="gang-") as work:
+        kubeconfig = os.path.join(work, "kubeconfig")
+        with open(kubeconfig, "w") as f:
+            json.dump({
+                "current-context": "c",
+                "clusters": [{"name": "c", "cluster": {"server": stub.url}}],
+                "users": [{"name": "u", "user": {}}],
+                "contexts": [{"name": "c", "context": {"cluster": "c", "user": "u"}}],
+            }, f)
+
+        def run_gang(label: str, cards: list[list[int]]) -> list[dict]:
+            coordinator = f"127.0.0.1:{free_port()}"
+            procs = []
+            start = time.perf_counter()
+            for i, visible in enumerate(cards):
+                ready = os.path.join(work, f"{label}-{i}.ready")
+                out = open(os.path.join(work, f"{label}-{i}.out"), "w")
+                err = open(os.path.join(work, f"{label}-{i}.err"), "w")
+                argv = [
+                    sys.executable, "-m", "k8s_operator_libs_tpu_torch.tpu.health",
+                    "--coordinator", coordinator, "--num-processes", str(len(cards)),
+                    "--process-id", str(i), "--link-peers", ",".join(GANG_NODES[:len(cards)]),
+                    "--publish-report", "--ready-file", ready,
+                ]
+                env = child_env(
+                    KUBECONFIG=kubeconfig, NODE_NAME=GANG_NODES[i],
+                    CUDA_VISIBLE_DEVICES=",".join(map(str, visible)),
+                )
+                procs.append((subprocess.Popen(argv, cwd=REPO, env=env, stdout=out,
+                                               stderr=err), out, err, ready))
+            results = []
+            for proc, out, err, ready in procs:
+                try:
+                    rc = proc.wait(timeout=CLI_TIMEOUT_S)
+                finally:
+                    if proc.poll() is None:
+                        proc.kill()
+                        proc.wait(30)
+                    out.close()
+                    err.close()
+                with open(out.name) as f:
+                    lines = [ln for ln in f.read().splitlines() if ln.startswith("{")]
+                with open(err.name) as f:
+                    stderr = f.read()
+                if not lines:
+                    raise AssertionError(f"gang {label}: no report (rc {rc}): {stderr[-3000:]}")
+                report = HealthReport.from_dict(json.loads(lines[-1]))
+                payload = payload_lines(stderr)
+                results.append({
+                    "rc": rc,
+                    "report": report,
+                    "summary": report.summary(),
+                    "ready": open(ready).read().strip() if os.path.exists(ready) else None,
+                    "launches": payload["kernels"]["launches"],
+                    "world_form_times": payload["world"]["form_times"],
+                    "links": [(h.src, h.dst, h.peer, h.ok) for h in report.links],
+                })
+            wall = time.perf_counter() - start
+            for r in results:
+                r["wall_s"] = wall
+            return results
+
+        (one,) = run_gang("one-pod", [list(range(n))])
+        report = one.pop("report")
+        published = client.get("NodeHealthReport", GANG_NODES[0]).raw
+        info["one_pod"] = {**one, "process_count": report.process_count,
+                           "slice_devices_total": report.slice_devices_total,
+                           "published_source": published["spec"]["source"]}
+        if not (one["rc"] == 0 and report.ok and report.process_count == 1
+                and report.slice_devices_total == n and "slice=" in report.summary()
+                and one["ready"] and "slice=" in one["ready"]
+                and published["spec"]["source"] == "gate"):
+            raise AssertionError(f"gang of one pod: {info['one_pod']} {report.failures}")
+        check_launches("gang payload", one["launches"], gate_launches)
+        if n >= 2:
+            k = n // 2
+            pods = run_gang("two-pod", [list(range(k)), list(range(k, 2 * k))])
+            info["two_pods"] = []
+            for i, pod in enumerate(pods):
+                report = pod.pop("report")
+                info["two_pods"].append(pod)
+                want = f"slice={2 * k}/{2 * k} over 2 hosts"
+                other = GANG_NODES[1 - i]
+                if pod["rc"] != 0 or not pod["ready"] or want not in pod["ready"]:
+                    raise AssertionError(f"gang of two pods, pod {i}: {pod} {report.failures}")
+                if not any(peer == other for _, _, peer, ok in pod["links"] if ok):
+                    raise AssertionError(f"gang pod {i}: no hop to {other}: {pod['links']}")
+        else:
+            info["two_pods"] = "not run: a gang of two pods needs two or more cards"
+    print(json.dumps({"gang": info, "card": card}), flush=True)
+    return info
+
+
 def main() -> int:
     import torch
 
@@ -719,12 +1185,16 @@ def main() -> int:
     burnin_launches = burnin_flash_phase()
     cli_phase()
     pod = device_class_phase(card, launches)
+    monitor = monitor_phase(card, launches)
+    gang = gang_phase(card, launches)
 
     for row in rows:
         kernel = "matmul" if row["name"] == "matmul" else "flash_attention"
         row["launches"] = launches[kernel]
         row["launches_burnin_flash_forward"] = burnin_launches[kernel]
         row["launches_validation_pod"] = pod["cold"]["launches"][kernel]
+        row["launches_monitor"] = monitor["pass_launches"][kernel]
+        row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         if kernel == "matmul":
             row["path_launches"] = launches["matmul_by_path"].get(row["path"], 0)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -9,7 +9,8 @@ as its JAX counterpart and keeps its public names. The package imports
 
 Layout:
 
-* ``api``    — the telemetry metric keys the health report emits.
+* ``api``    — the NodeHealthReport contract: metric keys, score, trend,
+  the link map and its fold.
 * ``ops``    — the probes: the collective battery (NCCL), the matmul
   probe around a hand-written CUDA matmul kernel, the flash-attention
   probe around a hand-written CUDA flash kernel (``ops/csrc``), ring and
@@ -20,7 +21,12 @@ Layout:
 * ``parallel`` — the world of rank processes, one a card, and the process
   groups of its mesh axes.
 * ``tpu``    — the health gate (``tpu/health.py``), its CLI payload and the
-  subprocess gate.
+  subprocess gate; the GPU device class (detector, driver DaemonSet,
+  validation pod); the slice-aware planner, the health monitor and the
+  slice probe gang.
+* ``policy`` — the upgrade policies the planner's budget and order use.
+* ``kube`` and ``upgrade`` — object views, API errors, Events, a minimal
+  REST client, the upgrade keys and states, and a metrics endpoint.
 * ``utils``  — logging and device resolution.
 * ``tools``  — ``kernel_ab``: this checkout's kernels timed beside another
   checkout's on one card.

@@ -1,7 +1,9 @@
 """Thin typed views over Kubernetes object dicts.
 
-A subset of the JAX package's ``kube/objects.py``: ``Node``, ``Pod`` and
-``DaemonSet`` with the accessors the GPU device class reads. Each view
+A subset of the JAX package's ``kube/objects.py``: ``Node``, ``Pod``,
+``DaemonSet``, ``Service`` and ``Event`` with the accessors the GPU device
+class, the monitor and the slice gang read, and the condition helpers the
+monitor writes with. Each view
 keeps its document in ``.raw``, which is all an operator's client needs to
 create or update it; the client's own objects come back wrapped again by
 their ``.raw``.
@@ -10,7 +12,8 @@ their ``.raw``.
 from __future__ import annotations
 
 import copy
-from typing import Any, Mapping, Optional
+import time
+from typing import Any, Mapping, MutableMapping, Optional
 
 
 def _ensure(d: dict[str, Any], key: str) -> dict[str, Any]:
@@ -48,12 +51,28 @@ class KubeObject:
         return self.metadata.get("resourceVersion", "")
 
     @property
+    def uid(self) -> str:
+        return self.metadata.get("uid", "")
+
+    @property
     def labels(self) -> dict[str, str]:
         return _ensure(self.metadata, "labels")
 
     @property
+    def annotations(self) -> dict[str, str]:
+        return _ensure(self.metadata, "annotations")
+
+    @property
+    def deletion_timestamp(self) -> Optional[Any]:
+        return self.metadata.get("deletionTimestamp")
+
+    @property
     def spec(self) -> dict[str, Any]:
         return _ensure(self.raw, "spec")
+
+    @property
+    def status(self) -> dict[str, Any]:
+        return _ensure(self.raw, "status")
 
     def deep_copy(self):
         return type(self)(copy.deepcopy(self.raw))
@@ -74,9 +93,59 @@ class KubeObject:
         return obj
 
 
+def condition_status(obj_status: Mapping[str, Any], cond_type: str) -> Optional[str]:
+    """The status ("True", "False", "Unknown") of a condition, if set."""
+    for cond in obj_status.get("conditions") or []:
+        if cond.get("type") == cond_type:
+            return cond.get("status")
+    return None
+
+
+def rfc3339_now() -> str:
+    """The current UTC time in the RFC 3339 form the API requires."""
+    return time.strftime("%Y-%m-%dT%H:%M:%SZ", time.gmtime())
+
+
+def set_condition(
+    obj_status: MutableMapping[str, Any],
+    cond_type: str,
+    status: str,
+    reason: str = "",
+    message: str = "",
+) -> None:
+    """Upsert a condition; ``lastTransitionTime`` moves only when the
+    status changes."""
+    if obj_status.get("conditions") is None:
+        obj_status["conditions"] = []
+    conds = obj_status["conditions"]
+    for cond in conds:
+        if cond.get("type") == cond_type:
+            update = {"status": status, "reason": reason, "message": message}
+            if cond.get("status") != status:
+                update["lastTransitionTime"] = rfc3339_now()
+            cond.update(update)
+            return
+    conds.append(
+        {"type": cond_type, "status": status, "reason": reason,
+         "message": message, "lastTransitionTime": rfc3339_now()}
+    )
+
+
 class Node(KubeObject):
     KIND = "Node"
     API_VERSION = "v1"
+
+    @property
+    def unschedulable(self) -> bool:
+        return bool((self.raw.get("spec") or {}).get("unschedulable", False))
+
+    def is_ready(self) -> bool:
+        """Ready; a node without a Ready condition counts as ready."""
+        status = condition_status(self.raw.get("status") or {}, "Ready")
+        return status is None or status == "True"
+
+    def set_ready(self, ready: bool) -> None:
+        set_condition(self.status, "Ready", "True" if ready else "False")
 
 
 class Pod(KubeObject):
@@ -98,6 +167,12 @@ class Pod(KubeObject):
     def is_finished(self) -> bool:
         return self.phase in ("Succeeded", "Failed")
 
+    def is_ready(self) -> bool:
+        return (
+            self.phase == "Running"
+            and condition_status(self.raw.get("status") or {}, "Ready") == "True"
+        )
+
 
 class DaemonSet(KubeObject):
     KIND = "DaemonSet"
@@ -112,3 +187,26 @@ class DaemonSet(KubeObject):
     @match_labels.setter
     def match_labels(self, value: Mapping[str, str]) -> None:
         _ensure(self.spec, "selector")["matchLabels"] = dict(value)
+
+
+class Service(KubeObject):
+    KIND = "Service"
+    API_VERSION = "v1"
+
+    def is_headless(self) -> bool:
+        return (self.raw.get("spec") or {}).get("clusterIP") == "None"
+
+
+class Event(KubeObject):
+    KIND = "Event"
+    API_VERSION = "v1"
+
+
+KINDS: dict[str, type] = {
+    cls.KIND: cls for cls in (Node, Pod, DaemonSet, Service, Event)
+}
+
+
+def wrap(data: dict[str, Any]) -> KubeObject:
+    """``data`` in the view of its kind (``KubeObject`` for other kinds)."""
+    return KINDS.get(data.get("kind", ""), KubeObject)(data)

@@ -236,25 +236,42 @@ def default_peer_name(rank: int) -> str:
 
 def make_peer_resolver(
     member_names: Optional[list] = None,
+    world: Optional[World] = None,
 ) -> tuple[Callable[[int], str], Callable[[LinkProbeReport], bool]]:
     """The one peer-id policy every battery shape shares, so the full gate
     and the quick battery emit the same link-map keys. Returns
-    ``(peer_of, owns_hop)``: ``peer_of(rank)`` is the rank's link-map peer
-    id and ``owns_hop(hop)`` says whether this host publishes the hop.
+    ``(peer_of, owns_hop)``:
 
-    A world spans one node, so every rank is on this host: each keeps its
-    :func:`default_peer_name` tag and every hop is this host's own.
-    ``member_names`` (gang rank -> node name) names ranks on other hosts
-    once a world spans hosts; until then it resolves no rank.
+    * ``peer_of(rank)``: a rank on another host of ``world`` resolves to
+      ``member_names[host]`` (gang host -> node name, the fleet fold's join
+      key) where the list covers that host; a rank on this host, or one
+      the list does not cover, keeps its :func:`default_peer_name` tag (a
+      wrong node name would poison the fold; a device tag stays out of it);
+    * ``owns_hop(hop)``: whether the hop's source rank is on this host, so
+      each gang member publishes its own outgoing links.
+
+    Without ``world`` (or on a world of one host) every rank is local.
     """
+    hosts = world.num_hosts if world is not None else 1
+    me = world.host_index if world is not None else 0
+
+    def host_of(rank: int) -> int:
+        return world.host_of(rank) if hosts > 1 else me
 
     def peer_of(rank: int) -> str:
+        host = host_of(rank)
+        if member_names is not None and host != me and 0 <= host < len(member_names):
+            return str(member_names[host])
         return default_peer_name(rank)
 
     def owns_hop(hop: LinkProbeReport) -> bool:
-        return True
+        return host_of(hop.src) == me
 
     return peer_of, owns_hop
+
+
+#: A hop's error on the ranks that did not see the fault themselves.
+_ELSEWHERE = "failed on another rank"
 
 
 def _link_rank(axis: str, elems: int, src: int, dst: int) -> tuple[bool, str, float]:
@@ -274,13 +291,19 @@ def _link_rank(axis: str, elems: int, src: int, dst: int) -> tuple[bool, str, fl
 
     elapsed = _timed(hop, mesh, axis)
     hop()
+    error = ""
     if i == dst:
         sent = base[src * elems:(src + 1) * elems]
         if not torch.equal(out.cpu(), sent):
-            return False, f"hop {src}->{dst}: payload corrupted", elapsed
+            error = f"hop {src}->{dst}: payload corrupted"
     elif bool(out.any()):
-        return False, f"hop {src}->{dst}: leak into untargeted shard", elapsed
-    return True, "", elapsed
+        error = f"hop {src}->{dst}: leak into untargeted shard"
+    # Every rank learns the hop's verdict: across hosts the hop's owner (its
+    # source) is not the rank that checks the payload.
+    (failed,) = max_over(mesh, axis, [1.0 if error else 0.0])
+    if failed and not error:
+        error = f"hop {src}->{dst}: {_ELSEWHERE}"
+    return not error, error, elapsed
 
 
 def ppermute_per_link(
@@ -308,7 +331,12 @@ def ppermute_per_link(
         except Exception as e:  # noqa: BLE001 - a dead hop is a verdict
             reports.append(LinkProbeReport(src=i, dst=j, peer=peer, ok=False, error=str(e)))
             continue
-        error = next((err for ok, err, _ in parts if not ok), "")
+        # The rank that saw the fault says what it was; the others only
+        # that it happened elsewhere.
+        errors = sorted(
+            (err for ok, err, _ in parts if not ok), key=lambda e: e.endswith(_ELSEWHERE)
+        )
+        error = errors[0] if errors else ""
         elapsed = parts[0][2]
         reports.append(
             LinkProbeReport(

@@ -243,14 +243,14 @@ def slice_gang_quick_battery(
     payload_mb: float = 0.25,
     matmul_size: int = 256,
 ) -> QuickBatteryReport:
-    """The quick battery in slice-gang shape: the link tier on, hops to
-    ranks on other hosts keyed by the peer host's node name
-    (``member_names``, by gang rank), and only the hops whose source is on
-    this host reported. On one node every rank is local, so the peers keep
-    their ``device-<rank>`` tags."""
+    """The quick battery in slice-gang shape, over a world that spans the
+    gang's hosts: the link tier on, hops to ranks on other hosts keyed by
+    the peer host's node name (``member_names``, by gang host), and only
+    the hops whose source is on this host reported. Ranks on this host
+    keep their ``device-<rank>`` tags."""
     from .collectives import make_peer_resolver
 
-    peer_of, owns_hop = make_peer_resolver(member_names)
+    peer_of, owns_hop = make_peer_resolver(member_names, world)
     return quick_battery(
         world=world,
         axis=axis,

@@ -10,7 +10,11 @@ process of its own, and the collectives go through ``torch.distributed``:
   or through gloo on the CPU, and runs module-level functions of this
   package in every rank at once. Every wait is bounded: a rank that dies,
   raises or does not answer in time makes the call raise
-  :class:`WorldError`, and the world is killed, never left waiting.
+  :class:`WorldError`, and the world is killed, never left waiting. A
+  world may span hosts (the slice gang): each host's ``World`` spawns its
+  own devices' ranks, and all of them join one group through a TCP
+  rendezvous at a coordinator address, the JAX package's
+  ``jax.distributed`` gang in torch's terms.
 * :func:`build_mesh` and :func:`single_axis_mesh`, inside a rank, lay the
   world's ranks out on named axes in the JAX package's grid order and give
   each axis its process group.
@@ -75,15 +79,40 @@ class World:
     one world serves many calls. Rendezvous goes through a ``file://``
     store in a fresh temporary directory, so concurrent worlds never
     contend for a port.
+
+    **Across hosts.** With ``coordinator`` (``host:port``), this world is
+    host ``host_index`` of ``num_hosts``: its ranks join the others' through
+    a TCP store that rank 0 of host 0 holds at that address. Global rank
+    is ``host_index * len(devices) + local rank``; :attr:`size` is the
+    whole world's, :attr:`devices` this host's, and :meth:`run` returns
+    this host's ranks' results. Every host must bring the same number of
+    devices: a mismatch fails the world with the counts in its error. Every
+    host calls the same functions in the same order, as a gang does. A
+    host that never arrives fails the world after ``form_timeout_s``. One
+    host with a coordinator is a gang of one: it still goes through the
+    TCP rendezvous.
     """
 
     def __init__(
         self,
         devices: Sequence[DeviceLike],
         *,
-        form_timeout_s: float = FORM_TIMEOUT_S,
-        call_timeout_s: float = CALL_TIMEOUT_S,
+        form_timeout_s: Optional[float] = None,
+        call_timeout_s: Optional[float] = None,
+        coordinator: str = "",
+        num_hosts: int = 1,
+        host_index: int = 0,
     ) -> None:
+        if num_hosts < 1 or not 0 <= host_index < num_hosts:
+            raise ValueError(f"host {host_index} of {num_hosts} hosts")
+        if num_hosts > 1 and not coordinator:
+            raise ValueError("a world of more than one host needs a coordinator")
+        if coordinator and not coordinator.rpartition(":")[2].isdigit():
+            raise ValueError(f"coordinator {coordinator!r} is not host:port")
+        #: The TCP rendezvous address; empty for a world on one host.
+        self.coordinator = coordinator
+        self.num_hosts = num_hosts
+        self.host_index = host_index
         devs = [torch.device(d) for d in devices]
         kinds = {d.type for d in devs}
         if not devs or len(kinds) != 1 or kinds - {"cpu", "cuda"}:
@@ -96,8 +125,9 @@ class World:
             if d.type == "cuda" else d
             for i, d in enumerate(devs)
         ]
-        self.form_timeout_s = form_timeout_s
-        self.call_timeout_s = call_timeout_s
+        # The module's defaults are read here, not when the class is made.
+        self.form_timeout_s = FORM_TIMEOUT_S if form_timeout_s is None else form_timeout_s
+        self.call_timeout_s = CALL_TIMEOUT_S if call_timeout_s is None else call_timeout_s
         #: Why the world went down; every later call raises with it.
         self.error: Optional[str] = None
         #: Where forming the world went, in seconds, each phase the slowest
@@ -110,7 +140,17 @@ class World:
 
     @property
     def size(self) -> int:
+        """Ranks in the whole world, every host's."""
+        return len(self.devices) * self.num_hosts
+
+    @property
+    def local_size(self) -> int:
+        """Ranks on this host."""
         return len(self.devices)
+
+    def host_of(self, rank: int) -> int:
+        """The host a global rank runs on."""
+        return rank // self.local_size
 
     @property
     def backend(self) -> str:
@@ -124,8 +164,16 @@ class World:
         if self._procs:
             return self
         ctx = mp.get_context("spawn")
-        self._dir = tempfile.mkdtemp(prefix="torch-world-")
-        init_method = "file://" + os.path.join(self._dir, "rendezvous")
+        if self.coordinator:
+            rendezvous = {
+                "coordinator": self.coordinator,
+                "num_hosts": self.num_hosts,
+                "host_index": self.host_index,
+                "timeout_s": self.form_timeout_s,
+            }
+        else:
+            self._dir = tempfile.mkdtemp(prefix="torch-world-")
+            rendezvous = {"init_method": "file://" + os.path.join(self._dir, "rendezvous")}
         names = [str(d) for d in self.devices]
         # Registered first, so ranks already started are stopped whatever
         # happens next; it sees the lists as they fill.
@@ -134,11 +182,11 @@ class World:
         )
         spawned = time.time()
         start = time.perf_counter()
-        for rank in range(self.size):
+        for rank in range(self.local_size):
             parent, child = ctx.Pipe()
             proc = ctx.Process(
                 target=_rank_main,
-                args=(rank, names, init_method, self.call_timeout_s, child),
+                args=(rank, names, rendezvous, self.call_timeout_s, child),
                 name=f"world-rank-{rank}",
                 daemon=True,
             )
@@ -147,11 +195,12 @@ class World:
             self._procs.append(proc)
             self._conns.append(parent)
         stamps = self._gather("forming the world", self.form_timeout_s)
-        self.form_times = _form_times(spawned, stamps)
+        phases = GANG_FORM_PHASES if self.coordinator else FORM_PHASES
+        self.form_times = _form_times(spawned, stamps, phases)
         self.form_times["total"] = time.perf_counter() - start
         log.info(
-            "world of %d %s rank(s) formed in %.2f s (%s)",
-            self.size, self.backend, self.form_times["total"],
+            "world of %d %s rank(s) over %d host(s) formed in %.2f s (%s)",
+            self.size, self.backend, self.num_hosts, self.form_times["total"],
             ", ".join(f"{k} {v:.2f} s" for k, v in self.form_times.items()),
         )
         return self
@@ -183,8 +232,8 @@ class World:
     def _gather(self, what: str, timeout_s: float) -> list:
         deadline = time.monotonic() + timeout_s
         results: dict[int, Any] = {}
-        while len(results) < self.size:
-            pending = [r for r in range(self.size) if r not in results]
+        while len(results) < self.local_size:
+            pending = [r for r in range(self.local_size) if r not in results]
             remaining = deadline - time.monotonic()
             if remaining <= 0:
                 self._fail(
@@ -211,7 +260,7 @@ class World:
                 if status != "ok":
                     self._fail(f"{what}: rank {rank} raised:\n{value}")
                 results[rank] = value
-        return [results[r] for r in range(self.size)]
+        return [results[r] for r in range(self.local_size)]
 
     def _fail(self, message: str) -> None:
         self.error = message
@@ -227,14 +276,21 @@ class World:
 #: package), the device's context, joining the process group (NCCL makes
 #: its communicator here), and the first all-reduce.
 FORM_PHASES = ("spawn_import", "device_context", "group_init", "first_collective")
+#: A world across hosts adds the TCP join: reaching the coordinator's store
+#: and every host's card count being there.
+GANG_FORM_PHASES = (
+    "spawn_import", "device_context", "tcp_join", "group_init", "first_collective",
+)
 
 
-def _form_times(spawned: float, stamps: Sequence[Sequence[float]]) -> dict[str, float]:
-    """Each phase's seconds in the slowest rank, from the wall-clock stamps
-    each rank took at the end of each phase (the host's clock, which the
-    ranks share)."""
+def _form_times(
+    spawned: float, stamps: Sequence[Sequence[float]], phases: Sequence[str] = FORM_PHASES
+) -> dict[str, float]:
+    """Each phase's seconds in the slowest rank of this host, from the
+    wall-clock stamps each rank took at the end of each phase (the host's
+    clock, which its ranks share)."""
     times: dict[str, float] = {}
-    for i, phase in enumerate(FORM_PHASES):
+    for i, phase in enumerate(phases):
         times[phase] = max(
             rank[i] - (rank[i - 1] if i else spawned) for rank in stamps
         )
@@ -265,13 +321,39 @@ def _shutdown(procs, conns, directory, graceful: bool = True) -> None:
 # Inside a rank.
 # ----------------------------------------------------------------------
 
-def _rank_main(rank: int, devices: list[str], init_method: str,
+def _tcp_join(local_rank: int, local_size: int, rendezvous: dict):
+    """Reach the gang's TCP store (rank 0 of host 0 holds it), post this
+    host's card count and wait for every host's; the store and this rank's
+    global rank. Hosts with different counts fail here, every one of them,
+    with the counts in the error."""
+    host, _, port = rendezvous["coordinator"].rpartition(":")
+    hosts, index = rendezvous["num_hosts"], rendezvous["host_index"]
+    rank = index * local_size + local_rank
+    timeout = timedelta(seconds=rendezvous["timeout_s"])
+    store = dist.TCPStore(
+        host, int(port), is_master=rank == 0, timeout=timeout, wait_for_workers=False,
+    )
+    if local_rank == 0:
+        store.set(f"cards/{index}", str(local_size))
+    keys = [f"cards/{h}" for h in range(hosts)]
+    store.wait(keys, timeout)
+    counts = [int(store.get(k)) for k in keys]
+    if any(c != local_size for c in counts):
+        raise RuntimeError(
+            f"the gang's hosts brought different card counts {counts} "
+            f"(host {index} brought {local_size}); every host must bring the same"
+        )
+    return store, rank, local_size * hosts
+
+
+def _rank_main(local_rank: int, devices: list[str], rendezvous: dict,
                timeout_s: float, conn) -> None:
     """A rank process: join the group, then run what the world sends until
     it sends ``None`` or goes away. Its answer to the join is the wall-clock
-    time at the end of each of :data:`FORM_PHASES`."""
+    time at the end of each of :data:`FORM_PHASES` (with a coordinator,
+    :data:`GANG_FORM_PHASES`)."""
     stamps = [time.time()]
-    device = torch.device(devices[rank])
+    device = torch.device(devices[local_rank])
     try:
         options: dict = {}
         if device.type == "cuda":
@@ -286,10 +368,16 @@ def _rank_main(rank: int, devices: list[str], init_method: str,
             torch.set_num_threads(1)
             backend = "gloo"
         stamps.append(time.time())
+        if "coordinator" in rendezvous:
+            store, rank, size = _tcp_join(local_rank, len(devices), rendezvous)
+            options["store"] = dist.PrefixStore("world", store)
+            stamps.append(time.time())
+        else:
+            rank, size = local_rank, len(devices)
+            options["init_method"] = rendezvous["init_method"]
         dist.init_process_group(
             backend,
-            init_method=init_method,
-            world_size=len(devices),
+            world_size=size,
             rank=rank,
             timeout=timedelta(seconds=timeout_s),
             **options,
@@ -297,8 +385,8 @@ def _rank_main(rank: int, devices: list[str], init_method: str,
         stamps.append(time.time())
         joined = torch.ones(1, device=device)
         dist.all_reduce(joined)
-        if int(joined.item()) != len(devices):
-            raise RuntimeError(f"{int(joined.item())} of {len(devices)} ranks joined")
+        if int(joined.item()) != size:
+            raise RuntimeError(f"{int(joined.item())} of {size} ranks joined")
         stamps.append(time.time())
     except Exception:  # noqa: BLE001 - reported to the world, which fails
         conn.send(("error", traceback.format_exc()))

@@ -21,7 +21,10 @@ card (``parallel.mesh.World``: NCCL between cards, gloo between CPU ranks):
 4. **ring and Ulysses attention probes** over the world, with more than
    one card;
 5. **flash-attention probe** (``ops.flash_attention``): numerics-checked
-   throughput of the hand-written CUDA flash kernel, on one card.
+   throughput of the hand-written CUDA flash kernel, on one card;
+6. **slice agreement**, in a gang (the gate given a ``coordinator``): the
+   world spans the cards of every host of the slice, and an all-reduce of
+   each rank's verdict tells every host whether every host passed.
 
 The world is formed at a gate's first run and serves its later runs; a
 world that fails is dropped and the next run forms a new one.
@@ -178,6 +181,11 @@ class HealthReport:
                 )
         return checks, metrics
 
+    def links_observation(self) -> dict[str, dict]:
+        """The per-hop link map for the telemetry plane: peer id -> {ok,
+        latency_s, gbytes_per_s}; empty when no link tier ran."""
+        return {hop.peer: hop.observation() for hop in self.links}
+
     def summary(self) -> str:
         parts = [f"ok={self.ok}", f"elapsed={self.elapsed_s:.2f}s"]
         ring = next(
@@ -225,6 +233,9 @@ class IciHealthGate:
         run_link_probes: bool = True,
         link_peer_names: Optional[list[str]] = None,
         device: DeviceLike = None,
+        coordinator: str = "",
+        num_processes: int = 1,
+        process_id: int = 0,
     ) -> None:
         self.min_ring_gbytes_per_s = min_ring_gbytes_per_s
         self.min_mxu_tflops = min_mxu_tflops
@@ -248,6 +259,12 @@ class IciHealthGate:
         #: The device of the single-device probes (matmul, flash);
         #: default the world's first.
         self.local_device = local_device
+        #: The slice gang: this gate's world is host ``process_id`` of
+        #: ``num_processes``, joined through the TCP store at
+        #: ``coordinator`` (``host:port``); empty runs on this host alone.
+        self.coordinator = coordinator
+        self.num_processes = num_processes
+        self.process_id = process_id
         # Formed at the first run and reused; dropped when it fails.
         self._world: Optional[World] = None
 
@@ -311,7 +328,12 @@ class IciHealthGate:
         if self._world is not None and self._world.error is not None:
             self._world = None
         if self._world is None:
-            self._world = World(devices)
+            self._world = World(
+                devices,
+                coordinator=self.coordinator,
+                num_hosts=self.num_processes,
+                host_index=self.process_id,
+            )
         return self._world
 
     def close(self) -> None:
@@ -354,7 +376,7 @@ class IciHealthGate:
             # one is a telemetry verdict, graded by the control plane.
             from ..ops.collectives import make_peer_resolver
 
-            peer_of, owns_hop = make_peer_resolver(self.link_peer_names)
+            peer_of, owns_hop = make_peer_resolver(self.link_peer_names, world)
             links = [
                 hop
                 for hop in ppermute_per_link(
@@ -415,8 +437,25 @@ class IciHealthGate:
             if not flash.ok:
                 failures.append(f"flash attention: {flash.error}")
 
-        # One node is one host: the slice-wide agreement across hosts
-        # (slice_agreement) waits for the multi-host gang.
+        slice_passed: Optional[int] = None
+        slice_total: Optional[int] = None
+        if world.coordinator:
+            # The gang: fold every rank's verdict into one over the links
+            # under test, so each host's readiness carries the slice's.
+            from ..ops.collectives import slice_agreement
+
+            try:
+                slice_passed, slice_total = slice_agreement(
+                    world, "x", local_ok=not failures
+                )
+                if slice_passed != slice_total:
+                    failures.append(
+                        f"slice agreement: only {slice_passed}/{slice_total}"
+                        " devices passed the battery"
+                    )
+            except Exception as e:  # noqa: BLE001 - dead fabric = failure
+                failures.append(f"slice agreement collective failed: {e}")
+
         report = HealthReport(
             ok=not failures,
             collectives=collectives,
@@ -428,7 +467,9 @@ class IciHealthGate:
             links=links,
             elapsed_s=time.perf_counter() - start,
             failures=failures,
-            process_count=1,
+            process_count=world.num_hosts,
+            slice_devices_passed=slice_passed,
+            slice_devices_total=slice_total,
         )
         log.info("health gate: %s", report.summary())
         return report
@@ -506,6 +547,9 @@ class SubprocessHealthGate:
         self.timeout_seconds = timeout_seconds
         self.env = env
         self.cwd = cwd
+        #: The last child's standard error: its log, and the payload's line
+        #: of kernel builds, launches and world formation.
+        self.last_stderr = ""
 
     def run(self) -> HealthReport:
         import json
@@ -531,7 +575,9 @@ class SubprocessHealthGate:
         )
         try:
             stdout, stderr = proc.communicate(timeout=self.timeout_seconds)
+            self.last_stderr = stderr or ""
         except subprocess.TimeoutExpired:
+            self.last_stderr = ""
             try:
                 os.killpg(proc.pid, signal.SIGKILL)
             except (ProcessLookupError, PermissionError):
@@ -629,8 +675,8 @@ class SliceScopedGate:
 
 
 def build_parser():
-    """The payload's flags: the JAX payload's, less the gang, publish and
-    XLA-cache flags, plus ``--device``."""
+    """The payload's flags: the JAX payload's, gang and publish flags
+    included, less its XLA-cache flag, plus ``--device``."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -681,12 +727,32 @@ def build_parser():
         help="comma-separated gang member node names by rank",
     )
     parser.add_argument(
+        "--coordinator", default="",
+        help="host:port of the slice probe gang's TCP store; rank 0 of "
+        "process 0 serves it, every rank dials it",
+    )
+    parser.add_argument(
+        "--num-processes", type=int, default=1,
+        help=">1 = slice-wide gang battery: one world over the cards of "
+        "every host of the slice before probing",
+    )
+    parser.add_argument(
+        "--process-id", type=int, default=0,
+        help="this pod's index in the slice probe gang",
+    )
+    parser.add_argument(
         "--ready-file", default="",
         help="file written on pass (readinessProbe target)",
     )
     parser.add_argument(
         "--park", action="store_true",
         help="sleep forever after a pass (keeps the pod Ready)",
+    )
+    parser.add_argument(
+        "--publish-report", action="store_true",
+        help="publish the battery as a NodeHealthReport for the node "
+        "$NODE_NAME names (in-cluster or kubeconfig credentials); a failed "
+        "publish is logged and never changes the verdict",
     )
     return parser
 
@@ -698,12 +764,21 @@ def main(argv: Optional[list[str]] = None) -> int:
     report as one JSON line (and on stderr one line of the seconds spent
     building each kernel and the launches of each), and on pass writes
     ``--ready-file`` — the pod's readinessProbe watches that file. ``--park`` keeps the process
-    alive after a pass; on failure the process exits non-zero.
+    alive after a pass; on failure the process exits non-zero. With
+    ``--num-processes`` and ``--coordinator`` the pod is one host of a
+    slice gang; with ``--publish-report`` the report is also published as
+    the node's NodeHealthReport.
     """
     import json
+    import os
     import sys
 
-    args = build_parser().parse_args(argv)
+    parser = build_parser()
+    args = parser.parse_args(argv)
+    if args.publish_report and not os.environ.get("NODE_NAME"):
+        parser.error("--publish-report requires $NODE_NAME")
+    if args.num_processes > 1 and not args.coordinator:
+        parser.error("--num-processes > 1 requires --coordinator")
 
     device = resolve_device(args.device)
     # Kernel choice: explicit force-on/force-off flags win; with neither,
@@ -723,18 +798,40 @@ def main(argv: Optional[list[str]] = None) -> int:
         device=device,
         run_link_probes=not args.no_link_probes,
         link_peer_names=[n for n in args.link_peers.split(",") if n] or None,
+        coordinator=args.coordinator,
+        num_processes=args.num_processes,
+        process_id=args.process_id,
     )
+    if args.coordinator:
+        log.info(
+            "joining slice probe gang: process %d/%d via %s",
+            args.process_id, args.num_processes, args.coordinator,
+        )
     try:
         report = gate.run()
+        form_times = dict(gate._world.form_times) if gate._world is not None else {}
     finally:
         gate.close()
     print(json.dumps(dataclasses.asdict(report)), flush=True)
-    # What the run cost in kernel builds and launched, for the pod's log.
+    if args.publish_report:
+        # Telemetry beside the verdict: the ready file and the exit code
+        # stay the validation signal.
+        from ..kube.rest import RestClient
+        from .monitor import ReportPublisher
+
+        try:
+            ReportPublisher(
+                RestClient.from_environment(), os.environ["NODE_NAME"], source="gate",
+            ).publish_report(report)
+        except Exception:  # noqa: BLE001 - telemetry must not gate
+            log.exception("NodeHealthReport publish failed")
+    # What the run cost in kernel builds, world formation and launches, for
+    # the pod's log.
     print(json.dumps({"kernels": {
         "build_s": dict(_build.BUILD_SECONDS),
         "launches": {"matmul": matmul.launches,
                      "flash_attention": flash_attention.launches},
-    }}), file=sys.stderr, flush=True)
+    }, "world": {"form_times": form_times}}), file=sys.stderr, flush=True)
     if not report.ok:
         return 1
     if args.ready_file:

@@ -70,8 +70,10 @@ class ValidationPodSpec:
     #: pod builds anew inside its own filesystem). Keep it under a
     #: root-owned parent: see ``health.KERNEL_CACHE_DIR``.
     compile_cache_dir: str = KERNEL_CACHE_DIR
-    #: Publishing the report as a NodeHealthReport from the pod waits for
-    #: the port's monitor (ROADMAP A5); ``True`` raises.
+    #: Publish each battery as the node's NodeHealthReport from the pod
+    #: (``--publish-report``, the node named by ``NODE_NAME`` from the
+    #: downward API): a slice gang's pods then publish the links between
+    #: their nodes, keyed by node name.
     publish_reports: bool = False
 
     @property
@@ -88,11 +90,6 @@ class ValidationPodSpec:
         knobs serialize through ``IciHealthGate.to_cli_args``, with explicit
         force-on/force-off kernel flags, so the pod runs exactly the
         configured battery."""
-        if self.publish_reports:
-            raise NotImplementedError(
-                "publish_reports: the port's payload has no --publish-report "
-                "until its monitor is ported (ROADMAP queue A5)"
-            )
         gate = IciHealthGate(
             min_ring_gbytes_per_s=self.min_ring_gbytes_per_s,
             min_mxu_tflops=self.min_mxu_tflops,
@@ -103,12 +100,15 @@ class ValidationPodSpec:
             run_seq_parallel_probes=self.run_seq_parallel_probes,
             run_burnin=self.run_burnin,
         )
-        return [
+        command = [
             "python", "-m", "k8s_operator_libs_tpu_torch.tpu.health",
             "--ready-file", READY_FILE,
             "--park",
             *gate.to_cli_args(),
         ]
+        if self.publish_reports:
+            command.append("--publish-report")
+        return command
 
 
 class ValidationPodManager:
@@ -140,6 +140,13 @@ class ValidationPodManager:
             {"operator": "Exists", "effect": "NoExecute"},
         ]
         env = []
+        if spec.publish_reports:
+            env.append(
+                {
+                    "name": "NODE_NAME",
+                    "valueFrom": {"fieldRef": {"fieldPath": "spec.nodeName"}},
+                }
+            )
         volume_mounts = []
         if spec.compile_cache_dir:
             # The build lives on the host: a later probe pod on this node

@@ -1,7 +1,11 @@
-"""Device class identity and the label and annotation keys derived from it.
+"""Upgrade states, device class identity and the label and annotation keys
+derived from it.
 
-A subset of the JAX package's ``upgrade/consts.py``: the value object that
-names a managed driver, and the keys this package reads or writes. For
+A subset of the JAX package's ``upgrade/consts.py``: the node states the
+slice planner sorts by, the value object that names a managed driver, and
+the keys this package reads or writes. The states are a ``StrEnum`` with
+the state machine's own values, so a state here compares equal to the
+state machine's bucket of the same name. For
 ``DeviceClass.nvidia("gpu")`` the keys take the shape of NVIDIA's upstream
 Go library, ``nvidia.com/gpu-driver-<suffix>``; the shared state machine
 writes the same keys for the same device class, so a key built here names
@@ -10,7 +14,34 @@ what the operator wrote.
 
 from __future__ import annotations
 
+import enum
 from dataclasses import dataclass
+
+
+class UpgradeState(enum.StrEnum):
+    """A node's upgrade state, stored in its state label."""
+
+    UNKNOWN = ""
+    UPGRADE_REQUIRED = "upgrade-required"
+    CORDON_REQUIRED = "cordon-required"
+    WAIT_FOR_JOBS_REQUIRED = "wait-for-jobs-required"
+    CHECKPOINT_REQUIRED = "checkpoint-required"
+    POD_DELETION_REQUIRED = "pod-deletion-required"
+    DRAIN_REQUIRED = "drain-required"
+    NODE_MAINTENANCE_REQUIRED = "node-maintenance-required"
+    POST_MAINTENANCE_REQUIRED = "post-maintenance-required"
+    POD_RESTART_REQUIRED = "pod-restart-required"
+    VALIDATION_REQUIRED = "validation-required"
+    UNCORDON_REQUIRED = "uncordon-required"
+    DONE = "upgrade-done"
+    FAILED = "upgrade-failed"
+    #: Cordoned by the telemetry quarantine, outside any roll.
+    QUARANTINED = "quarantined"
+
+
+TRUE_STRING = "true"
+#: Annotation value asking the state machine's provider to delete the key.
+NULL_STRING = "null"
 
 
 @dataclass(frozen=True)
@@ -52,3 +83,26 @@ class UpgradeKeys:
         """Node annotation the driver pod's init container sets and waits
         on until the state machine has drained the node."""
         return self._key("upgrade.driver-wait-for-safe-load")
+
+    @property
+    def skip_label(self) -> str:
+        """Node label that keeps a node out of upgrades and probes."""
+        return self._key("upgrade.skip")
+
+    @property
+    def skip_drain_pod_label(self) -> str:
+        """Pod label that keeps a pod out of the drain (and out of the
+        monitor's count of pods holding the cards)."""
+        return self._key("upgrade-drain.skip")
+
+    @property
+    def upgrade_requested_annotation(self) -> str:
+        return self._key("upgrade-requested")
+
+    @property
+    def requestor_mode_annotation(self) -> str:
+        return self._key("upgrade-requestor-mode")
+
+    def event_reason(self) -> str:
+        """Event reason with the driver upper-cased: ``GPUDriverUpgrade``."""
+        return f"{self.device.driver.upper()}DriverUpgrade"

@@ -10,10 +10,14 @@ the card:
     python -m pytest tests/test_torch_cuda.py -q
 
 This file imports no JAX, so it runs where only PyTorch is installed. The
-GPU node roll (``-k roll``) drives the JAX package's state machine, whose
-control plane imports no JAX either (``tests/test_torch_roll.py``).
+GPU node roll (``-k roll``) and the monitor's cycle drive the JAX package's
+in-memory cluster and state machine, whose control plane imports no JAX
+either (``tests/test_torch_roll.py``). The slice gang runs as one pod on
+every card (``-k gang``) and, with two or more cards, as two pods on half
+the cards each (``-k between_cards``).
 """
 
+import json
 import math
 import os
 from pathlib import Path
@@ -351,3 +355,115 @@ def test_gpu_node_roll_on_the_card(cuda, tmp_path):
         "flash_attention", "matmul",
     ]
     assert not roll.cluster.list("Pod", namespace=NS, label_selector=spec.pod_selector)
+
+
+# ----------------------------------------------------------------------
+# The monitor and the slice gang on the card.
+# ----------------------------------------------------------------------
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _payload_env(**extra):
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    env.update(extra)
+    return env, str(repo)
+
+
+def test_monitor_cycle_on_the_card(cuda):
+    """One monitor cycle whose subprocess gate runs the card's payload with
+    both kernels: the condition, the Event and the NodeHealthReport."""
+    from k8s_operator_libs_tpu.kube import FakeCluster
+
+    from k8s_operator_libs_tpu_torch.kube.events import EventRecorder
+    from k8s_operator_libs_tpu_torch.kube.objects import Node, condition_status
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.tpu.health import SubprocessHealthGate
+    from k8s_operator_libs_tpu_torch.tpu.monitor import (
+        ICI_HEALTHY_CONDITION,
+        ReportPublisher,
+        TpuHealthMonitor,
+    )
+
+    cluster = FakeCluster()
+    node = Node.new("gpu-0", labels=local_gpu_labels())
+    node.set_ready(True)
+    cluster.create(node)
+    env, repo = _payload_env()
+    gate = SubprocessHealthGate(
+        cli_args=IciHealthGate.tpu_defaults(matmul_size=512).to_cli_args(),
+        timeout_seconds=600, env=env, cwd=repo,
+    )
+    monitor = TpuHealthMonitor(
+        cluster, "gpu-0", gate=gate, failure_threshold=1, success_threshold=1,
+        recorder=EventRecorder(cluster), report_publisher=ReportPublisher(cluster, "gpu-0"),
+    )
+    report = monitor.check_once()
+    assert report is not None and report.ok, report and report.failures
+    assert report.flash is not None and report.flash.ok
+    status = Node(cluster.get("Node", "gpu-0").raw).status
+    assert condition_status(status, ICI_HEALTHY_CONDITION) == "True"
+    assert [e.raw["type"] for e in cluster.list("Event")] == ["Normal"]
+    published = cluster.get("NodeHealthReport", "gpu-0").raw["status"]
+    assert published["metrics"]["mxu_tflops"] == report.mxu.tflops
+    line = next(
+        json.loads(ln) for ln in reversed(gate.last_stderr.splitlines())
+        if ln.startswith("{") and "kernels" in ln
+    )
+    assert line["kernels"]["launches"]["matmul"] > 0
+    assert line["kernels"]["launches"]["flash_attention"] > 0
+
+
+def test_one_pod_gang_through_the_tcp_rendezvous(cuda):
+    gate = IciHealthGate.tpu_defaults(
+        matmul_size=256, coordinator=f"127.0.0.1:{_free_port()}", num_processes=1,
+    )
+    try:
+        report = gate.run()
+        form_times = dict(gate._world.form_times)
+    finally:
+        gate.close()
+    n = torch.cuda.device_count()
+    assert report.ok, report.failures
+    assert report.process_count == 1
+    assert (report.slice_devices_passed, report.slice_devices_total) == (n, n)
+    assert f"slice={n}/{n} over 1 hosts" in report.summary()
+    assert "tcp_join" in form_times
+
+
+def test_two_pod_gang_between_cards(cards_world, tmp_path):
+    """Two payload processes, each with half the cards, joined into one
+    world through the TCP store: both pass the shared agreement."""
+    import subprocess
+    import sys
+
+    from k8s_operator_libs_tpu_torch.tpu.health import HealthReport
+
+    k = torch.cuda.device_count() // 2
+    coordinator = f"127.0.0.1:{_free_port()}"
+    procs = []
+    for i, cards in enumerate((range(k), range(k, 2 * k))):
+        env, repo = _payload_env(CUDA_VISIBLE_DEVICES=",".join(map(str, cards)))
+        argv = [
+            sys.executable, "-m", "k8s_operator_libs_tpu_torch.tpu.health",
+            "--matmul-size", "256", "--coordinator", coordinator, "--num-processes", "2",
+            "--process-id", str(i), "--link-peers", "node-a,node-b",
+            "--ready-file", str(tmp_path / f"{i}.ready"),
+        ]
+        procs.append(subprocess.Popen(argv, env=env, cwd=repo, stdout=subprocess.PIPE,
+                                      stderr=subprocess.PIPE, text=True))
+    outs = [p.communicate(timeout=600) for p in procs]
+    for i, (proc, (out, err)) in enumerate(zip(procs, outs)):
+        assert proc.returncode == 0, err[-3000:]
+        report = HealthReport.from_dict(json.loads(out.strip().splitlines()[-1]))
+        assert report.ok and report.process_count == 2
+        assert f"slice={2 * k}/{2 * k} over 2 hosts" in (tmp_path / f"{i}.ready").read_text()
+        other = ("node-a", "node-b")[1 - i]
+        assert any(h.peer == other and h.ok for h in report.links), report.links

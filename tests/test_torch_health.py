@@ -382,6 +382,16 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['k8s_operator_libs_tpu'] = None\n"
         "import k8s_operator_libs_tpu_torch.tpu.health as h\n"
         "import k8s_operator_libs_tpu_torch.models.burnin\n"
+        "import k8s_operator_libs_tpu_torch.tpu.planner\n"
+        "import k8s_operator_libs_tpu_torch.tpu.monitor\n"
+        "import k8s_operator_libs_tpu_torch.tpu.slice_gate\n"
+        "import k8s_operator_libs_tpu_torch.kube.rest\n"
+        "import k8s_operator_libs_tpu_torch.kube.events\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.metrics\n"
+        "import k8s_operator_libs_tpu_torch.policy\n"
+        "import k8s_operator_libs_tpu_torch.api.telemetry_v1alpha1\n"
+        "import k8s_operator_libs_tpu_torch.tpu as t\n"
+        "[getattr(t, name) for name in t.__all__]\n"
         "r = h.IciHealthGate(device='cpu', matmul_size=32, run_burnin=False).run()\n"
         "assert r.ok, r.failures\n"
         "assert not any(m == 'jax' or m.startswith('jax.') for m in sys.modules"

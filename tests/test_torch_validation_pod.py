@@ -100,11 +100,16 @@ def test_pod_defaults_are_the_cards():
 
 
 def test_publish_reports_waits_for_the_monitor():
-    spec = port_vp.ValidationPodSpec(publish_reports=True)
-    with pytest.raises(NotImplementedError, match="A5"):
-        spec.probe_command()
-    with pytest.raises(NotImplementedError, match="A5"):
-        port_vp.ValidationPodManager(None, spec).build_pod("n")
+    """With the monitor's publisher ported, ``publish_reports`` adds what the
+    JAX pod adds: ``--publish-report`` and ``NODE_NAME`` from the downward
+    API; the flag parses in the payload."""
+    jax_pod, port_pod = _pods(publish_reports=True, compile_cache_dir="")
+    (jax_c,), (port_c,) = jax_pod.spec["containers"], port_pod.spec["containers"]
+    assert port_c["command"][-1] == jax_c["command"][-1] == "--publish-report"
+    assert port_c["env"] == jax_c["env"] == [
+        {"name": "NODE_NAME", "valueFrom": {"fieldRef": {"fieldPath": "spec.nodeName"}}}
+    ]
+    assert build_parser().parse_args(port_c["command"][3:]).publish_report
 
 
 SWITCHES = ("use_pallas_matmul", "run_flash_attention", "run_seq_parallel_probes", "run_burnin")

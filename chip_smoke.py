@@ -43,23 +43,41 @@ Phases, in order; any failure raises and the script exits non-zero:
 7. the burn-in's forward at ``BurninConfig()`` width with the flash core
    (head_dim 32), counts set to 0 just before: the kernel runs once a
    layer and the logits match the plain core's;
-8. the CLI payload in a subprocess: its report must parse and be ok;
-9. device-class phase (the GPU node roll's probe pod): the node's GPU
-   Feature Discovery labels built from the card's own facts must make the
-   node detector see a GPU node of ``torch.cuda.device_count()`` cards;
-   the validation pod built for it must ask for that many
-   ``nvidia.com/gpu``; and its container command runs as a kubelet would
-   (``python`` is this interpreter, the container's environment applies
-   with the kernel-cache host path mapped to a temporary directory, the
-   ready file lies in a temporary directory), twice on one cache: cold
-   (``nvcc`` runs inside the pod) and warm. Each run must write its ready
-   file within ``POD_READY_TIMEOUT_S``, print an ok report with the
-   matmul and flash probes ok, launch each kernel as often as the gate
-   phase did (the payload's own counts, from its stderr line) and still
-   be alive (parked) after; then it is stopped. The line
-   ``{"device_class": ...}`` gives the seconds to Ready, the report's
-   ``elapsed_s``, ``mxu_tflops``, flash ok and the build seconds of each;
-10. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
+8. entry phase, the flagship model (``entry.ENTRY_CFG``: vocab 1024,
+   d_model 256, 8 heads, d_ff 1024, 4 layers, seq 256, batch 4) on the
+   card: ``entry()``'s forward, first and warm, its logits finite and its
+   loss within ``CARD_VS_CPU_REL`` of the same parameters' f32 loss on the
+   CPU; the same widths with four experts a layer, three train steps, the
+   loss finite, falling and first within ``CARD_VS_CPU_REL`` of the CPU's;
+   and that MoE forward with the flash core, counts set to 0 just before:
+   the flash kernel runs once a layer (4 times), the matmul kernel never,
+   and the logits match the plain core's;
+9. dryrun phase, on an NCCL world of every card: ``dryrun_multichip``,
+   the JAX dry run's programs for the world's size, two steps each (mesh,
+   loss, each step's seconds), every loss finite; then the MoE flagship's
+   sharded step over the world's layouts (one card: dp 1; four cards:
+   {ep2, tp2}, {tp2, sp2} with ring and with Ulysses, {dp2, pp2}), its
+   first loss within ``SHARDED_REL`` of the unsharded step's on the card
+   and equal on every rank. With one card a line says which axes were
+   not exercised;
+10. the CLI payload in a subprocess: its report must parse and be ok;
+11. device-class phase (the GPU node roll's probe pod): the node's GPU
+    Feature Discovery labels built from the card's own facts must make the
+    node detector see a GPU node of ``torch.cuda.device_count()`` cards;
+    the validation pod built for it with the default spec must ask for
+    that many ``nvidia.com/gpu`` (the node's own count); and its container
+    command runs as a kubelet would (``python`` is this interpreter, the
+    container's environment applies with the kernel-cache host path mapped
+    to a temporary directory, the ready file lies in a temporary
+    directory), twice on one cache: cold (``nvcc`` runs inside the pod)
+    and warm. Each run must write its ready file within
+    ``POD_READY_TIMEOUT_S``, print an ok report with the matmul and flash
+    probes ok, launch each kernel as often as the gate phase did (the
+    payload's own counts, from its stderr line) and still be alive
+    (parked) after; then it is stopped. The line ``{"device_class": ...}``
+    gives the seconds to Ready, the report's ``elapsed_s``,
+    ``mxu_tflops``, flash ok and the build seconds of each;
+12. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
     from the card, against a dict-backed client (``DictClient``: Node,
     Pod, Event, NodeHealthReport), its gate the port's
     ``SubprocessHealthGate`` at ``tpu_defaults()``, so each cycle is the
@@ -74,7 +92,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``run_quick_probe_loop(once=True)``, forms a world of every card and
     publishes a report. ``{"monitor": ...}`` gives each cycle's wall seconds
     (the child included) and the payload's launches;
-11. gang phase: the payload as a slice gang pod, a child process with
+13. gang phase: the payload as a slice gang pod, a child process with
     ``--coordinator 127.0.0.1:<free port> --num-processes 1 --process-id 0
     --publish-report`` (``NODE_NAME`` set, the kubeconfig pointing at
     ``ApiStub``, an HTTP front of the same kind of dict-backed client). Its
@@ -90,8 +108,9 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``World.form_times`` does, the TCP join included.
 
 The last lines are the kernel table as one JSON object (each row with the
-launches of the gate, the burn-in forward, the probe pod, the monitor's
-payload and the gang's payload), the card's name and power limit, and
+launches of the gate, the burn-in forward, the flagship MoE flash
+forward, the probe pod, the monitor's payload and the gang's payload),
+the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
 or run from a directory that holds only this file, it exits non-zero and
 prints no result.
@@ -132,6 +151,13 @@ K2_RTOL = 2.0**-7
 #: difference there reaches the logits through the bf16 residual stream.
 BURNIN_ATOL = 5e-2
 BURNIN_RTOL = 2e-2
+
+#: A loss on the card (bf16) against the same parameters' loss in f32 on
+#: the CPU: bf16 rounds at other places (``tests/test_torch_cuda.py``).
+CARD_VS_CPU_REL = 5e-3
+#: A sharded step's first loss against the unsharded step's on the same
+#: parameters: the JAX package's own tolerance for its sharded step in bf16.
+SHARDED_REL = 2e-2
 
 #: ((M, K, N), the kernel family it must take): the gate's size and two
 #: larger ones through ``wgmma``, and a shape TMA cannot describe (K and N
@@ -575,6 +601,216 @@ def burnin_flash_phase() -> dict:
     return launches
 
 
+def entry_phase(card: str) -> dict:
+    """The flagship model (``entry.ENTRY_CFG``) on the card: ``entry()``'s
+    forward, three train steps of its widths with four experts a layer,
+    and that MoE forward through the flash core, counts set to 0 just
+    before. The kernel is held to its stated tolerance on each layer's
+    operands; after 4 bf16 layers the logits differ from the plain core's
+    by more than one kernel call's rounding, so the forward as a whole is
+    held by its loss against the f32 loss on the CPU."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.ops import flash_attention as flash_mod
+    from k8s_operator_libs_tpu_torch.entry import ENTRY_CFG, entry
+    from k8s_operator_libs_tpu_torch.models.burnin import (
+        _leaves,
+        _rebuild,
+        forward,
+        init_params,
+        loss_fn,
+        synthetic_batch,
+        train_step,
+    )
+
+    def cpu_f32_loss(params, batch, cfg) -> float:
+        """The reference: the same parameters and tokens in f32 on the CPU."""
+        host = _rebuild(params, [p.float().cpu() for p in _leaves(params)])
+        f32 = dataclasses.replace(cfg, dtype=torch.float32)
+        return float(loss_fn(host, {k: t.cpu() for k, t in batch.items()}, f32))
+
+    fn, (params, tokens) = entry()
+    forward_s = []
+    for _ in range(2):
+        start = time.perf_counter()
+        logits = fn(params, tokens)
+        torch.cuda.synchronize()
+        forward_s.append(time.perf_counter() - start)
+    batch = {"tokens": tokens, "targets": torch.roll(tokens, -1, dims=-1)}
+    nll = torch.nn.functional.cross_entropy(
+        logits.reshape(-1, ENTRY_CFG.vocab), batch["targets"].reshape(-1)
+    )
+    entry_loss, entry_ref = float(nll), cpu_f32_loss(params, batch, ENTRY_CFG)
+
+    moe = dataclasses.replace(ENTRY_CFG, n_experts=4)
+    params = init_params(torch.Generator().manual_seed(0), moe, "cuda")
+    batch = synthetic_batch(torch.Generator().manual_seed(1), moe, "cuda")
+    moe_ref = cpu_f32_loss(params, batch, moe)
+    losses, step_s, p = [], [], params
+    for _ in range(3):
+        start = time.perf_counter()
+        p, loss = train_step(p, batch, moe)
+        losses.append(float(loss))
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - start)
+
+    # The MoE forward through the flash kernel; each call's inputs and
+    # output are kept, to hold the kernel against its plain version on the
+    # very operands this path gives it. The model finds the wrapper by the
+    # module's name, and the wrapper counts its launches under that name,
+    # so the name is the wrapper's own while it runs.
+    flash = dataclasses.replace(moe, use_flash_attention=True)
+    kernel, calls = flash_mod.flash_attention, []
+
+    def recorded(q, k, v, causal=True):
+        flash_mod.flash_attention = kernel
+        try:
+            out = kernel(q, k, v, causal)
+        finally:
+            flash_mod.flash_attention = recorded
+        calls.append((q, k, v, out))
+        return out
+
+    reset_counts()
+    flash_mod.flash_attention = recorded
+    try:
+        start = time.perf_counter()
+        got = forward(params, batch["tokens"], flash)
+        torch.cuda.synchronize()
+        flash_s = time.perf_counter() - start
+    finally:
+        flash_mod.flash_attention = kernel
+    launches = counts()
+    layer_errs, layer_excess = [], []
+    for q, k, v, out in calls:
+        ref = flash_mod.flash_attention_reference(q, k, v).float()
+        err = (out.float() - ref).abs()
+        layer_errs.append(float(err.max()))
+        layer_excess.append(float((err - (K2_ATOL + K2_RTOL * ref.abs())).max()))
+    want = forward(params, batch["tokens"], moe)
+    diff = (got - want).abs()
+    flash_nll = torch.nn.functional.cross_entropy(
+        got.reshape(-1, moe.vocab), batch["targets"].reshape(-1)
+    )
+    flash_loss = float(flash_nll)
+    info = {
+        "cfg": {k: getattr(ENTRY_CFG, k) for k in
+                ("vocab", "d_model", "n_heads", "d_ff", "n_layers", "seq_len", "batch")},
+        "forward_s": forward_s,
+        "logits_shape": list(logits.shape),
+        "loss": entry_loss,
+        "cpu_f32_loss": entry_ref,
+        "moe": {"n_experts": moe.n_experts, "losses": losses, "cpu_f32_loss": moe_ref,
+                "step_s": step_s},
+        "flash_forward": {"seconds": flash_s, "launches": launches,
+                          "kernel_max_abs_err_by_layer": layer_errs,
+                          "kernel_tol": f"{K2_ATOL} + {K2_RTOL}*|plain|",
+                          "loss": flash_loss,
+                          "logits_max_abs_diff_to_plain_core": float(diff.max())},
+    }
+    print(json.dumps({"entry": info, "card": card}), flush=True)
+    if tuple(logits.shape) != (ENTRY_CFG.batch, ENTRY_CFG.seq_len, ENTRY_CFG.vocab) or not bool(
+        torch.isfinite(logits).all()
+    ):
+        raise AssertionError(f"entry forward: logits {tuple(logits.shape)} not finite or shaped")
+    for name, ours, ref in (("entry", entry_loss, entry_ref), ("moe", losses[0], moe_ref)):
+        if not abs(ours - ref) <= CARD_VS_CPU_REL * abs(ref):
+            raise AssertionError(f"{name} loss {ours} on the card, {ref} in f32 on the CPU")
+    if not all(math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"MoE train step loss not finite and falling: {losses}")
+    if not bool(torch.isfinite(got).all()) or any(x > 0 for x in layer_excess):
+        raise AssertionError(f"MoE flash forward: the kernel is off its plain version: {info}")
+    if not abs(flash_loss - moe_ref) <= CARD_VS_CPU_REL * abs(moe_ref):
+        raise AssertionError(f"MoE flash forward loss {flash_loss}, {moe_ref} in f32 on the CPU")
+    if len(calls) != moe.n_layers or launches["flash_attention"] != moe.n_layers \
+            or launches["matmul"] != 0:
+        raise AssertionError(f"MoE flash forward: kernel launches {launches}")
+    return info
+
+
+def flagship_layouts(n: int) -> list[dict]:
+    """The MoE flagship's sharded layouts over a world of ``n`` cards: the
+    one card's own, else the expert and tensor axes, tensor and sequence
+    (ring and Ulysses), and the pipeline with dp."""
+    if n == 1:
+        return [{"axes": {"dp": 1}}]
+    if n % 4 == 0:
+        dp = n // 4
+        return [
+            {"axes": {"dp": dp, "ep": 2, "tp": 2}},
+            {"axes": {"dp": dp, "tp": 2, "sp": 2}, "sp_impl": "ring"},
+            {"axes": {"dp": dp, "tp": 2, "sp": 2}, "sp_impl": "ulysses"},
+            {"axes": {"dp": n // 2, "pp": 2}, "n_microbatches": 2},
+        ]
+    dp = n // 2
+    return [
+        {"axes": {"dp": dp, "ep": 2}},
+        {"axes": {"dp": dp, "sp": 2}, "sp_impl": "ring"},
+        {"axes": {"dp": dp, "sp": 2}, "sp_impl": "ulysses"},
+        {"axes": {"dp": dp, "pp": 2}, "n_microbatches": 2},
+    ]
+
+
+def dryrun_phase(card: str) -> dict:
+    """``dryrun_multichip`` on an NCCL world of every card, two steps each
+    program, then the MoE flagship's sharded step over the world's layouts,
+    its first loss held against the unsharded step's on the card."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.entry import ENTRY_CFG, dryrun_multichip, timed_steps
+    from k8s_operator_libs_tpu_torch.models.burnin import init_params, loss_fn, synthetic_batch
+    from k8s_operator_libs_tpu_torch.parallel.mesh import World, available_devices
+
+    def show(key: str, value) -> None:
+        print(json.dumps({key: value, "card": card}), flush=True)
+
+    n = torch.cuda.device_count()
+    moe = dataclasses.replace(ENTRY_CFG, n_experts=4)
+    unsharded = float(loss_fn(
+        init_params(torch.Generator().manual_seed(0), moe, "cuda"),
+        synthetic_batch(torch.Generator().manual_seed(1), moe, "cuda"),
+        moe,
+    ))
+    world = World(available_devices())
+    if world.backend != "nccl":
+        raise AssertionError(f"a world of cards joined through {world.backend}")
+    try:
+        start = time.perf_counter()
+        world.start()
+        form_s = time.perf_counter() - start
+        programs = dryrun_multichip(world, steps=2)
+        show("dryrun_multichip", {"world_size": n, "world_form_s": form_s, "programs": programs})
+        flagship = []
+        for layout in flagship_layouts(n):
+            per_rank = world.run(
+                timed_steps, layout["axes"], moe, 2, layout.get("sp_impl", "ring"),
+                layout.get("n_microbatches"),
+            )
+            result = {
+                **layout,
+                "losses": per_rank[0]["losses"],
+                "seconds": [max(r["seconds"][i] for r in per_rank) for i in range(2)],
+                "same_on_every_rank": all(r["losses"] == per_rank[0]["losses"] for r in per_rank),
+            }
+            flagship.append(result)
+            show("dryrun_flagship", {"unsharded_loss": unsharded, **result})
+    finally:
+        world.close()
+    for program in programs:
+        if not all(math.isfinite(x) for x in program["losses"]):
+            raise AssertionError(f"dryrun program {program['name']}: {program['losses']}")
+    for result in flagship:
+        first = result["losses"][0]
+        if not (result["same_on_every_rank"] and all(math.isfinite(x) for x in result["losses"])
+                and abs(first - unsharded) <= SHARDED_REL * abs(unsharded)):
+            raise AssertionError(f"MoE flagship sharded step: {result}, unsharded {unsharded}")
+    if n < 2:
+        show("not_run", "the ep, tp, sp and pp axes and dp > 1 need two or more cards, "
+             "and the dry run's expert and pipeline programs four and two; this machine "
+             "has one card, so each program ran at every axis 1")
+    return {"programs": programs, "flagship": flagship}
+
+
 def cli_phase() -> None:
     from k8s_operator_libs_tpu_torch.tpu.health import HealthReport
 
@@ -690,8 +926,11 @@ def device_class_phase(card: str, gate_launches: dict) -> dict:
     info = TpuNodeDetector().detect(node)
     if info is None or info.chips != count:
         raise AssertionError(f"detector on {node.labels}: {info}")
-    spec = ValidationPodSpec(tpu_chips=count)
-    (container,) = ValidationPodManager(None, spec).build_pod(node.name).spec["containers"]
+    # The default spec: the pod asks for the node's own count, not the
+    # spec's 8 cards.
+    spec = ValidationPodSpec()
+    manager = ValidationPodManager(None, spec)
+    (container,) = manager.build_pod(node.name, manager.cards(node)).spec["containers"]
     limits = container["resources"]["limits"]
     if limits != {"nvidia.com/gpu": str(count)}:
         raise AssertionError(f"probe pod limits: {limits}")
@@ -1183,6 +1422,8 @@ def main() -> int:
     collectives_phase(card)
     burnin_phase()
     burnin_launches = burnin_flash_phase()
+    flagship = entry_phase(card)
+    dryrun_phase(card)
     cli_phase()
     pod = device_class_phase(card, launches)
     monitor = monitor_phase(card, launches)
@@ -1192,6 +1433,7 @@ def main() -> int:
         kernel = "matmul" if row["name"] == "matmul" else "flash_attention"
         row["launches"] = launches[kernel]
         row["launches_burnin_flash_forward"] = burnin_launches[kernel]
+        row["launches_entry_flash_forward"] = flagship["flash_forward"]["launches"][kernel]
         row["launches_validation_pod"] = pod["cold"]["launches"][kernel]
         row["launches_monitor"] = monitor["pass_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]

@@ -42,8 +42,10 @@ def ring_attention(
 ) -> torch.Tensor:
     """Sequence-parallel attention, inside a rank: q/k/v are this rank's
     (batch, heads, seq_local, head_dim) blocks of a sequence split over
-    ``axis`` in rank order. Returns this rank's block of the output."""
-    from ..parallel.mesh import exchange
+    ``axis`` in rank order. Returns this rank's block of the output.
+    Differentiable: autograd gives dQ here and carries dK and dV back
+    around the ring (``parallel.mesh.rotate``)."""
+    from ..parallel.mesh import rotate
 
     n, my = mesh.shape[axis], mesh.coords[axis]
     s_q, s_k = q.shape[2], k.shape[2]
@@ -58,7 +60,9 @@ def ring_attention(
         if causal:
             cols = src * s_k + torch.arange(s_k, device=q.device)
             scores = scores.masked_fill(rows[:, None] < cols[None, :], _MASKED)
-        new_m = torch.maximum(m, scores.amax(dim=-1))
+        # The running max only keeps exp() in range: the output does not
+        # depend on it, so it takes no part in the gradient.
+        new_m = torch.maximum(m, scores.amax(dim=-1)).detach()
         p = torch.exp(scores - new_m[..., None])
         corr = torch.exp(m - new_m)
         l = l * corr + p.sum(dim=-1)
@@ -71,17 +75,12 @@ def ring_attention(
     carry = (m0, torch.zeros_like(m0), torch.zeros_like(qf))
     # Step 0 is the rank's own block: no rotation.
     carry = fold(carry, k, v, my)
+    kv = torch.stack((k, v))  # one message a hop
     for t in range(1, n):
         # Rotate first, then fold: n-1 rotations in all; a rotation after
         # the last fold would ship every block one extra, unused hop.
-        k_next, v_next = torch.empty_like(k), torch.empty_like(v)
-        exchange(
-            mesh, axis,
-            [(k, (my + 1) % n), (v, (my + 1) % n)],
-            [(k_next, (my - 1) % n), (v_next, (my - 1) % n)],
-        )
-        k, v = k_next, v_next
-        carry = fold(carry, k, v, (my - t) % n)
+        kv = rotate(mesh, axis, kv)
+        carry = fold(carry, kv[0], kv[1], (my - t) % n)
     _, l, acc = carry
     return (acc / l[..., None]).to(q.dtype)
 
@@ -143,6 +142,27 @@ def on_host_arrays(world, attention, q, k, v, axis: str = "sp",
     return the whole output."""
     parts = world.run(_on_host_arrays_rank, attention, axis, q, k, v, causal)
     return np.concatenate(parts, axis=2)
+
+
+def _grads_on_host_arrays_rank(attention, axis: str, q, k, v, dout, causal: bool):
+    from ..parallel.mesh import single_axis_mesh
+
+    mesh = single_axis_mesh(axis)
+    dtype = torch.from_numpy(q).dtype
+    blocks, block = local_blocks(mesh, axis, (q, k, v, dout), dtype)
+    q, k, v = (t.requires_grad_(True) for t in blocks[:3])
+    out = attention(q, k, v, mesh, axis, causal=causal)
+    grads = torch.autograd.grad(out, (q, k, v), blocks[3])
+    return tuple(g.cpu().numpy() for g in grads)
+
+
+def grads_on_host_arrays(world, attention, q, k, v, dout, axis: str = "sp",
+                         causal: bool = True) -> tuple:
+    """The gradients (dq, dk, dv) of a sequence-parallel ``attention`` over
+    ``world``, as :func:`on_host_arrays` runs it, against the output's
+    gradient ``dout``; each whole, as full host arrays."""
+    parts = world.run(_grads_on_host_arrays_rank, attention, axis, q, k, v, dout, causal)
+    return tuple(np.concatenate(g, axis=2) for g in zip(*parts))
 
 
 def _ring_probe_rank(axis: str, batch: int, heads: int, seq_per_device: int,

@@ -5,7 +5,8 @@ q/k/v from split by sequence into split by heads, each rank computes plain
 full-sequence attention for its heads, and a second one restores the split
 by sequence. Two collectives, each moving payload between every pair of
 ranks, which makes it the all-to-all probe where the ring probe exercises
-neighbor links. It needs the head count divisible by the axis size.
+neighbor links. It needs the head count divisible by the axis size. Under
+autograd the gradients take the same two exchanges back.
 """
 
 from __future__ import annotations
@@ -38,12 +39,32 @@ def local_causal_attention(
     return torch.einsum("bhqk,bhkd->bhqd", probs, v.float()).to(q.dtype)
 
 
-def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
-    """Chunk ``i`` of ``t``'s first dim goes to the group's rank ``i``;
-    chunk ``i`` of the result came from it."""
+def _exchange_chunks(t: torch.Tensor, group) -> torch.Tensor:
+    # Contiguous first: empty_like keeps a permuted input's strides, and
+    # the collective writes in memory order.
+    t = t.contiguous()
     out = torch.empty_like(t)
     dist.all_to_all_single(out, t, group=group)
     return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """Chunk ``i`` of the first dim goes to the group's rank ``i``; chunk
+    ``i`` of the result came from it. The exchange is its own inverse
+    permutation, so the backward is the same exchange of the gradient."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _exchange_chunks(t, group)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _exchange_chunks(grad, ctx.group), None
+
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    return _AllToAll.apply(t, group)
 
 
 def ulysses_attention(

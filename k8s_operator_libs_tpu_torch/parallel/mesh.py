@@ -17,7 +17,12 @@ process of its own, and the collectives go through ``torch.distributed``:
   ``jax.distributed`` gang in torch's terms.
 * :func:`build_mesh` and :func:`single_axis_mesh`, inside a rank, lay the
   world's ranks out on named axes in the JAX package's grid order and give
-  each axis its process group.
+  each axis its process group; :func:`group_over` gives the group of
+  several axes together.
+* :func:`rotate`, inside a rank, is the differentiable neighbour hand-off
+  (JAX's ``ppermute`` and its transpose) that ring attention and the
+  pipeline build on.
+* :func:`mesh_axes_for_topology` picks the probe mesh for a node's cards.
 
 The functions a world runs live in this package: under ``spawn`` a rank
 imports the module that holds each function it is sent.
@@ -53,6 +58,17 @@ FORM_TIMEOUT_S = 300.0
 CALL_TIMEOUT_S = 300.0
 #: Seconds the ranks are given to leave before they are killed.
 CLOSE_TIMEOUT_S = 10.0
+
+
+def mesh_axes_for_topology(
+    topology, devices: Optional[int] = None
+) -> dict[str, int]:
+    """Default probe mesh axes for a ``parallel.topology.SliceTopology``:
+    tensor parallelism within a node (cards sharing NVLink), data
+    parallelism across nodes. 4 nodes x 4 cards: ``{"dp": 4, "tp": 4}``."""
+    n = devices if devices is not None else topology.total_chips
+    tp = math.gcd(topology.chips_per_host, n)
+    return {"dp": max(1, n // tp), "tp": tp}
 
 
 def available_devices(device: DeviceLike = None) -> list[torch.device]:
@@ -484,6 +500,74 @@ def build_mesh(axes: Mapping[str, int]) -> Mesh:
 def single_axis_mesh(name: str = "x") -> Mesh:
     """Every rank of the world on one axis: the shape the ring probes use."""
     return build_mesh({name: dist.get_world_size()})
+
+
+#: Groups over several axes of a mesh, made once a layout (see _MESHES).
+_JOINT_GROUPS: dict[tuple, Any] = {}
+
+
+def group_over(mesh: Mesh, axes: Sequence[str]) -> Any:
+    """The process group of the ranks that differ from this one only on
+    ``axes`` (inside a rank): the group one all-reduce over those axes
+    together takes. Axes of size 1 are left out; ``None`` when none is
+    left. A group over two or more axes is made by every rank of the world
+    at its first use, so every rank must ask for it in the same order."""
+    names = tuple(a for a in mesh.shape if a in axes and mesh.shape[a] > 1)
+    if not names:
+        return None
+    if len(names) == 1:
+        return mesh.groups[names[0]]
+    key = (tuple(mesh.shape.items()), names)
+    if key not in _JOINT_GROUPS:
+        order = list(mesh.shape)
+        grid = np.arange(dist.get_world_size()).reshape(list(mesh.shape.values()))
+        inner = [order.index(a) for a in names]
+        outer = [i for i in range(grid.ndim) if i not in inner]
+        lines = grid.transpose(outer + inner).reshape(-1, math.prod(mesh.shape[a] for a in names))
+        me = dist.get_rank()
+        for line in lines:
+            members = [int(r) for r in line]
+            group = (
+                dist.group.WORLD if len(members) == dist.get_world_size()
+                else dist.new_group(members)
+            )
+            if me in members:
+                _JOINT_GROUPS[key] = group
+    return _JOINT_GROUPS[key]
+
+
+def _send_around(mesh: Mesh, axis: str, t: torch.Tensor, shift: int) -> torch.Tensor:
+    n, my = mesh.shape[axis], mesh.coords[axis]
+    if n == 1 or shift % n == 0:
+        return t.clone()
+    out = torch.empty_like(t)
+    exchange(mesh, axis, [(t, (my + shift) % n)], [(out, (my - shift) % n)])
+    return out
+
+
+class _Rotate(torch.autograd.Function):
+    """Forward: rank i's tensor goes to rank i+shift on the axis. Backward:
+    the gradient goes the other way, to where the tensor came from (JAX's
+    transpose of ``ppermute``)."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axis, shift):
+        ctx.mesh, ctx.axis, ctx.shift = mesh, axis, shift
+        return _send_around(mesh, axis, t, shift)
+
+    @staticmethod
+    def backward(ctx, grad):
+        back = _send_around(ctx.mesh, ctx.axis, grad.contiguous(), -ctx.shift)
+        return back, None, None, None
+
+
+def rotate(mesh: Mesh, axis: str, t: torch.Tensor, shift: int = 1) -> torch.Tensor:
+    """``t`` rotated over ``axis`` (inside a rank): rank i sends its tensor
+    to rank ``(i + shift) % n`` and receives rank ``(i - shift) % n``'s, in
+    one :func:`exchange`. Differentiable: the gradient rotates back. No
+    counterpart in the JAX package, where ``ppermute`` and its transpose do
+    this. Every rank of the axis must call it, in the same order."""
+    return _Rotate.apply(t.contiguous(), mesh, axis, shift)
 
 
 def max_over(mesh: Mesh, axis: str, values: Sequence[float]) -> list[float]:

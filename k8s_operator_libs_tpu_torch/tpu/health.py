@@ -675,8 +675,9 @@ class SliceScopedGate:
 
 
 def build_parser():
-    """The payload's flags: the JAX payload's, gang and publish flags
-    included, less its XLA-cache flag, plus ``--device``."""
+    """The payload's flags: every flag of the JAX payload, plus
+    ``--device``. ``--no-compile-cache`` keeps its meaning, no shared cache
+    of compiled code: the kernels build into a private directory."""
     import argparse
 
     parser = argparse.ArgumentParser(
@@ -745,6 +746,12 @@ def build_parser():
         help="file written on pass (readinessProbe target)",
     )
     parser.add_argument(
+        "--no-compile-cache", action="store_true",
+        help="build the CUDA kernels into a private temporary directory, "
+        "removed after the battery, instead of the shared kernel cache "
+        f"(${_build.KERNEL_DIR_ENV}, else build/torch_kernels/)",
+    )
+    parser.add_argument(
         "--park", action="store_true",
         help="sleep forever after a pass (keeps the pod Ready)",
     )
@@ -771,7 +778,9 @@ def main(argv: Optional[list[str]] = None) -> int:
     """
     import json
     import os
+    import shutil
     import sys
+    import tempfile
 
     parser = build_parser()
     args = parser.parse_args(argv)
@@ -807,11 +816,23 @@ def main(argv: Optional[list[str]] = None) -> int:
             "joining slice probe gang: process %d/%d via %s",
             args.process_id, args.num_processes, args.coordinator,
         )
+    private_build, shared_build = None, os.environ.get(_build.KERNEL_DIR_ENV)
+    if args.no_compile_cache:
+        # Read at each build (ops._build.build_dir), by this process and by
+        # the ranks the gate spawns, which inherit the environment.
+        private_build = tempfile.mkdtemp(prefix="gpu-health-kernels-")
+        os.environ[_build.KERNEL_DIR_ENV] = private_build
     try:
         report = gate.run()
         form_times = dict(gate._world.form_times) if gate._world is not None else {}
     finally:
         gate.close()
+        if private_build is not None:
+            shutil.rmtree(private_build, ignore_errors=True)
+            if shared_build is None:
+                del os.environ[_build.KERNEL_DIR_ENV]
+            else:
+                os.environ[_build.KERNEL_DIR_ENV] = shared_build
     print(json.dumps(dataclasses.asdict(report)), flush=True)
     if args.publish_report:
         # Telemetry beside the verdict: the ready file and the exit code

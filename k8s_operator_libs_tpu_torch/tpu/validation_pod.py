@@ -9,21 +9,23 @@ and parks, so **pod Ready == cards healthy**.
 
 Scheduling: the pod pins ``spec.nodeName`` (the node under validation is
 still cordoned, and the kubelet admits pinned pods anyway), tolerates the
-``nvidia.com/gpu`` taint and requests the node's ``nvidia.com/gpu`` cards,
-free because the node was drained and released by the cleanup after a
-pass. The kernels' build directory is a host path, so the probe pods of
-one node run ``nvcc`` once.
+``nvidia.com/gpu`` taint and requests the node's ``nvidia.com/gpu`` cards
+(its ``nvidia.com/gpu.count``), free because the node was drained and
+released by the cleanup after a pass. The kernels' build directory is a
+host path, so the probe pods of one node run ``nvcc`` once.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass, field
+from typing import Optional
 
 from ..kube.client import AlreadyExistsError, delete_if_exists, get_or_none, has_reason
 from ..kube.objects import Pod
 from ..ops._build import KERNEL_DIR_ENV
 from ..upgrade.consts import DeviceClass
 from ..utils.log import get_logger
+from .detector import TpuNodeDetector
 from .health import KERNEL_CACHE_DIR, IciHealthGate
 from .libtpu import TPU_RESOURCE
 
@@ -47,8 +49,9 @@ class ValidationPodSpec:
     tag: str = "latest"
     namespace: str = "kube-system"
     device: DeviceClass = field(default_factory=lambda: DeviceClass.nvidia("gpu"))
-    #: ``nvidia.com/gpu`` cards to request: the whole node (8 on an HGX
-    #: node), so the probe exercises every card and every NVLink.
+    #: ``nvidia.com/gpu`` cards to request where the node does not say how
+    #: many it has (``nvidia.com/gpu.count``): the whole node, so the probe
+    #: exercises every card and every NVLink (8 on an HGX node).
     tpu_chips: int = 8
     payload_mb: float = 4.0
     matmul_size: int = 1024
@@ -128,8 +131,17 @@ class ValidationPodManager:
     def pod_name(self, node_name: str) -> str:
         return f"{VALIDATION_APP}-{node_name}"
 
-    def build_pod(self, node_name: str) -> Pod:
+    def cards(self, node) -> int:
+        """The node's cards, from its GPU Feature Discovery labels; the
+        spec's ``tpu_chips`` where it has none."""
+        info = TpuNodeDetector().detect(node)
+        return info.chips if info is not None else self.spec.tpu_chips
+
+    def build_pod(self, node_name: str, cards: Optional[int] = None) -> Pod:
+        """The probe pod for ``node_name``, asking for ``cards`` cards
+        (default the spec's ``tpu_chips``)."""
         spec = self.spec
+        cards = spec.tpu_chips if cards is None else cards
         pod = Pod.new(self.pod_name(node_name), namespace=spec.namespace)
         pod.labels[VALIDATION_APP_LABEL] = VALIDATION_APP
         pod.labels["device-class"] = spec.device.name
@@ -172,8 +184,8 @@ class ValidationPodManager:
                 "env": env,
                 "volumeMounts": volume_mounts,
                 "resources": {
-                    "requests": {TPU_RESOURCE: str(spec.tpu_chips)},
-                    "limits": {TPU_RESOURCE: str(spec.tpu_chips)},
+                    "requests": {TPU_RESOURCE: str(cards)},
+                    "limits": {TPU_RESOURCE: str(cards)},
                 },
                 "readinessProbe": {
                     "exec": {"command": ["cat", READY_FILE]},
@@ -198,7 +210,7 @@ class ValidationPodManager:
                 name, pod.phase,
             )
             delete_if_exists(self.client, "Pod", name, self.spec.namespace)
-        desired = self.build_pod(node.name)
+        desired = self.build_pod(node.name, self.cards(node))
         log.info("creating validation pod %s on node %s", name, node.name)
         try:
             return Pod(self.client.create(desired).raw)

@@ -2,7 +2,8 @@
 
 Both packages start from the JAX package's ``init_params`` (through
 ``params_from_jax``) and the same numpy-made tokens, so they compute the
-same thing and may differ only by rounding.
+same thing and may differ only by rounding: the dense model and the soft
+mixture of experts (``n_experts``), each in f32 and bf16.
 """
 
 import jax
@@ -55,9 +56,22 @@ def _setup(jdtype, tdtype, **overrides):
     return jcfg, pcfg, jparams, pparams, jbatch, pbatch
 
 
+#: The mixture of experts at the small widths: four experts a layer.
+EXPERTS = dict(n_experts=4)
+
+
 @pytest.mark.parametrize("jdtype,tdtype,logits_atol,loss_rtol,param_atol", DTYPES)
 def test_logits_match_jax(jdtype, tdtype, logits_atol, loss_rtol, param_atol):
-    jcfg, pcfg, jparams, pparams, jbatch, pbatch = _setup(jdtype, tdtype)
+    _check_logits(jdtype, tdtype, logits_atol)
+
+
+@pytest.mark.parametrize("jdtype,tdtype,logits_atol,loss_rtol,param_atol", DTYPES)
+def test_moe_logits_match_jax(jdtype, tdtype, logits_atol, loss_rtol, param_atol):
+    _check_logits(jdtype, tdtype, logits_atol, **EXPERTS)
+
+
+def _check_logits(jdtype, tdtype, logits_atol, **overrides):
+    jcfg, pcfg, jparams, pparams, jbatch, pbatch = _setup(jdtype, tdtype, **overrides)
     want = np.asarray(jax_burnin.forward(jparams, jbatch["tokens"], jcfg))
     got = port.forward(pparams, pbatch["tokens"], pcfg)
     assert got.dtype == torch.float32 and tuple(got.shape) == want.shape
@@ -66,7 +80,16 @@ def test_logits_match_jax(jdtype, tdtype, logits_atol, loss_rtol, param_atol):
 
 @pytest.mark.parametrize("jdtype,tdtype,logits_atol,loss_rtol,param_atol", DTYPES)
 def test_two_train_steps_match_jax(jdtype, tdtype, logits_atol, loss_rtol, param_atol):
-    jcfg, pcfg, jparams, pparams, jbatch, pbatch = _setup(jdtype, tdtype)
+    _check_two_steps(jdtype, tdtype, loss_rtol, param_atol)
+
+
+@pytest.mark.parametrize("jdtype,tdtype,logits_atol,loss_rtol,param_atol", DTYPES)
+def test_moe_two_train_steps_match_jax(jdtype, tdtype, logits_atol, loss_rtol, param_atol):
+    _check_two_steps(jdtype, tdtype, loss_rtol, param_atol, **EXPERTS)
+
+
+def _check_two_steps(jdtype, tdtype, loss_rtol, param_atol, **overrides):
+    jcfg, pcfg, jparams, pparams, jbatch, pbatch = _setup(jdtype, tdtype, **overrides)
     jparams, jl1 = jax_burnin.train_step(jparams, jbatch, jcfg)
     jparams, jl2 = jax_burnin.train_step(jparams, jbatch, jcfg)
     pparams, pl1 = port.train_step(pparams, pbatch, pcfg)
@@ -103,10 +126,30 @@ def test_params_from_jax_keeps_bf16_bits():
     )
 
 
+def test_params_from_jax_keeps_the_experts_bits():
+    jcfg = jax_burnin.BurninConfig(**SMALL, **EXPERTS)
+    jparams = jax_burnin.init_params(jax.random.PRNGKey(3), jcfg)
+    pparams = port.params_from_jax(jax.tree.map(np.asarray, jparams), device="cpu")
+    for name in ("w_router", "experts_up", "experts_down"):
+        ours, theirs = pparams["layers"][1][name], jparams["layers"][1][name]
+        assert ours.dtype == torch.bfloat16 and tuple(ours.shape) == theirs.shape
+        np.testing.assert_array_equal(ours.float().numpy(), np.asarray(theirs, np.float32))
+
+
 def test_init_params_has_the_jax_tree():
-    cfg = port.BurninConfig(**SMALL)
+    _check_tree()
+
+
+def test_init_params_has_the_jax_moe_tree():
+    _check_tree(**EXPERTS)
+
+
+def _check_tree(**experts):
+    cfg = port.BurninConfig(**SMALL, **experts)
     ours = port.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
-    theirs = jax_burnin.init_params(jax.random.PRNGKey(0), jax_burnin.BurninConfig(**SMALL))
+    theirs = jax_burnin.init_params(
+        jax.random.PRNGKey(0), jax_burnin.BurninConfig(**SMALL, **experts)
+    )
     assert set(ours) == set(theirs)
     assert len(ours["layers"]) == len(theirs["layers"])
     for name in ("embed", "ln_f"):
@@ -153,10 +196,24 @@ def test_flash_core_matches_plain_core_on_cpu():
     )
 
 
-def test_mixture_of_experts_waits_for_its_slice():
-    cfg = port.BurninConfig(n_experts=2, **SMALL)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+def test_moe_loss_falls_on_cpu():
+    cfg = port.BurninConfig(
+        d_model=32, n_heads=2, d_ff=64, n_layers=1, seq_len=16, batch=4, **EXPERTS
+    )
+    params = port.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    batch = port.synthetic_batch(torch.Generator().manual_seed(1), cfg, device="cpu")
+    params, l1 = port.train_step(params, batch, cfg)
+    for _ in range(4):
+        params, l2 = port.train_step(params, batch, cfg)
+    assert np.isfinite(float(l1)) and float(l2) < float(l1)
+
+
+def test_heads_must_divide_the_model_width():
+    cfg = port.BurninConfig(**{**SMALL, "n_heads": 3})
+    params = port.init_params(torch.Generator().manual_seed(0), cfg, device="cpu")
+    tokens = port.synthetic_batch(torch.Generator().manual_seed(1), cfg, device="cpu")["tokens"]
+    with pytest.raises(ValueError, match="must divide d_model"):
+        port.forward(params, tokens, cfg)
 
 
 def test_init_params_without_a_card_raises(monkeypatch):

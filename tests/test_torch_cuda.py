@@ -25,6 +25,7 @@ from pathlib import Path
 import pytest
 import torch
 
+from k8s_operator_libs_tpu_torch import entry as port_entry
 from k8s_operator_libs_tpu_torch.models import burnin
 from k8s_operator_libs_tpu_torch.ops import collectives
 from k8s_operator_libs_tpu_torch.ops import matmul as matmul_mod
@@ -40,8 +41,9 @@ from k8s_operator_libs_tpu_torch.ops.matmul import (
     mxu_probe,
 )
 from k8s_operator_libs_tpu_torch.ops.probe_harness import quick_battery
+from k8s_operator_libs_tpu_torch.ops import ring_attention as ring_mod
 from k8s_operator_libs_tpu_torch.ops.ring_attention import ring_attention_probe
-from k8s_operator_libs_tpu_torch.ops.ulysses import ulysses_probe
+from k8s_operator_libs_tpu_torch.ops.ulysses import ulysses_attention, ulysses_probe
 from k8s_operator_libs_tpu_torch.parallel.mesh import World
 from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate
 
@@ -192,6 +194,41 @@ def test_burnin_flash_forward_on_card_matches_plain_core(cuda):
         burnin.train_step(params, batch, cfg)
 
 
+def test_entry_forward_on_the_card(cuda):
+    fn, (params, tokens) = port_entry.entry()
+    logits = fn(params, tokens)
+    torch.cuda.synchronize()
+    assert logits.device.type == "cuda" and tuple(logits.shape) == (4, 256, 1024)
+    assert torch.isfinite(logits).all()
+
+
+def test_moe_step_on_card_matches_cpu(cuda):
+    cfg = burnin.BurninConfig(
+        d_model=64, n_heads=4, d_ff=128, n_layers=1, seq_len=32, batch=2, n_experts=4,
+    )
+    losses = {}
+    for dev in ("cpu", cuda):
+        params = burnin.init_params(torch.Generator().manual_seed(0), cfg, dev)
+        batch = burnin.synthetic_batch(torch.Generator().manual_seed(1), cfg, dev)
+        params, l1 = burnin.train_step(params, batch, cfg)
+        _, l2 = burnin.train_step(params, batch, cfg)
+        losses[str(dev)] = (float(l1), float(l2))
+    (c1, c2), (g1, g2) = losses["cpu"], losses["cuda"]
+    assert g2 < g1 and c2 < c1
+    assert g1 == pytest.approx(c1, rel=5e-3) and g2 == pytest.approx(c2, rel=5e-3)
+
+
+def test_dryrun_multichip_on_one_card(cuda, capsys):
+    world = World(["cuda:0"])
+    try:
+        (result,) = port_entry.dryrun_multichip(world)
+    finally:
+        world.close()
+    assert result["mesh"] == {"dp": 1, "ep": 1, "tp": 1, "sp": 1}
+    assert math.isfinite(result["loss"])
+    assert capsys.readouterr().out.strip().endswith("ok")
+
+
 def test_probe_chain_is_one_graph_replay(cuda):
     size, iters = 1024, 3
     chain = matmul_mod._auto_chain(size, True)
@@ -307,6 +344,61 @@ def test_seq_parallel_probes_between_cards(cards_world):
     for probe in (ring_attention_probe, ulysses_probe):
         report = probe(cards_world, "x", seq_per_device=64, head_dim=32)
         assert report.ok and report.tokens_per_s > 0, report.error
+
+
+def test_dryrun_multichip_between_cards(cards_world):
+    results = port_entry.dryrun_multichip(cards_world, steps=2)
+    programs = port_entry.dryrun_programs(cards_world.size)
+    assert [r["mesh"] for r in results] == [p["axes"] for p in programs]
+    for result in results:
+        assert all(math.isfinite(x) for x in result["losses"]), result
+
+
+@pytest.mark.parametrize("axis", ["sp-ring", "sp-ulysses", "ep"])
+def test_sequence_and_expert_steps_between_cards_match_one_card(cards_world, axis):
+    """Half the cards on dp, two on sp or ep: the first loss is the
+    unsharded step's on one card, and the loss falls."""
+    dp = cards_world.size // 2
+    name, _, sp_impl = axis.partition("-")
+    cfg = burnin.BurninConfig(
+        d_model=64, n_heads=4, d_ff=128, n_layers=1, seq_len=32, batch=2 * dp, n_experts=2,
+    )
+    one = burnin.train_step(
+        burnin.init_params(torch.Generator().manual_seed(0), cfg, "cuda"),
+        burnin.synthetic_batch(torch.Generator().manual_seed(1), cfg, "cuda"), cfg,
+    )[1]
+    per_rank = cards_world.run(
+        burnin.sharded_losses, {"dp": dp, name: 2}, cfg, 2, None, None, sp_impl or "ring"
+    )
+    l1, l2 = per_rank[0]
+    assert all(losses == per_rank[0] for losses in per_rank)
+    assert l1 == pytest.approx(float(one), rel=2e-2) and l2 < l1
+
+
+def _plain_attention_grads(q, k, v, dout):
+    """dq, dk, dv of plain causal attention over the whole sequence, f32
+    on the CPU."""
+    q, k, v = (torch.from_numpy(t).requires_grad_(True) for t in (q, k, v))
+    scores = torch.einsum("bhqd,bhkd->bhqk", q * q.shape[-1] ** -0.5, k)
+    s = scores.shape[-1]
+    scores = scores.masked_fill(~torch.ones(s, s, dtype=torch.bool).tril(), float("-inf"))
+    out = torch.einsum("bhqk,bhkd->bhqd", scores.softmax(-1), v)
+    return torch.autograd.grad(out, (q, k, v), torch.from_numpy(dout))
+
+
+@pytest.mark.parametrize("attention", ["ring", "ulysses"])
+def test_sequence_parallel_gradients_between_cards(cards_world, attention):
+    import numpy as np
+
+    n = cards_world.size
+    rng = np.random.default_rng(0)
+    q, k, v, dout = (
+        rng.standard_normal((2, 2 * n, 16 * n, 32), dtype=np.float32) for _ in range(4)
+    )
+    fn = ring_mod.ring_attention if attention == "ring" else ulysses_attention
+    got = ring_mod.grads_on_host_arrays(cards_world, fn, q, k, v, dout, axis="sp")
+    for ours, theirs in zip(got, _plain_attention_grads(q, k, v, dout)):
+        np.testing.assert_allclose(ours, theirs.numpy(), atol=1e-4, rtol=0)
 
 
 def test_gate_between_cards(cards_world):

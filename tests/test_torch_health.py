@@ -8,7 +8,6 @@ guard at the end checks.
 
 import ast
 import dataclasses
-import functools
 import json
 import os
 import subprocess
@@ -191,6 +190,65 @@ def test_parser_accepts_jax_gate_arguments(knobs):
     assert args.device == "cuda"
 
 
+def _jax_payload_options():
+    """Every option the JAX payload's ``main()`` defines, read from its
+    source: (option strings, ``action``, ``type`` name) of each
+    ``parser.add_argument`` call."""
+    tree = ast.parse(Path(jax_health.__file__).read_text())
+    (main,) = [n for n in tree.body if isinstance(n, ast.FunctionDef) and n.name == "main"]
+    options = []
+    for node in ast.walk(main):
+        if (
+            isinstance(node, ast.Call)
+            and isinstance(node.func, ast.Attribute)
+            and node.func.attr == "add_argument"
+        ):
+            names = [a.value for a in node.args if isinstance(a, ast.Constant)]
+            keywords = {k.arg: k.value for k in node.keywords}
+            action = keywords.get("action")
+            kind = keywords.get("type")
+            options.append((
+                names,
+                action.value if isinstance(action, ast.Constant) else None,
+                kind.id if isinstance(kind, ast.Name) else "str",
+            ))
+    return options
+
+
+def test_every_jax_payload_option_parses_in_the_port():
+    """A probe pod or executor that passes the JAX payload's flags must
+    reach the port's battery, not an argparse exit."""
+    options = _jax_payload_options()
+    assert len(options) >= 20 and any("--no-compile-cache" in n for n, _, _ in options)
+    values = {"int": "2", "float": "2.5", "str": "x"}
+    parser = port.build_parser()
+    for names, action, kind in options:
+        for name in names:
+            argv = [name] if action == "store_true" else [name, values[kind]]
+            parsed = vars(parser.parse_args(argv))[name.lstrip("-").replace("-", "_")]
+            assert parsed is True if action == "store_true" else str(parsed) == values[kind]
+
+
+def test_no_compile_cache_builds_into_a_private_directory(monkeypatch, capsys):
+    from k8s_operator_libs_tpu_torch.ops import _build
+
+    monkeypatch.setenv(_build.KERNEL_DIR_ENV, "/shared/kernels")
+    seen = []
+
+    def run(gate):
+        directory = os.environ[_build.KERNEL_DIR_ENV]
+        seen.append((directory, os.path.isdir(directory)))
+        return port.HealthReport(ok=True)
+
+    monkeypatch.setattr(port.IciHealthGate, "run", run)
+    assert port.main(["--device", "cpu", "--no-compile-cache"]) == 0
+    ((private, existed),) = seen
+    assert existed and private != "/shared/kernels" and not os.path.exists(private)
+    assert os.environ[_build.KERNEL_DIR_ENV] == "/shared/kernels"
+    assert port.main(["--device", "cpu"]) == 0
+    assert seen[-1][0] == "/shared/kernels"
+
+
 def test_main_prints_a_report_and_writes_the_ready_file(tmp_path, capsys):
     ready = tmp_path / "ready"
     rc = port.main([
@@ -254,9 +312,11 @@ def test_more_than_one_device_names_the_roadmap_item(gate_reports):
 def test_burnin_crash_is_a_failed_report(monkeypatch):
     from k8s_operator_libs_tpu_torch.models import burnin
 
-    # A config its ranks cannot build: the burn-in raises in every rank.
+    # A config its ranks cannot run (3 heads do not divide d_model 64):
+    # the burn-in raises in every rank.
+    config = burnin.BurninConfig
     monkeypatch.setattr(
-        burnin, "BurninConfig", functools.partial(burnin.BurninConfig, n_experts=2)
+        burnin, "BurninConfig", lambda **knobs: config(**{**knobs, "n_heads": 3})
     )
     gate = port.IciHealthGate(device="cpu", matmul_size=64)
     report = gate.run()
@@ -382,6 +442,8 @@ def test_port_imports_with_jax_blocked():
         "sys.modules['k8s_operator_libs_tpu'] = None\n"
         "import k8s_operator_libs_tpu_torch.tpu.health as h\n"
         "import k8s_operator_libs_tpu_torch.models.burnin\n"
+        "import k8s_operator_libs_tpu_torch.models.pipeline\n"
+        "import k8s_operator_libs_tpu_torch.entry\n"
         "import k8s_operator_libs_tpu_torch.tpu.planner\n"
         "import k8s_operator_libs_tpu_torch.tpu.monitor\n"
         "import k8s_operator_libs_tpu_torch.tpu.slice_gate\n"

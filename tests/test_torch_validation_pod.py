@@ -162,6 +162,26 @@ def test_ensure_creates_once_and_replaces_a_finished_pod():
     assert fresh.raw["metadata"]["uid"] != first.raw["metadata"]["uid"]
 
 
+@pytest.mark.parametrize("count", ["1", "4", "8", None], ids=["1", "4", "8", "unlabelled"])
+def test_ensure_asks_for_the_nodes_cards(count):
+    """The pod asks for the node's ``nvidia.com/gpu.count``, so a node of
+    1, 2 or 4 cards can schedule it; a node with no count label gets the
+    spec's ``tpu_chips``."""
+    cluster = FakeCluster()
+    node = PortNode.new("node-a")
+    if count is not None:
+        node.metadata["labels"] = {
+            "nvidia.com/gpu.present": "true", "nvidia.com/gpu.count": count,
+        }
+    mgr = port_vp.ValidationPodManager(cluster, port_vp.ValidationPodSpec(tpu_chips=2))
+    (container,) = mgr.ensure(node).spec["containers"]
+    want = count or "2"
+    assert container["resources"] == {
+        "requests": {"nvidia.com/gpu": want}, "limits": {"nvidia.com/gpu": want},
+    }
+    assert mgr.cards(node) == int(want)
+
+
 def test_cleanup_is_idempotent():
     cluster = FakeCluster()
     node = PortNode.new("node-a")

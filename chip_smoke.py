@@ -77,7 +77,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     (parked) after; then it is stopped. The line ``{"device_class": ...}``
     gives the seconds to Ready, the report's ``elapsed_s``,
     ``mxu_tflops``, flash ok and the build seconds of each;
-12. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
+12. roll phase (the port's own rolling-upgrade state machine): two GPU
+    nodes labelled from the card's own facts, each with a workload pod,
+    in a ``DictClient``; the NVIDIA driver DaemonSet of
+    ``LibtpuDaemonSetManager`` at 550.54.15 with a driver pod on each
+    node, then bumped to 560.35.03. ``RollKubelet`` plays the DaemonSet
+    controller and the kubelet between passes: a ControllerRevision per
+    version, a driver pod recreated at the new revision (held by the
+    safe-load gate until the machine removes the node's annotation, Ready
+    a tick later), and each validation pod's container command run as the
+    device-class phase runs it (``run_probe_pod``, each node's kernel
+    cache its own temporary directory, so each pod runs ``nvcc``), the
+    pod turning Ready from its ready file. The port's
+    ``ClusterUpgradeStateManager`` with its default task runner,
+    ``with_validation_enabled(pod_provisioner=ValidationPodManager(client,
+    ValidationPodSpec()))`` and the policy ``ROLL_POLICY``
+    (``maxParallelUpgrades`` 1, drain on) reconciles until both nodes read
+    ``upgrade-done`` and are uncordoned; ``upgrade-failed``, or no node
+    changing state for ``ROLL_STALL_S`` seconds, fails the script. Each
+    probe pod's payload must report ok and launch each kernel as often as
+    the gate phase; the parent's counts, set to 0 just before, must stay
+    0. ``{"roll": ...}`` gives the passes, the roll's wall seconds, each
+    node's states with the pass each began, each probe pod's seconds to
+    Ready, report, build seconds and launches, and the workload pods the
+    drain evicted;
+13. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
     from the card, against a dict-backed client (``DictClient``: Node,
     Pod, Event, NodeHealthReport), its gate the port's
     ``SubprocessHealthGate`` at ``tpu_defaults()``, so each cycle is the
@@ -92,7 +116,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``run_quick_probe_loop(once=True)``, forms a world of every card and
     publishes a report. ``{"monitor": ...}`` gives each cycle's wall seconds
     (the child included) and the payload's launches;
-13. gang phase: the payload as a slice gang pod, a child process with
+14. gang phase: the payload as a slice gang pod, a child process with
     ``--coordinator 127.0.0.1:<free port> --num-processes 1 --process-id 0
     --publish-report`` (``NODE_NAME`` set, the kubeconfig pointing at
     ``ApiStub``, an HTTP front of the same kind of dict-backed client). Its
@@ -109,7 +133,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The last lines are the kernel table as one JSON object (each row with the
 launches of the gate, the burn-in forward, the flagship MoE flash
-forward, the probe pod, the monitor's payload and the gang's payload),
+forward, the probe pod, the roll's probe pods together, the monitor's
+payload and the gang's payload),
 the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
 or run from a directory that holds only this file, it exits non-zero and
@@ -183,6 +208,19 @@ CLI_TIMEOUT_S = 600
 POD_READY_TIMEOUT_S = 600
 #: The monitored node and the gang's nodes.
 MONITOR_NODE = "gpu-node-0"
+ROLL_NODES = ("gpu-roll-0", "gpu-roll-1")
+ROLL_VERSIONS = ("550.54.15", "560.35.03")
+#: The roll's policy document: one node at a time, drained.
+ROLL_POLICY = {
+    "autoUpgrade": True,
+    "maxParallelUpgrades": 1,
+    "maxUnavailable": "25%",
+    "drain": {"enable": True, "force": True, "timeoutSeconds": 300},
+}
+#: The roll fails when no node changed state for this long.
+ROLL_STALL_S = 300.0
+#: Seconds between two passes of the roll.
+ROLL_PASS_INTERVAL_S = 0.2
 GANG_NODES = ("gang-node-0", "gang-node-1")
 
 
@@ -969,9 +1007,11 @@ def device_class_phase(card: str, gate_launches: dict) -> dict:
 # ----------------------------------------------------------------------
 
 class DictClient:
-    """The operator's client, as far as the monitor and the report
-    publisher use it, over dicts: Node, Pod, Event and NodeHealthReport,
-    resourceVersions checked on update, errors with the API's reasons."""
+    """The operator's client, as far as the monitor, the report publisher
+    and the state machine use it, over dicts: Node, Pod, Event,
+    NodeHealthReport, DaemonSet and ControllerRevision, resourceVersions
+    checked on update, errors with the API's reasons; an eviction deletes
+    the pod (no disruption budget guards it)."""
 
     CLUSTER_SCOPED = ("Node", "NodeHealthReport")
 
@@ -1007,7 +1047,10 @@ class DictClient:
     def list(self, kind: str, namespace: str = "", label_selector=None, field_selector=None):
         from k8s_operator_libs_tpu_torch.kube.objects import wrap
 
-        wanted = dict(p.split("=", 1) for p in (label_selector or "").split(",") if p)
+        if isinstance(label_selector, dict):
+            wanted = dict(label_selector)
+        else:
+            wanted = dict(p.split("=", 1) for p in (label_selector or "").split(",") if p)
         fields = dict(p.split("=", 1) for p in (field_selector or "").split(",") if p)
         out = []
         with self.lock:
@@ -1048,6 +1091,9 @@ class DictClient:
                 stored = json.loads(json.dumps(stored))
                 stored["status"] = raw.get("status") or {}
                 raw = stored
+            else:
+                # The server owns the uid: an update keeps it.
+                raw["metadata"]["uid"] = stored["metadata"].get("uid")
             return self._put(key, raw)
 
     def update(self, obj):
@@ -1078,6 +1124,8 @@ class DictClient:
             self._stored(key)
             del self.objects[key]
 
+    def evict(self, pod_name: str, namespace: str = "") -> None:
+        self.delete("Pod", pod_name, namespace)
 
 class ApiStub(ThreadingHTTPServer):
     """A ``DictClient`` behind the API's REST paths on 127.0.0.1, for the
@@ -1392,6 +1440,250 @@ def gang_phase(card: str, gate_launches: dict) -> dict:
     return info
 
 
+# ----------------------------------------------------------------------
+# The rolling upgrade through the port's state machine.
+# ----------------------------------------------------------------------
+
+class RollKubelet:
+    """The DaemonSet controller and the kubelets of the roll's nodes, over
+    ``DictClient``: a ControllerRevision per driver version, a driver pod
+    on each node at the newest revision (the new driver's held by its
+    safe-load gate until the state machine removes the node's annotation,
+    Ready a tick later), and each validation pod's command run until its
+    ready file appears (``run_probe_pod``)."""
+
+    def __init__(self, client, installer, nodes, workdir: str, gate_launches: dict) -> None:
+        self.client = client
+        self.installer = installer
+        self.nodes = nodes
+        self.workdir = workdir
+        self.gate_launches = gate_launches
+        self.revisions: dict[str, int] = {}
+        #: Driver pods whose safe-load gate waits: pod name -> node.
+        self.blocked: dict[str, str] = {}
+        #: Driver pods that load their driver on the next tick.
+        self.loading: set[str] = set()
+        self.probe_runs: dict[str, dict] = {}
+
+    @property
+    def namespace(self) -> str:
+        return self.installer.spec.namespace
+
+    def version(self) -> str:
+        return self.installer.spec.version
+
+    def pod_name(self, node: str) -> str:
+        return f"{self.installer.name}-{node}"
+
+    def publish_revision(self) -> None:
+        from k8s_operator_libs_tpu_torch.kube.objects import ControllerRevision
+
+        version = self.version()
+        if version in self.revisions:
+            return
+        self.revisions[version] = len(self.revisions) + 1
+        cr = ControllerRevision.new(
+            f"{self.installer.name}-{version}", namespace=self.namespace,
+            labels=self.installer.match_labels,
+        )
+        cr.revision = self.revisions[version]
+        self.client.create(cr)
+
+    def ensure_driver_pod(self, ds, node: str, ready: bool) -> None:
+        from k8s_operator_libs_tpu_torch.kube.client import get_or_none
+        from k8s_operator_libs_tpu_torch.kube.objects import CONTROLLER_REVISION_HASH_LABEL, Pod
+
+        name = self.pod_name(node)
+        if get_or_none(self.client, "Pod", name, self.namespace) is not None:
+            return
+        pod = Pod.new(name, namespace=self.namespace, labels=self.installer.match_labels)
+        pod.labels[CONTROLLER_REVISION_HASH_LABEL] = self.version()
+        pod.node_name = node
+        pod.add_owner_reference(ds)
+        if ready:
+            pod.raw["status"] = self.driver_status(ready=True)
+        else:
+            # The init container annotates the node and blocks.
+            self.client.patch("Node", node, patch={"metadata": {"annotations": {
+                self.installer.keys.safe_driver_load_annotation: "true"}}})
+            pod.raw["status"] = self.driver_status(ready=False)
+            self.blocked[name] = node
+        self.client.create(pod)
+
+    @staticmethod
+    def driver_status(ready: bool) -> dict:
+        return {
+            "phase": "Running" if ready else "Pending",
+            "conditions": [{"type": "Ready", "status": "True" if ready else "False"}],
+            "initContainerStatuses": [
+                {"name": "safe-load-gate", "ready": ready, "restartCount": 0}
+            ],
+            "containerStatuses": [{"name": "installer", "ready": ready, "restartCount": 0}],
+        }
+
+    def advance_driver_pods(self) -> None:
+        for name in list(self.loading):
+            self.loading.discard(name)
+            self.client.patch("Pod", name, self.namespace,
+                              patch={"status": self.driver_status(ready=True)})
+        key = self.installer.keys.safe_driver_load_annotation
+        for name, node in list(self.blocked.items()):
+            if key not in self.client.get("Node", node).annotations:
+                del self.blocked[name]
+                self.loading.add(name)
+
+    def run_probe_pods(self) -> None:
+        from k8s_operator_libs_tpu_torch.kube.objects import Pod
+        from k8s_operator_libs_tpu_torch.tpu.validation_pod import ValidationPodSpec
+
+        for obj in self.client.list("Pod", label_selector=ValidationPodSpec().pod_selector):
+            pod = Pod(obj.raw)
+            if pod.phase:
+                continue
+            (container,) = pod.spec["containers"]
+            cache = os.path.join(self.workdir, f"kernel-cache-{pod.node_name}")
+            host_paths = {v["hostPath"]["path"]: cache for v in pod.spec.get("volumes") or []}
+            run = run_probe_pod(container, host_paths, self.workdir, pod.name)
+            check_launches(f"roll probe pod {pod.name}", run["launches"], self.gate_launches)
+            run["node"] = pod.node_name
+            self.probe_runs[pod.name] = run
+            self.client.patch("Pod", pod.name, pod.namespace, patch={"status": {
+                "phase": "Running",
+                "conditions": [{"type": "Ready", "status": "True"}],
+                "containerStatuses": [{"name": "probe", "ready": True, "restartCount": 0}],
+            }})
+
+    def tick(self) -> None:
+        from k8s_operator_libs_tpu_torch.kube.objects import DaemonSet
+
+        self.publish_revision()
+        ds = DaemonSet(self.client.get("DaemonSet", self.installer.name, self.namespace).raw)
+        fresh = len(self.revisions) == 1
+        for node in self.nodes:
+            self.ensure_driver_pod(ds, node, ready=fresh)
+        self.advance_driver_pods()
+        self.client.patch("DaemonSet", ds.name, self.namespace,
+                          patch={"status": {"desiredNumberScheduled": len(self.nodes)}})
+        self.run_probe_pods()
+
+
+def roll_phase(card: str, gate_launches: dict) -> dict:
+    """Two GPU nodes rolled from driver 550 to 560 by the port's own state
+    machine, each let back in by its probe pod's payload on the card."""
+    import tempfile
+
+    from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import DriverUpgradePolicySpec
+    from k8s_operator_libs_tpu_torch.kube.objects import Node, Pod
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.tpu.libtpu import LibtpuDaemonSetManager, LibtpuSpec
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
+        ValidationPodManager,
+        ValidationPodSpec,
+    )
+    from k8s_operator_libs_tpu_torch.upgrade import (
+        BuildStateError,
+        ClusterUpgradeStateManager,
+        DeviceClass,
+        UpgradeKeys,
+    )
+
+    keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
+    client = DictClient()
+    for name in ROLL_NODES:
+        node = Node.new(name, labels=local_gpu_labels())
+        node.set_ready(True)
+        client.create(node)
+        workload = Pod.new(f"train-{name}", namespace="default", labels={"app": "train"})
+        workload.node_name = name
+        workload.metadata["ownerReferences"] = [
+            {"apiVersion": "apps/v1", "kind": "ReplicaSet", "name": "train",
+             "uid": "uid-train", "controller": True}
+        ]
+        workload.raw["status"] = {"phase": "Running"}
+        client.create(workload)
+    installer = LibtpuDaemonSetManager(client, LibtpuSpec(version=ROLL_VERSIONS[0]))
+    installer.apply()
+    policy = DriverUpgradePolicySpec.from_dict(ROLL_POLICY)
+    mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
+    mgr.with_validation_enabled(
+        pod_provisioner=ValidationPodManager(client, ValidationPodSpec())
+    )
+    trajectories: dict[str, list] = {name: [] for name in ROLL_NODES}
+    retries = 0
+    with tempfile.TemporaryDirectory(prefix="roll-") as workdir:
+        kubelet = RollKubelet(client, installer, ROLL_NODES, workdir, gate_launches)
+        kubelet.tick()  # the pool before the roll: every driver pod at 550
+        installer.spec.version = ROLL_VERSIONS[1]
+        installer.apply()
+        reset_counts()
+        start = last_change = time.perf_counter()
+        passes = 0
+        try:
+            while True:
+                kubelet.tick()
+                passes += 1
+                try:
+                    mgr.apply_state(mgr.build_state(installer.spec.namespace,
+                                                    installer.match_labels), policy)
+                except BuildStateError:
+                    retries += 1  # a pod the kubelet has still to deliver
+                now = time.perf_counter()
+                nodes = {n.name: Node(n.raw) for n in client.list("Node")}
+                for name, node in nodes.items():
+                    state = node.labels.get(keys.state_label, "")
+                    if not trajectories[name] or trajectories[name][-1][1] != state:
+                        trajectories[name].append([passes, state, round(now - start, 3)])
+                        last_change = now
+                    if state == "upgrade-failed":
+                        raise AssertionError(f"roll: {name} failed: {trajectories}")
+                if all(
+                    n.labels.get(keys.state_label) == "upgrade-done" and not n.unschedulable
+                    for n in nodes.values()
+                ):
+                    break
+                if now - last_change > ROLL_STALL_S:
+                    raise AssertionError(
+                        f"roll: no node changed state for {ROLL_STALL_S} s: {trajectories}"
+                    )
+                time.sleep(ROLL_PASS_INTERVAL_S)
+            wall_s = time.perf_counter() - start
+        finally:
+            mgr.runner.shutdown()
+        parent = counts()
+    if parent["matmul"] or parent["flash_attention"]:
+        raise AssertionError(f"roll: the controller launched kernels itself: {parent}")
+    runs = kubelet.probe_runs
+    pods = sorted(p.name for p in client.list("Pod"))
+    result = {
+        "nodes": list(ROLL_NODES),
+        "versions": list(ROLL_VERSIONS),
+        "policy": ROLL_POLICY,
+        "passes": passes,
+        "wall_s": wall_s,
+        "build_state_retries": retries,
+        "trajectories": trajectories,
+        "probe_pods": runs,
+        "launches": {
+            lib: sum(run["launches"][lib] for run in runs.values())
+            for lib in ("matmul", "flash_attention")
+        },
+        "pods_after": pods,
+    }
+    print(json.dumps({"roll": result, "card": card}), flush=True)
+    if sorted(run["node"] for run in runs.values()) != sorted(ROLL_NODES):
+        raise AssertionError(f"roll: probe pods ran on {[r['node'] for r in runs.values()]}")
+    if any(name.startswith("train-") for name in pods):
+        raise AssertionError(f"roll: the drain left workload pods: {pods}")
+    driver = {installer.name + "-" + n for n in ROLL_NODES}
+    if set(pods) != driver:
+        raise AssertionError(f"roll: pods after the roll: {pods}")
+    for name in driver:
+        pod = Pod(client.get("Pod", name, installer.spec.namespace).raw)
+        if pod.controller_revision_hash() != ROLL_VERSIONS[1] or not pod.is_ready():
+            raise AssertionError(f"roll: driver pod {name} not Ready at {ROLL_VERSIONS[1]}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1426,6 +1718,7 @@ def main() -> int:
     dryrun_phase(card)
     cli_phase()
     pod = device_class_phase(card, launches)
+    roll = roll_phase(card, launches)
     monitor = monitor_phase(card, launches)
     gang = gang_phase(card, launches)
 
@@ -1435,6 +1728,7 @@ def main() -> int:
         row["launches_burnin_flash_forward"] = burnin_launches[kernel]
         row["launches_entry_flash_forward"] = flagship["flash_forward"]["launches"][kernel]
         row["launches_validation_pod"] = pod["cold"]["launches"][kernel]
+        row["launches_roll"] = roll["launches"][kernel]
         row["launches_monitor"] = monitor["pass_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         if kernel == "matmul":

@@ -25,9 +25,14 @@ Layout:
   validation pod); the slice-aware planner, the health monitor and the
   slice probe gang.
 * ``policy`` — the upgrade policies the planner's budget and order use.
-* ``kube`` and ``upgrade`` — object views, API errors, Events, a minimal
-  REST client, the upgrade keys and states, and a metrics endpoint.
-* ``utils``  — logging and device resolution.
+* ``upgrade`` — the rolling-upgrade state machine's in-place path
+  (``ClusterUpgradeStateManager`` and its cordon, drain, pod, validation
+  and safe-load managers), the upgrade keys and states, and a metrics
+  endpoint.
+* ``kube`` — object views, API errors, the drain helper, Events and a
+  minimal REST client.
+* ``utils``  — logging, device resolution, int-or-percent values, per-node
+  locks and the wall clock of the durable deadlines.
 * ``tools``  — ``kernel_ab``: this checkout's kernels timed beside another
   checkout's on one card.
 

@@ -1,1 +1,2 @@
-"""Telemetry metric keys shared with the control plane."""
+"""The API types the port reads and writes: the driver upgrade policy and
+the NodeHealthReport telemetry contract."""

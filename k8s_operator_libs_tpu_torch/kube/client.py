@@ -1,18 +1,20 @@
-"""API errors by reason, and the client helpers the device class uses.
+"""API errors by reason, the client surface, and the client helpers.
 
 A subset of the JAX package's ``kube/client.py``. The operator's client
 raises its own exception classes, which this package does not import; it
 recognises them by their ``reason`` attribute, the API's ``Status.reason``
-(``NotFound``, ``AlreadyExists``, ``Conflict``). The HTTP status cannot tell
-them apart: ``AlreadyExists`` and ``Conflict`` are both 409.
+(``NotFound``, ``AlreadyExists``, ``Conflict``, ...). The HTTP status
+cannot tell them apart: ``AlreadyExists`` and ``Conflict`` are both 409.
 
-The client itself is duck-typed: ``get``, ``create``, ``update`` and
-``delete`` with the JAX package's signatures.
+The client itself is duck-typed: :class:`Client` names the methods the
+device class and the state machine call, with the JAX package's
+signatures. ``rest.RestClient`` is one; so is the JAX package's in-memory
+cluster.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Optional, TypeVar
+from typing import Any, Callable, Mapping, Optional, Protocol, TypeVar
 
 T = TypeVar("T")
 
@@ -35,6 +37,64 @@ class ConflictError(ApiError):
     """Optimistic-concurrency failure (stale resourceVersion)."""
 
     reason = "Conflict"
+
+
+class BadRequestError(ApiError):
+    """Malformed request parameters (400)."""
+
+    reason = "BadRequest"
+
+
+class InvalidError(ApiError):
+    """The object failed validation (422)."""
+
+    reason = "Invalid"
+
+
+class TooManyRequestsError(ApiError):
+    """Shed by the server's flow control (429); ``retry_after_s`` is the
+    server's Retry-After hint."""
+
+    reason = "TooManyRequests"
+
+    def __init__(self, message: str = "", retry_after_s: float = 1.0) -> None:
+        super().__init__(message or self.reason)
+        self.retry_after_s = retry_after_s
+
+
+class Client(Protocol):
+    """The client operations the port calls. Objects come back as views
+    with a ``.raw`` document (the port wraps them again by it); API
+    errors carry their ``reason``."""
+
+    def get(self, kind: str, name: str, namespace: str = "") -> Any: ...
+
+    def list(
+        self,
+        kind: str,
+        namespace: str = "",
+        label_selector: Optional[str | Mapping[str, str]] = None,
+        field_selector: Optional[str] = None,
+    ) -> list: ...
+
+    def create(self, obj: Any) -> Any: ...
+
+    def update(self, obj: Any) -> Any: ...
+
+    def patch(
+        self,
+        kind: str,
+        name: str,
+        namespace: str = "",
+        patch: Any = None,
+        patch_type: str = "merge",
+    ) -> Any: ...
+
+    def delete(self, kind: str, name: str, namespace: str = "") -> None: ...
+
+    def evict(self, pod_name: str, namespace: str = "") -> None:
+        """Evict a pod through its eviction subresource."""
+        ...
 
 
 def has_reason(exc: BaseException, kind: type[ApiError]) -> bool:

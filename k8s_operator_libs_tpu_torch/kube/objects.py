@@ -1,9 +1,12 @@
 """Thin typed views over Kubernetes object dicts.
 
 A subset of the JAX package's ``kube/objects.py``: ``Node``, ``Pod``,
-``DaemonSet``, ``Service`` and ``Event`` with the accessors the GPU device
-class, the monitor and the slice gang read, and the condition helpers the
-monitor writes with. Each view
+``DaemonSet``, ``ControllerRevision``, ``Service`` and ``Event`` with the
+accessors the GPU device class, the monitor, the slice gang and the
+upgrade state machine read, and the condition helpers the monitor writes
+with. Reads do not insert: a view of a document another component holds
+(a snapshot of the JAX package's in-memory cluster, say) gains no empty
+sections from being looked at. Each view
 keeps its document in ``.raw``, which is all an operator's client needs to
 create or update it; the client's own objects come back wrapped again by
 their ``.raw``.
@@ -65,6 +68,23 @@ class KubeObject:
     @property
     def deletion_timestamp(self) -> Optional[Any]:
         return self.metadata.get("deletionTimestamp")
+
+    @property
+    def owner_references(self) -> list[dict[str, Any]]:
+        return self.metadata.get("ownerReferences") or []
+
+    def add_owner_reference(self, owner: "KubeObject", controller: bool = True) -> None:
+        if self.metadata.get("ownerReferences") is None:
+            self.metadata["ownerReferences"] = []
+        self.metadata["ownerReferences"].append(
+            {
+                "apiVersion": owner.raw.get("apiVersion", ""),
+                "kind": owner.raw.get("kind", ""),
+                "name": owner.name,
+                "uid": owner.uid,
+                "controller": controller,
+            }
+        )
 
     @property
     def spec(self) -> dict[str, Any]:
@@ -131,6 +151,13 @@ def set_condition(
     )
 
 
+#: Pod label carrying the DaemonSet rollout hash.
+CONTROLLER_REVISION_HASH_LABEL = "controller-revision-hash"
+
+#: Annotation that marks a static (mirror) pod.
+MIRROR_POD_ANNOTATION = "kubernetes.io/config.mirror"
+
+
 class Node(KubeObject):
     KIND = "Node"
     API_VERSION = "v1"
@@ -138,6 +165,10 @@ class Node(KubeObject):
     @property
     def unschedulable(self) -> bool:
         return bool((self.raw.get("spec") or {}).get("unschedulable", False))
+
+    @unschedulable.setter
+    def unschedulable(self, value: bool) -> None:
+        self.spec["unschedulable"] = bool(value)
 
     def is_ready(self) -> bool:
         """Ready; a node without a Ready condition counts as ready."""
@@ -173,6 +204,36 @@ class Pod(KubeObject):
             and condition_status(self.raw.get("status") or {}, "Ready") == "True"
         )
 
+    def is_mirror_pod(self) -> bool:
+        return MIRROR_POD_ANNOTATION in (self.metadata.get("annotations") or {})
+
+    def is_daemonset_pod(self) -> bool:
+        return any(
+            ref.get("kind") == "DaemonSet" and ref.get("controller")
+            for ref in self.owner_references
+        )
+
+    def has_controller(self) -> bool:
+        return any(ref.get("controller") for ref in self.owner_references)
+
+    def has_empty_dir(self) -> bool:
+        return any(
+            "emptyDir" in (vol or {})
+            for vol in (self.raw.get("spec") or {}).get("volumes") or []
+        )
+
+    @property
+    def container_statuses(self) -> list[dict[str, Any]]:
+        return (self.raw.get("status") or {}).get("containerStatuses") or []
+
+    @property
+    def init_container_statuses(self) -> list[dict[str, Any]]:
+        return (self.raw.get("status") or {}).get("initContainerStatuses") or []
+
+    def controller_revision_hash(self) -> str:
+        """The DaemonSet rollout hash the pod was created at."""
+        return (self.metadata.get("labels") or {}).get(CONTROLLER_REVISION_HASH_LABEL, "")
+
 
 class DaemonSet(KubeObject):
     KIND = "DaemonSet"
@@ -187,6 +248,25 @@ class DaemonSet(KubeObject):
     @match_labels.setter
     def match_labels(self, value: Mapping[str, str]) -> None:
         _ensure(self.spec, "selector")["matchLabels"] = dict(value)
+
+    @property
+    def desired_number_scheduled(self) -> int:
+        return int((self.raw.get("status") or {}).get("desiredNumberScheduled", 0))
+
+
+class ControllerRevision(KubeObject):
+    """A DaemonSet's template revision; its name ends in the rollout hash."""
+
+    KIND = "ControllerRevision"
+    API_VERSION = "apps/v1"
+
+    @property
+    def revision(self) -> int:
+        return int(self.raw.get("revision", 0))
+
+    @revision.setter
+    def revision(self, value: int) -> None:
+        self.raw["revision"] = int(value)
 
 
 class Service(KubeObject):
@@ -203,7 +283,7 @@ class Event(KubeObject):
 
 
 KINDS: dict[str, type] = {
-    cls.KIND: cls for cls in (Node, Pod, DaemonSet, Service, Event)
+    cls.KIND: cls for cls in (Node, Pod, DaemonSet, ControllerRevision, Service, Event)
 }
 
 

@@ -10,8 +10,9 @@ the error says so where it is missing.
 
 The operations are those of the operator's client: ``get``,
 ``get_or_none``, ``list`` (label and field selectors), ``create``,
-``update``, ``update_status``, ``patch`` and ``delete``, on Node, Pod,
-Service, Event and NodeHealthReport. Objects come back as the
+``update``, ``update_status``, ``patch``, ``delete`` and ``evict`` (the
+pod's eviction subresource), on Node, Pod, Service, Event, DaemonSet,
+ControllerRevision and NodeHealthReport. Objects come back as the
 views of ``kube/objects.py``. An API error is raised with the API's
 ``Status.reason``, as the classes of ``kube/client.py`` where it is one of
 theirs, so ``has_reason`` and ``retry_on_conflict`` read it.
@@ -32,7 +33,15 @@ from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional
 
 from ..api.telemetry_v1alpha1 import NODE_HEALTH_REPORT_API_VERSION
-from .client import AlreadyExistsError, ApiError, ConflictError, NotFoundError
+from .client import (
+    AlreadyExistsError,
+    ApiError,
+    BadRequestError,
+    ConflictError,
+    InvalidError,
+    NotFoundError,
+    TooManyRequestsError,
+)
 from .objects import KubeObject, wrap
 
 #: Where a pod's service-account credentials are mounted.
@@ -44,10 +53,18 @@ RESOURCES: dict[str, tuple[str, str, bool]] = {
     "Pod": ("v1", "pods", True),
     "Service": ("v1", "services", True),
     "Event": ("v1", "events", True),
+    "DaemonSet": ("apps/v1", "daemonsets", True),
+    "ControllerRevision": ("apps/v1", "controllerrevisions", True),
     "NodeHealthReport": (NODE_HEALTH_REPORT_API_VERSION, "nodehealthreports", False),
 }
 
-_ERRORS = {cls.reason: cls for cls in (NotFoundError, AlreadyExistsError, ConflictError)}
+_ERRORS = {
+    cls.reason: cls
+    for cls in (
+        NotFoundError, AlreadyExistsError, ConflictError, BadRequestError,
+        InvalidError, TooManyRequestsError,
+    )
+}
 
 _PATCH_TYPES = {
     "merge": "application/merge-patch+json",
@@ -339,3 +356,14 @@ class RestClient:
 
     def delete(self, kind: str, name: str, namespace: str = "") -> None:
         self._request("DELETE", self._path(kind, self._namespace(kind, namespace), name))
+
+    def evict(self, pod_name: str, namespace: str = "") -> None:
+        """Evict a pod through its policy/v1 Eviction subresource, as
+        ``kubectl drain`` does."""
+        namespace = self._namespace("Pod", namespace)
+        body = {
+            "apiVersion": "policy/v1",
+            "kind": "Eviction",
+            "metadata": {"name": pod_name, "namespace": namespace},
+        }
+        self._request("POST", self._path("Pod", namespace, pod_name, "eviction"), body)

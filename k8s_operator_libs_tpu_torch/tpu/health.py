@@ -1,8 +1,9 @@
 """The post-upgrade health gate on a node's NVIDIA cards.
 
 The upgrade state machine lets a node back into service only after this
-battery passes on it (``IciHealthGate.validation_hook()`` plugs into
-``ClusterUpgradeStateManager.with_validation_enabled``); the probe pod runs
+battery passes on it (``IciHealthGate.validation_hook()`` plugs into this
+package's ``upgrade.ClusterUpgradeStateManager.with_validation_enabled``,
+as into the JAX package's); the probe pod runs
 the same battery through ``python -m k8s_operator_libs_tpu_torch.tpu.health``
 and prints one ``HealthReport`` JSON line that the control plane parses.
 The names, the report shape and the CLI flags are the JAX package's, so

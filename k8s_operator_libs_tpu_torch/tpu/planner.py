@@ -23,8 +23,10 @@ slice-id label, then ``gpu.clique``, then the node itself; never the node
 pool. Everything downstream (cordon, drain, restart, validate, uncordon)
 is the state machine's own.
 
-The operator's state machine and its strategy classes are not imported
-here. The slice-aware strategies wrap the manager's own strategy objects,
+No state machine and no strategy class is imported here, so the planner
+serves this package's ``upgrade.ClusterUpgradeStateManager`` and the JAX
+package's alike. The slice-aware strategies wrap the manager's own
+strategy objects,
 override ``process_upgrade_required_nodes`` and hand every other call to
 the wrapped object; the manager's state, policy and health views are read
 by attribute.

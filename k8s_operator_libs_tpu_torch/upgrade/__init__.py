@@ -1,3 +1,47 @@
-"""The device class, its upgrade keys and states, and the monitor's metrics
-endpoint (a subset of the JAX package's ``upgrade`` package: the state
-machine itself stays in the operator)."""
+"""The rolling-upgrade state machine's in-place path, the device class and
+its upgrade keys and states, and the monitor's metrics endpoint (a subset
+of the JAX package's ``upgrade`` package; what the port's machine does not
+run it refuses, naming the ROADMAP item: ``state_manager.py``)."""
+
+from .common_manager import ClusterUpgradeState, CommonUpgradeManager, NodeUpgradeState
+from .consts import DeviceClass, UpgradeKeys, UpgradeState
+from .cordon_manager import CordonManager
+from .drain_manager import DrainConfiguration, DrainManager
+from .inplace import InplaceNodeStateManager, ProcessNodeStateManager
+from .pod_manager import PodDeletionFilter, PodManager, PodManagerConfig, RevisionHashError
+from .safe_driver_load import SafeDriverLoadManager
+from .snapshot import ClientSnapshotSource, SnapshotSource
+from .state_manager import BuildStateError, ClusterUpgradeStateManager, PassStats, StateOptions
+from .state_provider import NodeUpgradeStateProvider, StateWriteError
+from .task_runner import TaskRunner
+from .validation_manager import VALIDATION_TIMEOUT_SECONDS, ValidationManager
+
+__all__ = [
+    "BuildStateError",
+    "ClientSnapshotSource",
+    "ClusterUpgradeState",
+    "ClusterUpgradeStateManager",
+    "CommonUpgradeManager",
+    "CordonManager",
+    "DeviceClass",
+    "DrainConfiguration",
+    "DrainManager",
+    "InplaceNodeStateManager",
+    "NodeUpgradeState",
+    "NodeUpgradeStateProvider",
+    "PassStats",
+    "PodDeletionFilter",
+    "PodManager",
+    "PodManagerConfig",
+    "ProcessNodeStateManager",
+    "RevisionHashError",
+    "SafeDriverLoadManager",
+    "SnapshotSource",
+    "StateOptions",
+    "StateWriteError",
+    "TaskRunner",
+    "UpgradeKeys",
+    "UpgradeState",
+    "VALIDATION_TIMEOUT_SECONDS",
+    "ValidationManager",
+]

@@ -1,15 +1,14 @@
 """Upgrade states, device class identity and the label and annotation keys
 derived from it.
 
-A subset of the JAX package's ``upgrade/consts.py``: the node states the
-slice planner sorts by, the value object that names a managed driver, and
-the keys this package reads or writes. The states are a ``StrEnum`` with
-the state machine's own values, so a state here compares equal to the
-state machine's bucket of the same name. For
-``DeviceClass.nvidia("gpu")`` the keys take the shape of NVIDIA's upstream
-Go library, ``nvidia.com/gpu-driver-<suffix>``; the shared state machine
-writes the same keys for the same device class, so a key built here names
-what the operator wrote.
+A subset of the JAX package's ``upgrade/consts.py``: the node states, the
+states the budget counts, the value object that names a managed driver,
+and the keys this package reads or writes. The states are a ``StrEnum``
+with the JAX machine's own values, so a state here compares equal to the
+JAX machine's bucket of the same name. For ``DeviceClass.nvidia("gpu")``
+the keys take the shape of NVIDIA's upstream Go library,
+``nvidia.com/gpu-driver-<suffix>``; both machines write the same keys for
+the same device class, so a node's state reads the same to either.
 """
 
 from __future__ import annotations
@@ -38,6 +37,42 @@ class UpgradeState(enum.StrEnum):
     #: Cordoned by the telemetry quarantine, outside any roll.
     QUARANTINED = "quarantined"
 
+
+#: States counted as managed (the budget's total). The two external
+#: maintenance states are not, as in the JAX machine's default.
+MANAGED_STATES: tuple[UpgradeState, ...] = (
+    UpgradeState.UNKNOWN,
+    UpgradeState.DONE,
+    UpgradeState.UPGRADE_REQUIRED,
+    UpgradeState.CORDON_REQUIRED,
+    UpgradeState.WAIT_FOR_JOBS_REQUIRED,
+    UpgradeState.CHECKPOINT_REQUIRED,
+    UpgradeState.POD_DELETION_REQUIRED,
+    UpgradeState.FAILED,
+    UpgradeState.DRAIN_REQUIRED,
+    UpgradeState.POD_RESTART_REQUIRED,
+    UpgradeState.UNCORDON_REQUIRED,
+    UpgradeState.VALIDATION_REQUIRED,
+    UpgradeState.QUARANTINED,
+)
+
+#: The external-maintenance states, outside the budget's count as in the
+#: JAX machine's default. The port's machine refuses a node in either
+#: (the requestor mode, ROADMAP A11).
+MAINTENANCE_STATES: tuple[UpgradeState, ...] = (
+    UpgradeState.NODE_MAINTENANCE_REQUIRED,
+    UpgradeState.POST_MAINTENANCE_REQUIRED,
+)
+
+#: Managed states that are not an upgrade in progress.
+IDLE_STATES: frozenset[UpgradeState] = frozenset(
+    {
+        UpgradeState.UNKNOWN,
+        UpgradeState.DONE,
+        UpgradeState.UPGRADE_REQUIRED,
+        UpgradeState.QUARANTINED,
+    }
+)
 
 TRUE_STRING = "true"
 #: Annotation value asking the state machine's provider to delete the key.
@@ -94,6 +129,40 @@ class UpgradeKeys:
         """Pod label that keeps a pod out of the drain (and out of the
         monitor's count of pods holding the cards)."""
         return self._key("upgrade-drain.skip")
+
+    @property
+    def initial_state_annotation(self) -> str:
+        """Node annotation marking a node that was cordoned when its upgrade
+        began; the upgrade ends without uncordoning it."""
+        return self._key("upgrade.node-initial-state.unschedulable")
+
+    @property
+    def wait_for_pod_completion_start_annotation(self) -> str:
+        """Durable clock of the wait for workload pods to complete."""
+        return self._key("upgrade-wait-for-pod-completion-start-time")
+
+    @property
+    def validation_start_annotation(self) -> str:
+        """Durable clock of the validation timeout."""
+        return self._key("upgrade-validation-start-time")
+
+    @property
+    def validation_failed_annotation(self) -> str:
+        """Marks a node whose ``upgrade-failed`` came from the validation
+        gate: its recovery validates again instead of uncordoning."""
+        return self._key("upgrade-validation-failed")
+
+    @property
+    def checkpoint_manifest_annotation(self) -> str:
+        """Written by the JAX machine's checkpoint arc before a drain; the
+        port's machine refuses a node that carries it."""
+        return self._key("upgrade-checkpoint-manifest")
+
+    @property
+    def checkpoint_escalated_annotation(self) -> str:
+        """Written by the JAX machine's checkpoint arc at its deadline;
+        retired when the node's upgrade ends."""
+        return self._key("upgrade-checkpoint-escalated")
 
     @property
     def upgrade_requested_annotation(self) -> str:

@@ -1,0 +1,337 @@
+"""ClusterUpgradeStateManager: the rolling-upgrade state machine.
+
+The JAX package's ``upgrade/state_manager.py`` for the in-place path.
+``build_state`` takes a snapshot of the driver DaemonSets, their pods and
+the nodes; ``apply_state`` runs one stateless pass that moves each node at
+most one step, from ``upgrade-required`` through cordon, the wait for
+jobs, pod deletion, drain, the driver pod's restart and validation to
+``upgrade-done`` (or ``upgrade-failed``, from which a node recovers once
+its driver pod is back in sync). All state is on the nodes, as the JAX
+machine writes it, so either machine can carry on a roll the other began.
+An error aborts the pass; the next pass resumes from the node labels.
+
+What the JAX machine does beyond that path is refused with
+``NotImplementedError`` naming its ROADMAP item, never skipped:
+
+* the requestor mode with NodeMaintenance objects (A11): ``requestor=``,
+  ``StateOptions.use_maintenance_operator``, a node in requestor mode or
+  labelled ``node-maintenance-required`` or ``post-maintenance-required``;
+* the checkpoint arc (A12): a policy with ``checkpoint.enable``, a node
+  labelled ``checkpoint-required`` or carrying a checkpoint manifest;
+* the quarantine arc and the health telemetry it reads (A13): a policy
+  with an enabled ``quarantine``, a node labelled ``quarantined``,
+  ``with_health_telemetry``;
+* the informer and incremental snapshot sources and write batching (A14):
+  ``with_snapshot_from_informers``, ``enable_write_batching`` and
+  ``StateOptions.batch_writes``.
+
+The JAX machine's tracing spans (A15) have no counterpart; the API calls
+of the last pass are counted in :class:`PassStats`.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Mapping, Optional
+
+from ..api.upgrade_v1alpha1 import DriverUpgradePolicySpec
+from ..kube.client import Client
+from ..kube.objects import DaemonSet, Node, Pod
+from ..utils.log import get_logger
+from .common_manager import ClusterUpgradeState, CommonUpgradeManager, NodeUpgradeState
+from .consts import DeviceClass, UpgradeKeys, UpgradeState
+from .cordon_manager import CordonManager
+from .drain_manager import DrainManager
+from .inplace import InplaceNodeStateManager, ProcessNodeStateManager
+from .pod_manager import PodDeletionFilter, PodManager
+from .safe_driver_load import SafeDriverLoadManager
+from .snapshot import ClientSnapshotSource, SnapshotSource
+from .state_provider import NodeUpgradeStateProvider
+from .task_runner import TaskRunner
+from .validation_manager import ValidationHook, ValidationManager
+
+log = get_logger("upgrade.state_manager")
+
+#: Node states whose arcs the port's machine does not run, by ROADMAP item.
+_UNPORTED_STATES = {
+    UpgradeState.NODE_MAINTENANCE_REQUIRED: "A11",
+    UpgradeState.POST_MAINTENANCE_REQUIRED: "A11",
+    UpgradeState.CHECKPOINT_REQUIRED: "A12",
+    UpgradeState.QUARANTINED: "A13",
+}
+
+
+def not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: not ported to k8s_operator_libs_tpu_torch yet (ROADMAP {item})"
+    )
+
+
+class BuildStateError(Exception):
+    pass
+
+
+@dataclass
+class StateOptions:
+    """The JAX machine's options. The port's machine takes
+    ``apply_width`` and refuses ``use_maintenance_operator`` (ROADMAP A11)
+    and ``batch_writes`` (A14)."""
+
+    use_maintenance_operator: bool = False
+    #: Nodes of a bucket worked on at once (1: one at a time; an inline
+    #: runner is serial whatever this says).
+    apply_width: int = 8
+    batch_writes: bool = False
+
+
+@dataclass
+class PassStats:
+    """The API calls of one pass: ``build_state`` opens the record,
+    ``apply_state`` completes it."""
+
+    #: Client reads of the snapshot.
+    reads_issued: int = 0
+    #: State PATCHes sent, and those left out because the node already
+    #: held the value.
+    writes_issued: int = 0
+    writes_skipped: int = 0
+
+
+class ClusterUpgradeStateManager:
+    """The state machine's entry point (see the module doc)."""
+
+    def __init__(
+        self,
+        client: Client,
+        device: DeviceClass,
+        recorder=None,
+        options: Optional[StateOptions] = None,
+        runner: Optional[TaskRunner] = None,
+        requestor: Optional[ProcessNodeStateManager] = None,
+    ) -> None:
+        self.options = options or StateOptions()
+        if requestor is not None or self.options.use_maintenance_operator:
+            raise not_ported("the requestor mode", "A11")
+        if self.options.batch_writes:
+            raise not_ported("write batching", "A14")
+        self.keys = UpgradeKeys(device)
+        runner = runner or TaskRunner()
+        provider = NodeUpgradeStateProvider(client, self.keys, recorder=recorder)
+        self.provider = provider
+        width = self.options.apply_width
+        self.common = CommonUpgradeManager(
+            state_provider=provider,
+            keys=self.keys,
+            cordon_manager=CordonManager(client, self.keys, recorder=recorder),
+            drain_manager=DrainManager(
+                client, provider, self.keys, runner=runner, recorder=recorder
+            ),
+            pod_manager=PodManager(
+                client, provider, self.keys, runner=runner, recorder=recorder, apply_width=width
+            ),
+            validation_manager=ValidationManager(client, provider, self.keys, recorder=recorder),
+            safe_load_manager=SafeDriverLoadManager(provider, self.keys),
+            runner=runner,
+            apply_width=width,
+        )
+        self.client = client
+        self.recorder = recorder
+        self.runner = runner
+        self.snapshot_source: SnapshotSource = ClientSnapshotSource(client)
+        self.last_pass_stats = PassStats()
+        self.inplace: ProcessNodeStateManager = InplaceNodeStateManager(self.common)
+        #: Always None: the requestor mode is refused. The slice planner
+        #: reads and sets it.
+        self.requestor = None
+
+    # -- what the port's machine refuses -------------------------------------
+    def enable_write_batching(self, max_batch: int = 64):
+        raise not_ported("write batching", "A14")
+
+    def with_snapshot_from_informers(self, *args, **kwargs):
+        raise not_ported("the informer and incremental snapshot sources", "A14")
+
+    def with_health_telemetry(self, *args, **kwargs):
+        raise not_ported("the health telemetry and the quarantine arc", "A13")
+
+    def _refuse_node(self, node: Node, bucket: UpgradeState) -> None:
+        item = _UNPORTED_STATES.get(bucket)
+        if item is not None:
+            raise not_ported(f"node {node.name} is in state {bucket}", item)
+        if self.common.is_node_in_requestor_mode(node):
+            raise not_ported(f"node {node.name} is in requestor mode", "A11")
+        if self.keys.checkpoint_manifest_annotation in node.annotations:
+            raise not_ported(f"node {node.name} carries a checkpoint manifest", "A12")
+
+    @staticmethod
+    def _refuse_policy(policy: DriverUpgradePolicySpec) -> None:
+        if policy.checkpoint is not None and policy.checkpoint.enable:
+            raise not_ported("a policy with checkpoint.enable", "A12")
+        if policy.quarantine is not None and policy.quarantine.enable:
+            raise not_ported("a policy with quarantine enabled", "A13")
+
+    # -- optional states -----------------------------------------------------
+    def with_pod_deletion_enabled(
+        self, pod_deletion_filter: PodDeletionFilter
+    ) -> "ClusterUpgradeStateManager":
+        if pod_deletion_filter is None:
+            log.warning("cannot enable pod deletion: filter is None")
+            return self
+        self.common.pod_manager = PodManager(
+            self.client,
+            self.provider,
+            self.keys,
+            pod_deletion_filter=pod_deletion_filter,
+            runner=self.runner,
+            recorder=self.recorder,
+            apply_width=self.options.apply_width,
+        )
+        self.common.pod_deletion_enabled = True
+        return self
+
+    def with_validation_enabled(
+        self,
+        pod_selector: str = "",
+        validation_hook: Optional[ValidationHook] = None,
+        timeout_seconds: Optional[int] = None,
+        pod_provisioner=None,
+    ) -> "ClusterUpgradeStateManager":
+        """Validate each node by a pod selector, an in-process hook, or
+        both. ``pod_provisioner`` (the port's
+        ``tpu.validation_pod.ValidationPodManager``) makes the probe pod on
+        each node under validation; where no selector is given, its
+        ``spec.pod_selector`` is taken."""
+        if pod_provisioner is not None and not pod_selector:
+            spec = getattr(pod_provisioner, "spec", None)
+            pod_selector = getattr(spec, "pod_selector", "") if spec else ""
+        if not pod_selector and validation_hook is None:
+            log.warning("cannot enable validation: no selector and no hook")
+            return self
+        kwargs = {} if timeout_seconds is None else {"timeout_seconds": timeout_seconds}
+        self.common.validation_manager = ValidationManager(
+            self.client,
+            self.provider,
+            self.keys,
+            pod_selector=pod_selector,
+            validation_hook=validation_hook,
+            recorder=self.recorder,
+            pod_provisioner=pod_provisioner,
+            **kwargs,
+        )
+        self.common.validation_enabled = True
+        return self
+
+    # -- counters ------------------------------------------------------------
+    def get_total_managed_nodes(self, state: ClusterUpgradeState) -> int:
+        return self.common.get_total_managed_nodes(state)
+
+    def get_upgrades_in_progress(self, state: ClusterUpgradeState) -> int:
+        return self.common.get_upgrades_in_progress(state)
+
+    def get_upgrades_done(self, state: ClusterUpgradeState) -> int:
+        return self.common.get_upgrades_done(state)
+
+    def get_upgrades_failed(self, state: ClusterUpgradeState) -> int:
+        return self.common.get_upgrades_failed(state)
+
+    def get_upgrades_pending(self, state: ClusterUpgradeState) -> int:
+        return self.common.get_upgrades_pending(state)
+
+    def is_pod_deletion_enabled(self) -> bool:
+        return self.common.pod_deletion_enabled
+
+    def is_validation_enabled(self) -> bool:
+        return self.common.validation_enabled
+
+    # -- the snapshot --------------------------------------------------------
+    def build_state(self, namespace: str, driver_labels: Mapping[str, str]) -> ClusterUpgradeState:
+        source = self.snapshot_source
+        source.consume_reads()  # drop reads made outside a pass
+        stats = PassStats()
+        self.last_pass_stats = stats
+        # One revision memo a snapshot: a rollout between two passes must
+        # not be served from the last pass's memo.
+        reset = getattr(self.common.pod_manager, "reset_pass_caches", None)
+        if callable(reset):
+            reset()
+        state = self._build_state_full(namespace, driver_labels, source)
+        stats.reads_issued = source.consume_reads()
+        return state
+
+    def _build_state_full(
+        self, namespace: str, driver_labels: Mapping[str, str], source: SnapshotSource
+    ) -> ClusterUpgradeState:
+        state = ClusterUpgradeState()
+        daemonsets = {ds.uid: ds for ds in source.daemonsets(namespace, dict(driver_labels))}
+        pods = source.pods(namespace, dict(driver_labels))
+        selected: list[Pod] = []
+        for ds in daemonsets.values():
+            ds_pods = self.common.get_pods_owned_by_ds(ds, pods)
+            if ds.desired_number_scheduled != len(ds_pods):
+                # A missing driver pod would let its node escape the roll.
+                raise BuildStateError(
+                    f"driver DaemonSet {ds.name} should not have unscheduled "
+                    f"pods (desired {ds.desired_number_scheduled}, found {len(ds_pods)})"
+                )
+            selected.extend(ds_pods)
+        selected.extend(self.common.get_orphaned_pods(pods))
+        nodes = source.nodes()
+        for pod in selected:
+            if not pod.node_name and pod.phase == "Pending":
+                log.info("driver pod %s has no node yet, skipping", pod.name)
+                continue
+            owner = None
+            if not self.common.is_orphaned_pod(pod):
+                refs = pod.owner_references
+                owner = daemonsets.get(refs[0].get("uid")) if refs else None
+            ns = self._build_node_upgrade_state(pod, owner, node=nodes.get(pod.node_name))
+            bucket = self.provider.get_upgrade_state(ns.node)
+            self._refuse_node(ns.node, bucket)
+            state.node_states[bucket].append(ns)
+        return state
+
+    def _build_node_upgrade_state(
+        self, pod: Pod, ds: Optional[DaemonSet], node: Optional[Node] = None
+    ) -> NodeUpgradeState:
+        """``node`` comes from the snapshot's node LIST; a node it missed
+        (made since) is read by name."""
+        if node is None:
+            node = self.provider.get_node(pod.node_name)
+        return NodeUpgradeState(node=node, driver_pod=pod, driver_daemonset=ds)
+
+    # -- the pass ------------------------------------------------------------
+    def apply_state(
+        self, state: ClusterUpgradeState, policy: Optional[DriverUpgradePolicySpec]
+    ) -> None:
+        if state is None:
+            raise ValueError("currentState should not be empty")
+        if policy is not None:
+            self._refuse_policy(policy)
+        if policy is None or not policy.auto_upgrade:
+            log.info("driver auto upgrade is disabled, skipping")
+            return
+        log.info(
+            "node states: %s",
+            {str(k) or "unknown": len(v) for k, v in state.node_states.items() if v},
+        )
+        common = self.common
+        stats = self.last_pass_stats
+        writes_before = self.provider.write_stats()
+        try:
+            common.process_done_or_unknown_nodes(state, UpgradeState.UNKNOWN)
+            common.process_done_or_unknown_nodes(state, UpgradeState.DONE)
+            self.inplace.process_upgrade_required_nodes(state, policy)
+            common.process_cordon_required_nodes(state)
+            common.process_wait_for_jobs_required_nodes(state, policy.wait_for_completion)
+            drain_enabled = policy.drain is not None and policy.drain.enable
+            common.process_pod_deletion_required_nodes(state, policy.pod_deletion, drain_enabled)
+            common.process_drain_nodes(state, policy.drain)
+            common.process_pod_restart_nodes(state)
+            common.process_upgrade_failed_nodes(state)
+            common.process_validation_required_nodes(state)
+            self.inplace.process_uncordon_required_nodes(state)
+        finally:
+            writes_after = self.provider.write_stats()
+            stats.writes_issued = writes_after["issued"] - writes_before["issued"]
+            stats.writes_skipped = writes_after["skipped"] - writes_before["skipped"]
+        log.info("state manager finished processing")

@@ -1,1 +1,2 @@
-"""Logging and device helpers."""
+"""Logging and device helpers, the int-or-percent type, per-node locks and
+the wall clock the durable deadlines read."""

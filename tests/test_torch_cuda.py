@@ -10,9 +10,10 @@ the card:
     python -m pytest tests/test_torch_cuda.py -q
 
 This file imports no JAX, so it runs where only PyTorch is installed. The
-GPU node roll (``-k roll``) and the monitor's cycle drive the JAX package's
-in-memory cluster and state machine, whose control plane imports no JAX
-either (``tests/test_torch_roll.py``). The slice gang runs as one pod on
+GPU node roll (``-k roll``) drives the JAX package's in-memory cluster,
+rolled by the JAX package's state machine and by the port's; the
+monitor's cycle drives that cluster too. Their control plane imports no
+JAX either (``tests/test_torch_roll.py``). The slice gang runs as one pod on
 every card (``-k gang``) and, with two or more cards, as two pods on half
 the cards each (``-k between_cards``).
 """
@@ -414,8 +415,19 @@ def test_gate_between_cards(cards_world):
 
 def test_gpu_node_roll_on_the_card(cuda, tmp_path):
     """One GPU node, labelled from the card's own facts, rolled to a new
-    driver; the probe pod's payload runs on the card with a fresh kernel
-    cache (so ``nvcc`` runs inside the pod) and lets the node back in."""
+    driver by the JAX package's state machine; the probe pod's payload runs
+    on the card with a fresh kernel cache (so ``nvcc`` runs inside the pod)
+    and lets the node back in."""
+    _roll_one_node_on_the_card(tmp_path, "jax")
+
+
+def test_gpu_node_roll_on_the_card_through_the_port_machine(cuda, tmp_path):
+    """The same roll by the port's own state machine: the node reaches
+    ``upgrade-done`` and the payload launched K1 and K2 on the card."""
+    _roll_one_node_on_the_card(tmp_path, "port")
+
+
+def _roll_one_node_on_the_card(tmp_path, machine):
     from test_torch_roll import NS, GpuRoll
 
     from k8s_operator_libs_tpu_torch.ops._build import KERNEL_DIR_ENV
@@ -429,12 +441,13 @@ def test_gpu_node_roll_on_the_card(cuda, tmp_path):
     env[KERNEL_DIR_ENV] = str(tmp_path / "kernel-cache")
     spec = ValidationPodSpec(tpu_chips=torch.cuda.device_count())
     with GpuRoll(spec, {"gpu-0": local_gpu_labels()}, tmp_path, env=env,
-                 extra_args=[], payload_timeout_s=600.0) as roll:
+                 extra_args=[], payload_timeout_s=600.0, machine=machine) as roll:
         done = roll.drive(GpuRoll.all_done, 600.0)
         states = roll.states()
         history = dict(roll.executor.history)
     assert done, states
     assert states == {"gpu-0": "upgrade-done"}
+    assert not roll.node("gpu-0").unschedulable
     assert history == {roll.pod_name("gpu-0"): True}
     report = HealthReport.from_dict(roll.report("gpu-0"))
     assert report.ok, report.failures

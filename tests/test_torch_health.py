@@ -450,6 +450,14 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.kube.rest\n"
         "import k8s_operator_libs_tpu_torch.kube.events\n"
         "import k8s_operator_libs_tpu_torch.upgrade.metrics\n"
+        "import k8s_operator_libs_tpu_torch.upgrade as u\n"
+        "[getattr(u, name) for name in u.__all__]\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.validation_manager\n"
+        "import k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1\n"
+        "import k8s_operator_libs_tpu_torch.kube.drain\n"
+        "import k8s_operator_libs_tpu_torch.utils.intstr\n"
+        "import k8s_operator_libs_tpu_torch.utils.sync\n"
+        "import k8s_operator_libs_tpu_torch.utils.faultpoints\n"
         "import k8s_operator_libs_tpu_torch.policy\n"
         "import k8s_operator_libs_tpu_torch.api.telemetry_v1alpha1\n"
         "import k8s_operator_libs_tpu_torch.tpu as t\n"

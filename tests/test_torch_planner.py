@@ -9,7 +9,9 @@ the port's planner. The disruption windows must be the same. The twins of
 planner's guarantees on the GPU pool: the budget counts slices, a wounded
 slice rolls first, a slice cordons together, a crash mid-slice resumes
 without a second window, requestor CRs align to slices whichever mode is
-enabled first. A GPU pool without cliques rolls node by node.
+enabled first. A GPU pool without cliques rolls node by node. The port's
+own ``ClusterUpgradeStateManager`` under the port's planner opens the same
+windows, pass by pass, as the JAX machine under it.
 """
 
 from __future__ import annotations
@@ -48,6 +50,12 @@ from k8s_operator_libs_tpu_torch.parallel.topology import (
 from k8s_operator_libs_tpu_torch.tpu import planner as port
 from k8s_operator_libs_tpu_torch.tpu.detector import TpuNodeDetector
 from k8s_operator_libs_tpu_torch.tpu.monitor import ICI_HEALTHY_CONDITION
+from k8s_operator_libs_tpu_torch.upgrade import ClusterUpgradeStateManager as PortManager
+from k8s_operator_libs_tpu_torch.upgrade import DeviceClass as PortDeviceClass
+from k8s_operator_libs_tpu_torch.upgrade import TaskRunner as PortTaskRunner
+from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import (
+    DriverUpgradePolicySpec as PortPolicy,
+)
 
 NS = "kube-system"
 DS_LABELS = {"app": "driver-installer"}
@@ -86,9 +94,12 @@ def gpu_labels(s, clique: bool = True) -> dict:
 
 class Pool:
     """Nodes ``s<slice>-h<host>`` on the JAX in-memory cluster, a driver
-    DaemonSet on them, and the JAX state machine with a slice planner."""
+    DaemonSet on them, and a state machine (the JAX package's, or with
+    ``machine="port"`` the port's) with a slice planner."""
 
-    def __init__(self, kind: str, sizes=SLICE_SIZES, clique: bool = True) -> None:
+    def __init__(
+        self, kind: str, sizes=SLICE_SIZES, clique: bool = True, machine: str = "jax"
+    ) -> None:
         self.kind = kind
         self.device = TPU if kind == "tpu" else GPU
         self.keys = UpgradeKeys(self.device)
@@ -107,9 +118,16 @@ class Pool:
             match_labels=DS_LABELS, initial_hash="v1",
         )
         self.sim.settle()
-        self.mgr = ClusterUpgradeStateManager(
-            self.cluster, self.device, runner=TaskRunner(inline=True)
-        )
+        self.policy = POLICY
+        if machine == "port":
+            self.mgr = PortManager(
+                self.cluster, PortDeviceClass.nvidia("gpu"), runner=PortTaskRunner(inline=True)
+            )
+            self.policy = PortPolicy.from_dict(POLICY.to_dict())
+        else:
+            self.mgr = ClusterUpgradeStateManager(
+                self.cluster, self.device, runner=TaskRunner(inline=True)
+            )
 
     def enable_planner(self) -> None:
         if self.kind == "tpu":
@@ -150,7 +168,7 @@ class Pool:
             if per_pass is not None:
                 per_pass()
             self.sim.step()
-            self.mgr.apply_state(self.mgr.build_state(NS, DS_LABELS), POLICY)
+            self.mgr.apply_state(self.mgr.build_state(NS, DS_LABELS), self.policy)
             self.sim.step()
             samples.append(self.disrupted())
             if self.done():
@@ -179,6 +197,26 @@ def test_same_roll_gives_the_same_windows_on_tpu_and_gpu_pools(wounded):
     assert stats["gpu"].max_at_once == 1
     if wounded:
         assert stats["gpu"].first_order[0] == slice_name(int(wounded[1]))
+
+
+@pytest.mark.parametrize(
+    "wounded, clique",
+    [(None, True), ("s2-h1", True), ("s0-h0", True), (None, False)],
+    ids=["healthy", "wound-s2", "wound-s0", "no-cliques"],
+)
+def test_port_machine_opens_the_same_windows_as_the_jax_machine(wounded, clique):
+    samples = {}
+    for machine in ("jax", "port"):
+        pool = Pool("gpu", clique=clique, machine=machine)
+        if wounded:
+            pool.wound(wounded)
+        pool.enable_planner()
+        assert isinstance(pool.mgr.inplace, port.SliceAwareInplaceManager)
+        samples[machine] = pool.drive()
+    assert samples["port"] == samples["jax"]
+    stats = port.disruption_stats(samples["port"])
+    assert stats.max_at_once == 1
+    assert stats.windows == (len(SLICE_SIZES) if clique else sum(SLICE_SIZES))
 
 
 def test_disruption_stats_equal_jax_on_seeded_series():

@@ -1,10 +1,13 @@
-"""A GPU node roll, end to end, through the JAX package's state machine,
-gated by the port's probe pods, each run by a real payload process.
+"""A GPU node roll, end to end, through a state machine (the JAX
+package's, or the port's own), gated by the port's probe pods, each run by
+a real payload process.
 
 The pieces are the JAX package's jax-free control plane (the in-memory
-cluster, the DaemonSet and kubelet simulators, ``ClusterUpgradeStateManager``)
-and the port's device class (the driver DaemonSet's name and safe-load key,
-``ValidationPodManager`` as the pod provisioner). ``KubeletPayloadExecutor``
+cluster, the DaemonSet and kubelet simulators), a
+``ClusterUpgradeStateManager`` (the JAX package's, or with
+``machine="port"`` the port's) and the port's device class (the driver
+DaemonSet's name and safe-load key, ``ValidationPodManager`` as the pod
+provisioner). ``KubeletPayloadExecutor``
 runs each probe pod's container command as a child process, so a node is
 let back in only when ``python -m k8s_operator_libs_tpu_torch.tpu.health``
 wrote its ready file. Each child's stdout and stderr go to
@@ -12,8 +15,9 @@ wrote its ready file. Each child's stdout and stderr go to
 are read back.
 
 The tests here roll two GPU-labelled nodes on the CPU (``--device cpu``),
-with a passing and with a failing payload. ``GpuRoll`` also drives the
-card's roll (``tests/test_torch_cuda.py``); this module imports no JAX.
+with a passing and with a failing payload, through each machine.
+``GpuRoll`` also drives the card's roll (``tests/test_torch_cuda.py``);
+this module imports no JAX.
 """
 
 from __future__ import annotations
@@ -46,6 +50,11 @@ from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
     ValidationPodManager,
     ValidationPodSpec,
 )
+from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import (
+    DriverUpgradePolicySpec as PortPolicy,
+)
+from k8s_operator_libs_tpu_torch.upgrade import ClusterUpgradeStateManager as PortManager
+from k8s_operator_libs_tpu_torch.upgrade import TaskRunner as PortTaskRunner
 from k8s_operator_libs_tpu_torch.upgrade.consts import DeviceClass, UpgradeKeys
 
 REPO = Path(__file__).resolve().parents[1]
@@ -56,6 +65,7 @@ POLICY = DriverUpgradePolicySpec(
     max_parallel_upgrades=0,
     max_unavailable=IntOrString("100%"),
 )
+PORT_POLICY = PortPolicy.from_dict(POLICY.to_dict())
 
 
 def _last_json(path: Path, key: Optional[str] = None) -> Optional[dict]:
@@ -72,7 +82,9 @@ def _last_json(path: Path, key: Optional[str] = None) -> Optional[dict]:
 
 class GpuRoll:
     """GPU nodes on the in-memory cluster, a driver roll from 550 to 560,
-    and the state machine validating each node through the port's pod."""
+    and a state machine validating each node through the port's pod:
+    ``machine`` is ``"jax"`` for the JAX package's, ``"port"`` for the
+    port's."""
 
     def __init__(
         self,
@@ -82,6 +94,7 @@ class GpuRoll:
         env: dict,
         extra_args: list[str],
         payload_timeout_s: float,
+        machine: str = "jax",
     ) -> None:
         self.spec = spec
         self.out_dir = out_dir
@@ -115,9 +128,16 @@ class GpuRoll:
             label_selector=spec.pod_selector,
             executor=self.executor,
         )
-        self.mgr = ClusterUpgradeStateManager(
-            self.cluster, JaxDeviceClass.nvidia("gpu"), runner=TaskRunner(inline=True)
-        )
+        if machine == "port":
+            self.mgr = PortManager(
+                self.cluster, DeviceClass.nvidia("gpu"), runner=PortTaskRunner(inline=True)
+            )
+            self.policy = PORT_POLICY
+        else:
+            self.mgr = ClusterUpgradeStateManager(
+                self.cluster, JaxDeviceClass.nvidia("gpu"), runner=TaskRunner(inline=True)
+            )
+            self.policy = POLICY
         self.mgr.with_validation_enabled(pod_provisioner=self.provisioner, timeout_seconds=600)
         #: Ready-file contents seen, by pod (the executor drops a pod's file
         #: when the pod is cleaned up after its pass).
@@ -142,7 +162,7 @@ class GpuRoll:
             if content is not None:
                 self.ready[pod_name] = content
         state = self.mgr.build_state(NS, self.installer.match_labels)
-        self.mgr.apply_state(state, POLICY)
+        self.mgr.apply_state(state, self.policy)
         self.sim.step()
 
     def drive(self, until: Callable[["GpuRoll"], bool], budget_s: float) -> bool:
@@ -211,7 +231,7 @@ def _cheap_spec(**overrides):
     return ValidationPodSpec(**fields)
 
 
-def _cpu_roll(spec, out_dir):
+def _cpu_roll(spec, out_dir, machine="jax"):
     env = dict(os.environ)
     env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
     env["OMP_NUM_THREADS"] = "1"
@@ -222,11 +242,28 @@ def _cpu_roll(spec, out_dir):
         env=env,
         extra_args=["--device", "cpu"],
         payload_timeout_s=BUDGET_S,
+        machine=machine,
     )
 
 
 def test_gpu_roll_gated_by_real_payload_processes(tmp_path):
-    with _cpu_roll(_cheap_spec(), tmp_path) as roll:
+    _roll_passes(tmp_path, "jax")
+
+
+def test_gpu_roll_gated_by_real_payload_processes_through_the_port_machine(tmp_path):
+    _roll_passes(tmp_path, "port")
+
+
+def test_gpu_roll_held_back_by_a_failing_payload(tmp_path):
+    _roll_held_back(tmp_path, "jax")
+
+
+def test_gpu_roll_held_back_by_a_failing_payload_through_the_port_machine(tmp_path):
+    _roll_held_back(tmp_path, "port")
+
+
+def _roll_passes(tmp_path, machine):
+    with _cpu_roll(_cheap_spec(), tmp_path, machine) as roll:
         done = roll.drive(GpuRoll.all_done, BUDGET_S)
         states = roll.states()
         history = dict(roll.executor.history)
@@ -249,10 +286,10 @@ def test_gpu_roll_gated_by_real_payload_processes(tmp_path):
     assert not [p for p in roll.cluster.list("Pod", namespace=NS) if p.name in pods]
 
 
-def test_gpu_roll_held_back_by_a_failing_payload(tmp_path):
+def _roll_held_back(tmp_path, machine):
     # A floor the CPU cannot meet: the battery runs, the payload exits 1
     # without a ready file, the pod goes Failed and the node stays out.
-    with _cpu_roll(_cheap_spec(min_mxu_tflops=1e9), tmp_path) as roll:
+    with _cpu_roll(_cheap_spec(min_mxu_tflops=1e9), tmp_path, machine) as roll:
         pods = [roll.pod_name(name) for name in NODES]
         verdicts = roll.drive(
             lambda r: all(r.executor.history.get(p) is not None for p in pods), BUDGET_S,

@@ -100,8 +100,35 @@ Phases, in order; any failure raises and the script exits non-zero:
     0. ``{"roll": ...}`` gives the passes, the roll's wall seconds, each
     node's states with the pass each began, each probe pod's seconds to
     Ready, report, build seconds and launches, and the workload pods the
-    drain evicted;
-13. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
+    drain evicted. Each node's kernel cache outlives the phase for the
+    next one;
+13. requestor_roll phase (the port's machine in the requestor mode): two
+    more nodes, ``gpu-req-0`` and ``gpu-req-1``, labelled from the card,
+    each with a workload pod, rolled 550 → 560 under ``ROLL_POLICY`` by a
+    ``ClusterUpgradeStateManager`` with ``enable_requestor_mode``
+    (``use_maintenance_operator`` and ``use_post_maintenance`` on, the
+    post-maintenance hook the port's ``cache_warmup_hook`` with the gate
+    at ``tpu_defaults()`` on the card in this process) and validation by
+    the same probe pods. The port's ``MaintenanceOperatorSimulator``
+    stands in for NVIDIA's maintenance operator, stepped once a pass: it
+    cordons and drains each node through its ``NodeMaintenance`` object
+    and, on the object's deletion, uncordons the node and removes its
+    finalizer (``DictClient`` holds a deleted object until then). Each
+    node's probe pod runs on the kernel cache of a roll-phase node (a
+    printed line says so), so no pod runs ``nvcc``. Every node must end
+    ``upgrade-done`` and uncordoned, each having passed through
+    ``node-maintenance-required`` and ``post-maintenance-required``, with
+    no NodeMaintenance and no workload pod left and every driver pod
+    Ready at 560; the hook runs once a node, on the cordoned node; each
+    hook call must launch each kernel as often as the gate phase (its
+    counts read before and after), the controller's counts, set to 0
+    just before, must be exactly the hook calls' (twice the gate's), and
+    each probe pod's payload must launch the gate's counts.
+    ``{"requestor_roll": ...}`` gives the passes, the wall seconds, each
+    node's states with the pass and second each began, each hook call's
+    seconds and launches, each probe pod's seconds to Ready, report and
+    launches, and each pass's NodeMaintenance reasons;
+14. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
     from the card, against a dict-backed client (``DictClient``: Node,
     Pod, Event, NodeHealthReport), its gate the port's
     ``SubprocessHealthGate`` at ``tpu_defaults()``, so each cycle is the
@@ -116,7 +143,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``run_quick_probe_loop(once=True)``, forms a world of every card and
     publishes a report. ``{"monitor": ...}`` gives each cycle's wall seconds
     (the child included) and the payload's launches;
-14. gang phase: the payload as a slice gang pod, a child process with
+15. gang phase: the payload as a slice gang pod, a child process with
     ``--coordinator 127.0.0.1:<free port> --num-processes 1 --process-id 0
     --publish-report`` (``NODE_NAME`` set, the kubeconfig pointing at
     ``ApiStub``, an HTTP front of the same kind of dict-backed client). Its
@@ -133,7 +160,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 
 The last lines are the kernel table as one JSON object (each row with the
 launches of the gate, the burn-in forward, the flagship MoE flash
-forward, the probe pod, the roll's probe pods together, the monitor's
+forward, the probe pod, the roll's probe pods together, the requestor
+roll's hook calls together and its probe pods together, the monitor's
 payload and the gang's payload),
 the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
@@ -151,6 +179,7 @@ import re
 import socket
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
@@ -221,6 +250,10 @@ ROLL_POLICY = {
 ROLL_STALL_S = 300.0
 #: Seconds between two passes of the roll.
 ROLL_PASS_INTERVAL_S = 0.2
+#: The requestor roll's nodes, and the namespace of their NodeMaintenance
+#: objects.
+REQUESTOR_NODES = ("gpu-req-0", "gpu-req-1")
+MAINTENANCE_NS = "nvidia-maintenance-operator"
 GANG_NODES = ("gang-node-0", "gang-node-1")
 
 
@@ -947,8 +980,6 @@ def run_probe_pod(container: dict, host_paths: dict, workdir: str, label: str) -
 def device_class_phase(card: str, gate_launches: dict) -> dict:
     """The GPU node's labels, detection and probe pod, and the pod's
     payload run cold and warm on one kernel cache."""
-    import tempfile
-
     import torch
 
     from k8s_operator_libs_tpu_torch.kube.objects import Node
@@ -1009,9 +1040,12 @@ def device_class_phase(card: str, gate_launches: dict) -> dict:
 class DictClient:
     """The operator's client, as far as the monitor, the report publisher
     and the state machine use it, over dicts: Node, Pod, Event,
-    NodeHealthReport, DaemonSet and ControllerRevision, resourceVersions
-    checked on update, errors with the API's reasons; an eviction deletes
-    the pod (no disruption budget guards it)."""
+    NodeHealthReport, DaemonSet, ControllerRevision and NodeMaintenance,
+    resourceVersions checked on update, errors with the API's reasons; an
+    eviction deletes the pod (no disruption budget guards it). Finalizers
+    hold a deleted object as the API server does: the delete sets its
+    ``deletionTimestamp``, and the write that empties its finalizers
+    removes it."""
 
     CLUSTER_SCOPED = ("Node", "NodeHealthReport")
 
@@ -1035,7 +1069,10 @@ class DictClient:
 
         self.version += 1
         raw["metadata"]["resourceVersion"] = str(self.version)
-        self.objects[key] = raw
+        if raw["metadata"].get("deletionTimestamp") and not raw["metadata"].get("finalizers"):
+            self.objects.pop(key, None)  # the last finalizer is gone
+        else:
+            self.objects[key] = raw
         return wrap(json.loads(json.dumps(raw)))
 
     def get(self, kind: str, name: str, namespace: str = ""):
@@ -1092,8 +1129,12 @@ class DictClient:
                 stored["status"] = raw.get("status") or {}
                 raw = stored
             else:
-                # The server owns the uid: an update keeps it.
+                # The server owns the uid and the deletion mark: an update
+                # keeps them.
                 raw["metadata"]["uid"] = stored["metadata"].get("uid")
+                raw["metadata"].pop("deletionTimestamp", None)
+                if stored["metadata"].get("deletionTimestamp"):
+                    raw["metadata"]["deletionTimestamp"] = stored["metadata"]["deletionTimestamp"]
             return self._put(key, raw)
 
     def update(self, obj):
@@ -1119,10 +1160,17 @@ class DictClient:
             return self._put(key, raw)
 
     def delete(self, kind: str, name: str, namespace: str = "") -> None:
+        from k8s_operator_libs_tpu_torch.kube.objects import rfc3339_now
+
         key = self._key(kind, name, namespace)
         with self.lock:
-            self._stored(key)
-            del self.objects[key]
+            meta = self._stored(key)["metadata"]
+            if not meta.get("finalizers"):
+                del self.objects[key]
+            elif not meta.get("deletionTimestamp"):
+                raw = json.loads(json.dumps(self.objects[key]))
+                raw["metadata"]["deletionTimestamp"] = rfc3339_now()
+                self._put(key, raw)
 
     def evict(self, pod_name: str, namespace: str = "") -> None:
         self.delete("Pod", pod_name, namespace)
@@ -1335,8 +1383,6 @@ def monitor_phase(card: str, gate_launches: dict) -> dict:
 def gang_phase(card: str, gate_launches: dict) -> dict:
     """The payload as a slice gang pod: one child on every card, then (with
     two or more cards) two children on half the cards each."""
-    import tempfile
-
     import torch
 
     from k8s_operator_libs_tpu_torch.kube.objects import Node
@@ -1450,14 +1496,17 @@ class RollKubelet:
     on each node at the newest revision (the new driver's held by its
     safe-load gate until the state machine removes the node's annotation,
     Ready a tick later), and each validation pod's command run until its
-    ready file appears (``run_probe_pod``)."""
+    ready file appears (``run_probe_pod``), the node's kernel cache the
+    directory ``caches`` names for it."""
 
-    def __init__(self, client, installer, nodes, workdir: str, gate_launches: dict) -> None:
+    def __init__(self, client, installer, nodes, workdir: str, gate_launches: dict,
+                 caches: dict) -> None:
         self.client = client
         self.installer = installer
         self.nodes = nodes
         self.workdir = workdir
         self.gate_launches = gate_launches
+        self.caches = caches
         self.revisions: dict[str, int] = {}
         #: Driver pods whose safe-load gate waits: pod name -> node.
         self.blocked: dict[str, str] = {}
@@ -1541,7 +1590,7 @@ class RollKubelet:
             if pod.phase:
                 continue
             (container,) = pod.spec["containers"]
-            cache = os.path.join(self.workdir, f"kernel-cache-{pod.node_name}")
+            cache = self.caches[pod.node_name]
             host_paths = {v["hostPath"]["path"]: cache for v in pod.spec.get("volumes") or []}
             run = run_probe_pod(container, host_paths, self.workdir, pod.name)
             check_launches(f"roll probe pod {pod.name}", run["launches"], self.gate_launches)
@@ -1567,29 +1616,14 @@ class RollKubelet:
         self.run_probe_pods()
 
 
-def roll_phase(card: str, gate_launches: dict) -> dict:
-    """Two GPU nodes rolled from driver 550 to 560 by the port's own state
-    machine, each let back in by its probe pod's payload on the card."""
-    import tempfile
-
-    from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import DriverUpgradePolicySpec
+def roll_pool(client, nodes):
+    """``nodes`` labelled from the card, each Ready with a controller-owned
+    workload pod, and the NVIDIA driver DaemonSet at the old version."""
     from k8s_operator_libs_tpu_torch.kube.objects import Node, Pod
     from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
     from k8s_operator_libs_tpu_torch.tpu.libtpu import LibtpuDaemonSetManager, LibtpuSpec
-    from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
-        ValidationPodManager,
-        ValidationPodSpec,
-    )
-    from k8s_operator_libs_tpu_torch.upgrade import (
-        BuildStateError,
-        ClusterUpgradeStateManager,
-        DeviceClass,
-        UpgradeKeys,
-    )
 
-    keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
-    client = DictClient()
-    for name in ROLL_NODES:
+    for name in nodes:
         node = Node.new(name, labels=local_gpu_labels())
         node.set_ready(True)
         client.create(node)
@@ -1603,84 +1637,251 @@ def roll_phase(card: str, gate_launches: dict) -> dict:
         client.create(workload)
     installer = LibtpuDaemonSetManager(client, LibtpuSpec(version=ROLL_VERSIONS[0]))
     installer.apply()
+    return installer
+
+
+def drive_roll(label: str, client, mgr, installer, kubelet, before_apply=None,
+               after_apply=None) -> dict:
+    """Bump the driver to the new version, set every launch count to 0,
+    then passes (the kubelet's tick, ``before_apply()``, one pass of
+    ``mgr``, ``after_apply()``) until every node reads ``upgrade-done``
+    uncordoned and ``after_apply()`` (if given) returned True. A node in
+    ``upgrade-failed``, or none changing state for ``ROLL_STALL_S``, fails
+    the phase. The passes, wall seconds, build_state retries and each
+    node's states with the pass and second each began."""
+    from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import DriverUpgradePolicySpec
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
+    from k8s_operator_libs_tpu_torch.upgrade import BuildStateError, DeviceClass, UpgradeKeys
+
+    keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
     policy = DriverUpgradePolicySpec.from_dict(ROLL_POLICY)
+    trajectories: dict[str, list] = {name: [] for name in kubelet.nodes}
+    retries = passes = 0
+    kubelet.tick()  # every driver pod at the old version
+    installer.spec.version = ROLL_VERSIONS[1]
+    installer.apply()
+    reset_counts()
+    start = last_change = time.perf_counter()
+    while True:
+        kubelet.tick()
+        if before_apply is not None:
+            before_apply()
+        passes += 1
+        try:
+            mgr.apply_state(mgr.build_state(installer.spec.namespace, installer.match_labels),
+                            policy)
+        except BuildStateError:
+            retries += 1  # a pod the kubelet has still to deliver
+        phase_done = after_apply() if after_apply is not None else True
+        now = time.perf_counter()
+        nodes = {n.name: Node(n.raw) for n in client.list("Node")}
+        for name, node in nodes.items():
+            state = node.labels.get(keys.state_label, "")
+            if not trajectories[name] or trajectories[name][-1][1] != state:
+                trajectories[name].append([passes, state, round(now - start, 3)])
+                last_change = now
+            if state == "upgrade-failed":
+                raise AssertionError(f"{label}: {name} failed: {trajectories}")
+        if phase_done and all(
+            n.labels.get(keys.state_label) == "upgrade-done" and not n.unschedulable
+            for n in nodes.values()
+        ):
+            return {"passes": passes, "wall_s": time.perf_counter() - start,
+                    "build_state_retries": retries, "trajectories": trajectories}
+        if now - last_change > ROLL_STALL_S:
+            raise AssertionError(
+                f"{label}: no node changed state for {ROLL_STALL_S} s: {trajectories}"
+            )
+        time.sleep(ROLL_PASS_INTERVAL_S)
+
+
+def check_rolled_pods(label: str, client, installer, nodes, runs: dict) -> list:
+    """Each node's probe pod ran; no workload pod is left and every driver
+    pod is Ready at the new version. The pods left."""
+    from k8s_operator_libs_tpu_torch.kube.objects import Pod
+
+    if sorted(run["node"] for run in runs.values()) != sorted(nodes):
+        raise AssertionError(f"{label}: probe pods ran on {[r['node'] for r in runs.values()]}")
+    pods = sorted(p.name for p in client.list("Pod"))
+    if any(name.startswith("train-") for name in pods):
+        raise AssertionError(f"{label}: the drain left workload pods: {pods}")
+    driver = {installer.name + "-" + n for n in nodes}
+    if set(pods) != driver:
+        raise AssertionError(f"{label}: pods after the roll: {pods}")
+    for name in driver:
+        pod = Pod(client.get("Pod", name, installer.spec.namespace).raw)
+        if pod.controller_revision_hash() != ROLL_VERSIONS[1] or not pod.is_ready():
+            raise AssertionError(f"{label}: driver pod {name} not Ready at {ROLL_VERSIONS[1]}")
+    return pods
+
+
+def total_launches(calls) -> dict:
+    return {lib: sum(c["launches"][lib] for c in calls) for lib in ("matmul", "flash_attention")}
+
+
+def roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+    """Two GPU nodes rolled from driver 550 to 560 by the port's own state
+    machine, each let back in by its probe pod's payload on the card; each
+    node's kernel cache is its own directory under ``cache_root``."""
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
+        ValidationPodManager,
+        ValidationPodSpec,
+    )
+    from k8s_operator_libs_tpu_torch.upgrade import ClusterUpgradeStateManager, DeviceClass
+
+    client = DictClient()
+    installer = roll_pool(client, ROLL_NODES)
     mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
     mgr.with_validation_enabled(
         pod_provisioner=ValidationPodManager(client, ValidationPodSpec())
     )
-    trajectories: dict[str, list] = {name: [] for name in ROLL_NODES}
-    retries = 0
+    caches = {name: os.path.join(cache_root, name) for name in ROLL_NODES}
     with tempfile.TemporaryDirectory(prefix="roll-") as workdir:
-        kubelet = RollKubelet(client, installer, ROLL_NODES, workdir, gate_launches)
-        kubelet.tick()  # the pool before the roll: every driver pod at 550
-        installer.spec.version = ROLL_VERSIONS[1]
-        installer.apply()
-        reset_counts()
-        start = last_change = time.perf_counter()
-        passes = 0
+        kubelet = RollKubelet(client, installer, ROLL_NODES, workdir, gate_launches, caches)
         try:
-            while True:
-                kubelet.tick()
-                passes += 1
-                try:
-                    mgr.apply_state(mgr.build_state(installer.spec.namespace,
-                                                    installer.match_labels), policy)
-                except BuildStateError:
-                    retries += 1  # a pod the kubelet has still to deliver
-                now = time.perf_counter()
-                nodes = {n.name: Node(n.raw) for n in client.list("Node")}
-                for name, node in nodes.items():
-                    state = node.labels.get(keys.state_label, "")
-                    if not trajectories[name] or trajectories[name][-1][1] != state:
-                        trajectories[name].append([passes, state, round(now - start, 3)])
-                        last_change = now
-                    if state == "upgrade-failed":
-                        raise AssertionError(f"roll: {name} failed: {trajectories}")
-                if all(
-                    n.labels.get(keys.state_label) == "upgrade-done" and not n.unschedulable
-                    for n in nodes.values()
-                ):
-                    break
-                if now - last_change > ROLL_STALL_S:
-                    raise AssertionError(
-                        f"roll: no node changed state for {ROLL_STALL_S} s: {trajectories}"
-                    )
-                time.sleep(ROLL_PASS_INTERVAL_S)
-            wall_s = time.perf_counter() - start
+            run = drive_roll("roll", client, mgr, installer, kubelet)
         finally:
             mgr.runner.shutdown()
         parent = counts()
     if parent["matmul"] or parent["flash_attention"]:
         raise AssertionError(f"roll: the controller launched kernels itself: {parent}")
     runs = kubelet.probe_runs
-    pods = sorted(p.name for p in client.list("Pod"))
     result = {
         "nodes": list(ROLL_NODES),
         "versions": list(ROLL_VERSIONS),
         "policy": ROLL_POLICY,
-        "passes": passes,
-        "wall_s": wall_s,
-        "build_state_retries": retries,
-        "trajectories": trajectories,
+        **run,
         "probe_pods": runs,
-        "launches": {
-            lib: sum(run["launches"][lib] for run in runs.values())
-            for lib in ("matmul", "flash_attention")
-        },
-        "pods_after": pods,
+        "launches": total_launches(runs.values()),
+        "pods_after": sorted(p.name for p in client.list("Pod")),
     }
     print(json.dumps({"roll": result, "card": card}), flush=True)
-    if sorted(run["node"] for run in runs.values()) != sorted(ROLL_NODES):
-        raise AssertionError(f"roll: probe pods ran on {[r['node'] for r in runs.values()]}")
-    if any(name.startswith("train-") for name in pods):
-        raise AssertionError(f"roll: the drain left workload pods: {pods}")
-    driver = {installer.name + "-" + n for n in ROLL_NODES}
-    if set(pods) != driver:
-        raise AssertionError(f"roll: pods after the roll: {pods}")
-    for name in driver:
-        pod = Pod(client.get("Pod", name, installer.spec.namespace).raw)
-        if pod.controller_revision_hash() != ROLL_VERSIONS[1] or not pod.is_ready():
-            raise AssertionError(f"roll: driver pod {name} not Ready at {ROLL_VERSIONS[1]}")
+    check_rolled_pods("roll", client, installer, ROLL_NODES, runs)
+    return result
+
+
+def requestor_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+    """Two more GPU nodes rolled from driver 550 to 560 by the port's
+    machine in the requestor mode: the maintenance operator's stand-in
+    cordons and drains them through NodeMaintenance objects, the
+    post-maintenance hook runs the gate on the card in this process, and
+    each node's probe pod validates it, on the kernel cache a node of the
+    roll phase left (a second roll of the same hosts)."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.kube.sim import MaintenanceOperatorSimulator
+    from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate, cache_warmup_hook
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
+        ValidationPodManager,
+        ValidationPodSpec,
+    )
+    from k8s_operator_libs_tpu_torch.upgrade import (
+        ClusterUpgradeStateManager,
+        DeviceClass,
+        RequestorOptions,
+        enable_requestor_mode,
+    )
+
+    client = DictClient()
+    installer = roll_pool(client, REQUESTOR_NODES)
+    mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
+    mgr.with_validation_enabled(
+        pod_provisioner=ValidationPodManager(client, ValidationPodSpec())
+    )
+    warm_gate = IciHealthGate.tpu_defaults(device="cuda")
+    warmup = cache_warmup_hook(warm_gate)
+    hook_calls: list[dict] = []
+    hook_errors: list[str] = []
+
+    def hook(node) -> bool:
+        """The port's warm-up hook, its launches read before and after."""
+        before = counts()
+        start = time.perf_counter()
+        try:
+            done = warmup(node)
+        except Exception as e:
+            hook_errors.append(f"{node.name}: {e!r}")
+            raise
+        torch.cuda.synchronize()
+        after = counts()
+        hook_calls.append({
+            "node": node.name,
+            "cordoned": bool(node.unschedulable),
+            "seconds": time.perf_counter() - start,
+            "launches": {lib: after[lib] - before[lib] for lib in ("matmul", "flash_attention")},
+        })
+        return done
+
+    enable_requestor_mode(mgr, RequestorOptions(
+        use_maintenance_operator=True, use_post_maintenance=True,
+        requestor_id="gpu.operator.dev", namespace=MAINTENANCE_NS,
+        post_maintenance_hook=hook,
+    ))
+    operator = MaintenanceOperatorSimulator(client, namespace=MAINTENANCE_NS)
+    reasons: list[dict] = []
+
+    def after_apply() -> bool:
+        """The hook's errors fail the phase; each object's Ready reason is
+        recorded; the phase ends when no object is left."""
+        if hook_errors:
+            raise AssertionError(f"requestor_roll: the hook raised: {hook_errors}")
+        objects = client.list("NodeMaintenance", namespace=MAINTENANCE_NS)
+        reasons.append({
+            o.name: "deleting" if o.deletion_timestamp else o.ready_reason() or "Pending"
+            for o in objects
+        })
+        return not objects
+
+    caches = {req: os.path.join(cache_root, roll) for req, roll in zip(REQUESTOR_NODES, ROLL_NODES)}
+    print(f"requestor_roll: each node's probe pod takes the kernel cache of "
+          f"{json.dumps(dict(zip(REQUESTOR_NODES, ROLL_NODES)))} from the roll phase, "
+          "so its payload skips nvcc", flush=True)
+    with tempfile.TemporaryDirectory(prefix="requestor-roll-") as workdir:
+        kubelet = RollKubelet(client, installer, REQUESTOR_NODES, workdir, gate_launches, caches)
+        try:
+            run = drive_roll("requestor_roll", client, mgr, installer, kubelet,
+                             before_apply=operator.step, after_apply=after_apply)
+        finally:
+            mgr.runner.shutdown()
+            warm_gate.close()
+        controller = counts()
+    runs = kubelet.probe_runs
+    result = {
+        "nodes": list(REQUESTOR_NODES),
+        "versions": list(ROLL_VERSIONS),
+        "policy": ROLL_POLICY,
+        **run,
+        "hook_calls": hook_calls,
+        "probe_pods": runs,
+        "maintenance_reasons_by_pass": reasons,
+        "controller_launches": {lib: controller[lib] for lib in ("matmul", "flash_attention")},
+        "hook_launches": total_launches(hook_calls),
+        "pod_launches": total_launches(runs.values()),
+        "pods_after": sorted(p.name for p in client.list("Pod")),
+    }
+    print(json.dumps({"requestor_roll": result, "card": card}), flush=True)
+    for name, trajectory in run["trajectories"].items():
+        states = [step[1] for step in trajectory]
+        for wanted in ("node-maintenance-required", "post-maintenance-required", "upgrade-done"):
+            if wanted not in states:
+                raise AssertionError(f"requestor_roll: {name} never reached {wanted}: {states}")
+    if sorted(call["node"] for call in hook_calls) != sorted(REQUESTOR_NODES):
+        raise AssertionError(f"requestor_roll: hook calls {hook_calls}")
+    for call in hook_calls:
+        if not call["cordoned"]:
+            raise AssertionError(f"requestor_roll: the hook ran on an uncordoned node: {call}")
+        check_launches(f"requestor_roll hook on {call['node']}", call["launches"], gate_launches)
+    for lib in ("matmul", "flash_attention"):
+        hooked = result["hook_launches"][lib]
+        if controller[lib] != 2 * gate_launches[lib] or hooked != controller[lib]:
+            raise AssertionError(
+                f"requestor_roll: the controller launched {lib} {controller[lib]} times, "
+                f"its hook calls {hooked}, twice the gate's {2 * gate_launches[lib]}"
+            )
+    built = {name: run["build_s"] for name, run in runs.items() if any(run["build_s"].values())}
+    if built:
+        raise AssertionError(f"requestor_roll: pods built their kernels again: {built}")
+    check_rolled_pods("requestor_roll", client, installer, REQUESTOR_NODES, runs)
     return result
 
 
@@ -1718,7 +1919,9 @@ def main() -> int:
     dryrun_phase(card)
     cli_phase()
     pod = device_class_phase(card, launches)
-    roll = roll_phase(card, launches)
+    with tempfile.TemporaryDirectory(prefix="kernel-caches-") as cache_root:
+        roll = roll_phase(card, launches, cache_root)
+        requestor = requestor_roll_phase(card, launches, cache_root)
     monitor = monitor_phase(card, launches)
     gang = gang_phase(card, launches)
 
@@ -1729,6 +1932,8 @@ def main() -> int:
         row["launches_entry_flash_forward"] = flagship["flash_forward"]["launches"][kernel]
         row["launches_validation_pod"] = pod["cold"]["launches"][kernel]
         row["launches_roll"] = roll["launches"][kernel]
+        row["launches_requestor_hook"] = requestor["hook_launches"][kernel]
+        row["launches_requestor_pods"] = requestor["pod_launches"][kernel]
         row["launches_monitor"] = monitor["pass_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         if kernel == "matmul":

@@ -1,12 +1,13 @@
 """Thin typed views over Kubernetes object dicts.
 
 A subset of the JAX package's ``kube/objects.py``: ``Node``, ``Pod``,
-``DaemonSet``, ``ControllerRevision``, ``Service`` and ``Event`` with the
-accessors the GPU device class, the monitor, the slice gang and the
-upgrade state machine read, and the condition helpers the monitor writes
-with. Reads do not insert: a view of a document another component holds
-(a snapshot of the JAX package's in-memory cluster, say) gains no empty
-sections from being looked at. Each view
+``DaemonSet``, ``ControllerRevision``, ``Service``, ``Event`` and the
+external maintenance operator's ``NodeMaintenance`` with the accessors
+the GPU device class, the monitor, the slice gang and the upgrade state
+machine read, and the condition helpers the monitor writes with. Reads
+do not insert: a view of a document another component holds (a snapshot
+of the JAX package's in-memory cluster, say) gains no empty sections from
+being looked at; a list-valued field is changed by assigning it. Each view
 keeps its document in ``.raw``, which is all an operator's client needs to
 create or update it; the client's own objects come back wrapped again by
 their ``.raw``.
@@ -16,7 +17,7 @@ from __future__ import annotations
 
 import copy
 import time
-from typing import Any, Mapping, MutableMapping, Optional
+from typing import Any, Iterable, Mapping, MutableMapping, Optional
 
 
 def _ensure(d: dict[str, Any], key: str) -> dict[str, Any]:
@@ -64,6 +65,16 @@ class KubeObject:
     @property
     def annotations(self) -> dict[str, str]:
         return _ensure(self.metadata, "annotations")
+
+    @property
+    def finalizers(self) -> list[str]:
+        """The finalizers; assign the property to change them (a read of
+        an object without any inserts nothing)."""
+        return self.metadata.get("finalizers") or []
+
+    @finalizers.setter
+    def finalizers(self, value: Iterable[str]) -> None:
+        self.metadata["finalizers"] = list(value)
 
     @property
     def deletion_timestamp(self) -> Optional[Any]:
@@ -282,8 +293,80 @@ class Event(KubeObject):
     API_VERSION = "v1"
 
 
+class NodeMaintenance(KubeObject):
+    """The external maintenance operator's request object (the NVIDIA
+    maintenance operator's API, ``maintenance.nvidia.com/v1alpha1``): the
+    requestor mode asks for a node's cordon and drain with one, and the
+    operator reports ``Ready`` when it is done."""
+
+    KIND = "NodeMaintenance"
+    API_VERSION = "maintenance.nvidia.com/v1alpha1"
+
+    CONDITION_READY = "Ready"
+    CONDITION_REASON_READY = "Ready"
+
+    @property
+    def requestor_id(self) -> str:
+        return (self.raw.get("spec") or {}).get("requestorID", "")
+
+    @requestor_id.setter
+    def requestor_id(self, value: str) -> None:
+        self.spec["requestorID"] = value
+
+    @property
+    def additional_requestors(self) -> list[str]:
+        """The other operators sharing the object; assign to change."""
+        return (self.raw.get("spec") or {}).get("additionalRequestors") or []
+
+    @additional_requestors.setter
+    def additional_requestors(self, value: Iterable[str]) -> None:
+        self.spec["additionalRequestors"] = list(value)
+
+    @property
+    def node_name(self) -> str:
+        return (self.raw.get("spec") or {}).get("nodeName", "")
+
+    @node_name.setter
+    def node_name(self, value: str) -> None:
+        self.spec["nodeName"] = value
+
+    @property
+    def node_health(self) -> Optional[dict[str, Any]]:
+        """``{"score", "trend", "worstLinks"?}`` from the node's telemetry
+        when the object was made; None where none was read (never a
+        default score: "unmeasured" is not "healthy")."""
+        value = (self.raw.get("spec") or {}).get("nodeHealth")
+        return value if isinstance(value, dict) else None
+
+    @node_health.setter
+    def node_health(self, value: Optional[Mapping[str, Any]]) -> None:
+        if value is None:
+            self.spec.pop("nodeHealth", None)
+        else:
+            self.spec["nodeHealth"] = dict(value)
+
+    @property
+    def worst_links(self) -> list[dict[str, Any]]:
+        """The sick links of ``nodeHealth.worstLinks`` (``peer``,
+        ``verdict``, ``gbytesPerS``?, ``latencyS``?); empty without."""
+        links = (self.node_health or {}).get("worstLinks")
+        if not isinstance(links, list):
+            return []
+        return [dict(entry) for entry in links]
+
+    def is_ready(self) -> bool:
+        return condition_status(self.raw.get("status") or {}, self.CONDITION_READY) == "True"
+
+    def ready_reason(self) -> str:
+        for cond in (self.raw.get("status") or {}).get("conditions") or []:
+            if cond.get("type") == self.CONDITION_READY:
+                return cond.get("reason", "")
+        return ""
+
+
 KINDS: dict[str, type] = {
-    cls.KIND: cls for cls in (Node, Pod, DaemonSet, ControllerRevision, Service, Event)
+    cls.KIND: cls
+    for cls in (Node, Pod, DaemonSet, ControllerRevision, Service, Event, NodeMaintenance)
 }
 
 

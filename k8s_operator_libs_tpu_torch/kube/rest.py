@@ -12,10 +12,10 @@ The operations are those of the operator's client: ``get``,
 ``get_or_none``, ``list`` (label and field selectors), ``create``,
 ``update``, ``update_status``, ``patch``, ``delete`` and ``evict`` (the
 pod's eviction subresource), on Node, Pod, Service, Event, DaemonSet,
-ControllerRevision and NodeHealthReport. Objects come back as the
-views of ``kube/objects.py``. An API error is raised with the API's
-``Status.reason``, as the classes of ``kube/client.py`` where it is one of
-theirs, so ``has_reason`` and ``retry_on_conflict`` read it.
+ControllerRevision, NodeHealthReport and NodeMaintenance. Objects come
+back as the views of ``kube/objects.py``. An API error is raised with the
+API's ``Status.reason``, as the classes of ``kube/client.py`` where it is
+one of theirs, so ``has_reason`` and ``retry_on_conflict`` read it.
 """
 
 from __future__ import annotations
@@ -56,6 +56,7 @@ RESOURCES: dict[str, tuple[str, str, bool]] = {
     "DaemonSet": ("apps/v1", "daemonsets", True),
     "ControllerRevision": ("apps/v1", "controllerrevisions", True),
     "NodeHealthReport": (NODE_HEALTH_REPORT_API_VERSION, "nodehealthreports", False),
+    "NodeMaintenance": ("maintenance.nvidia.com/v1alpha1", "nodemaintenances", True),
 }
 
 _ERRORS = {

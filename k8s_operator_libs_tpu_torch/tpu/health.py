@@ -510,12 +510,14 @@ class IciHealthGate:
 
 
 def cache_warmup_hook(gate: Optional[HealthGate] = None):
-    """Post-maintenance hook: run one battery while the node is still
-    drained, so the gate that follows finds its world formed and its
-    kernels built. A warm-up is not a gate: the result is logged and the
-    hook always reports done (an unhealthy node is the validation gate's
-    to catch)."""
-    warm_gate = gate or IciHealthGate()
+    """Post-maintenance hook (``RequestorOptions.post_maintenance_hook``):
+    run one battery while the node is still drained, so the gate that
+    follows finds its world formed and its kernels built. The default gate
+    is ``IciHealthGate.tpu_defaults()``, the one that launches both
+    kernels. A warm-up is not a gate: the result is logged and the hook
+    always reports done (an unhealthy node is the validation gate's to
+    catch)."""
+    warm_gate = gate or IciHealthGate.tpu_defaults()
 
     def hook(node) -> bool:
         report = warm_gate.run()

@@ -1,7 +1,8 @@
-"""The rolling-upgrade state machine's in-place path, the device class and
-its upgrade keys and states, and the monitor's metrics endpoint (a subset
-of the JAX package's ``upgrade`` package; what the port's machine does not
-run it refuses, naming the ROADMAP item: ``state_manager.py``)."""
+"""The rolling-upgrade state machine's in-place path and requestor mode,
+the device class and its upgrade keys and states, and the monitor's
+metrics endpoint (a subset of the JAX package's ``upgrade`` package; what
+the port's machine does not run it refuses, naming the ROADMAP item:
+``state_manager.py``)."""
 
 from .common_manager import ClusterUpgradeState, CommonUpgradeManager, NodeUpgradeState
 from .consts import DeviceClass, UpgradeKeys, UpgradeState
@@ -9,6 +10,14 @@ from .cordon_manager import CordonManager
 from .drain_manager import DrainConfiguration, DrainManager
 from .inplace import InplaceNodeStateManager, ProcessNodeStateManager
 from .pod_manager import PodDeletionFilter, PodManager, PodManagerConfig, RevisionHashError
+from .requestor import (
+    DEFAULT_NODE_MAINTENANCE_NAME_PREFIX,
+    RequestorNodeStateManager,
+    RequestorOptions,
+    condition_changed_predicate,
+    enable_requestor_mode,
+    requestor_id_predicate,
+)
 from .safe_driver_load import SafeDriverLoadManager
 from .snapshot import ClientSnapshotSource, SnapshotSource
 from .state_manager import BuildStateError, ClusterUpgradeStateManager, PassStats, StateOptions
@@ -22,6 +31,7 @@ __all__ = [
     "ClusterUpgradeState",
     "ClusterUpgradeStateManager",
     "CommonUpgradeManager",
+    "DEFAULT_NODE_MAINTENANCE_NAME_PREFIX",
     "CordonManager",
     "DeviceClass",
     "DrainConfiguration",
@@ -34,6 +44,8 @@ __all__ = [
     "PodManager",
     "PodManagerConfig",
     "ProcessNodeStateManager",
+    "RequestorNodeStateManager",
+    "RequestorOptions",
     "RevisionHashError",
     "SafeDriverLoadManager",
     "SnapshotSource",
@@ -44,4 +56,7 @@ __all__ = [
     "UpgradeState",
     "VALIDATION_TIMEOUT_SECONDS",
     "ValidationManager",
+    "condition_changed_predicate",
+    "enable_requestor_mode",
+    "requestor_id_predicate",
 ]

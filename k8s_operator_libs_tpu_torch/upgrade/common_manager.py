@@ -1,14 +1,14 @@
 """CommonUpgradeManager: the per-state processors of a pass, and the
 budget's counters.
 
-The JAX package's ``upgrade/common_manager.py`` for the in-place path. It
-holds the node managers (cordon, drain, pod, validation, safe load) and
-moves the nodes of each state's bucket one step. A bucket runs through the
-task runner with each node's error isolated; once the bucket is done its
-first error aborts the pass, and the next pass resumes from the node
-labels. The checkpoint and quarantine arcs, the requestor mode's
-processors and the tracing spans of the JAX module are not here; the
-state machine refuses what would need them (``state_manager.py``).
+The JAX package's ``upgrade/common_manager.py`` for the in-place path and
+the requestor mode. It holds the node managers (cordon, drain, pod,
+validation, safe load) and moves the nodes of each state's bucket one
+step. A bucket runs through the task runner with each node's error
+isolated; once the bucket is done its first error aborts the pass, and the
+next pass resumes from the node labels. The checkpoint and quarantine
+arcs and the tracing spans of the JAX module are not here; the state
+machine refuses what would need them (``state_manager.py``).
 """
 
 from __future__ import annotations
@@ -18,11 +18,19 @@ from dataclasses import dataclass, field
 from typing import Callable, Mapping, Optional, Sequence, TypeVar
 
 from ..api.upgrade_v1alpha1 import DrainSpec, PodDeletionSpec, WaitForCompletionSpec
-from ..kube.objects import DaemonSet, Node, Pod
+from ..kube.objects import DaemonSet, Node, NodeMaintenance, Pod
 from ..policy import BudgetView, UpgradePolicy, for_spec
 from ..utils.faultpoints import wall_now
 from ..utils.log import get_logger
-from .consts import IDLE_STATES, MANAGED_STATES, NULL_STRING, TRUE_STRING, UpgradeKeys, UpgradeState
+from .consts import (
+    IDLE_STATES,
+    MAINTENANCE_STATES,
+    MANAGED_STATES,
+    NULL_STRING,
+    TRUE_STRING,
+    UpgradeKeys,
+    UpgradeState,
+)
 from .cordon_manager import CordonManager
 from .drain_manager import DrainConfiguration, DrainManager
 from .pod_manager import PodManager, PodManagerConfig
@@ -42,12 +50,14 @@ FAILING_RESTART_COUNT = 10
 
 @dataclass
 class NodeUpgradeState:
-    """A node, the driver pod on it, and the DaemonSet that owns the pod
-    (None for an orphaned pod)."""
+    """A node, the driver pod on it, the DaemonSet that owns the pod (None
+    for an orphaned pod) and, in the requestor mode, the node's
+    NodeMaintenance object (None where there is none)."""
 
     node: Node
     driver_pod: Pod
     driver_daemonset: Optional[DaemonSet]
+    node_maintenance: Optional[NodeMaintenance] = None
 
     def is_orphaned_pod(self) -> bool:
         return self.driver_daemonset is None
@@ -71,6 +81,12 @@ class ClusterUpgradeState:
         if self.node_health is None:
             return None
         return self.node_health.get(node_name)
+
+    def sick_links_of(self, node_name: str) -> list:
+        """The node's sick links for its NodeMaintenance request: always
+        empty here, since ``node_health`` is (the link fold comes with the
+        telemetry, ROADMAP A13)."""
+        return []
 
 
 class CommonUpgradeManager:
@@ -97,10 +113,21 @@ class CommonUpgradeManager:
         self.apply_width = apply_width
         self.pod_deletion_enabled = False
         self.validation_enabled = False
+        #: Whether the budget counts the two maintenance states (managed
+        #: and in progress). Off, as in the JAX machine's default: the base
+        #: requestor mode reserves no budget for a node under external
+        #: maintenance. ``enable_requestor_mode`` turns it on with
+        #: ``use_post_maintenance``.
+        self.count_maintenance_states = False
 
     # -- counters and the budget -------------------------------------------
+    def _managed_states(self) -> tuple[UpgradeState, ...]:
+        if self.count_maintenance_states:
+            return MANAGED_STATES + MAINTENANCE_STATES
+        return MANAGED_STATES
+
     def get_total_managed_nodes(self, state: ClusterUpgradeState) -> int:
-        return sum(len(state.nodes_in(s)) for s in MANAGED_STATES)
+        return sum(len(state.nodes_in(s)) for s in self._managed_states())
 
     def get_upgrades_in_progress(self, state: ClusterUpgradeState) -> int:
         idle = sum(len(state.nodes_in(s)) for s in IDLE_STATES)
@@ -396,13 +423,18 @@ class CommonUpgradeManager:
 
     def update_node_to_uncordon_or_done_state(self, node_state: NodeUpgradeState) -> None:
         """Uncordon next, or done for a node that began its upgrade
-        cordoned; one PATCH retires the markers the upgrade leaves."""
+        cordoned; one PATCH retires the markers the upgrade leaves. A node
+        in the requestor mode always goes to uncordon, where the requestor
+        releases its NodeMaintenance, and drops the initial-state marker
+        (the maintenance operator's uncordon is the requestor's to ask)."""
         node = node_state.node
         annotations = {self.keys.checkpoint_escalated_annotation: NULL_STRING}
         new_state = UpgradeState.UNCORDON_REQUIRED
-        if self.keys.initial_state_annotation in node.annotations:
+        in_requestor_mode = self.is_node_in_requestor_mode(node)
+        if self.keys.initial_state_annotation in node.annotations and not in_requestor_mode:
             log.info("node %s was unschedulable at upgrade start, skipping uncordon", node.name)
             new_state = UpgradeState.DONE
+        if new_state == UpgradeState.DONE or in_requestor_mode:
             annotations[self.keys.initial_state_annotation] = NULL_STRING
         self.provider.change_node_state_and_annotations(node, new_state, annotations)
 

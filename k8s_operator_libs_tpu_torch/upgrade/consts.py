@@ -56,9 +56,9 @@ MANAGED_STATES: tuple[UpgradeState, ...] = (
     UpgradeState.QUARANTINED,
 )
 
-#: The external-maintenance states, outside the budget's count as in the
-#: JAX machine's default. The port's machine refuses a node in either
-#: (the requestor mode, ROADMAP A11).
+#: The external-maintenance states of the requestor mode, outside the
+#: budget's count by default; ``use_post_maintenance`` counts them
+#: (``CommonUpgradeManager.count_maintenance_states``).
 MAINTENANCE_STATES: tuple[UpgradeState, ...] = (
     UpgradeState.NODE_MAINTENANCE_REQUIRED,
     UpgradeState.POST_MAINTENANCE_REQUIRED,
@@ -145,6 +145,11 @@ class UpgradeKeys:
     def validation_start_annotation(self) -> str:
         """Durable clock of the validation timeout."""
         return self._key("upgrade-validation-start-time")
+
+    @property
+    def post_maintenance_start_annotation(self) -> str:
+        """Durable clock of the requestor mode's post-maintenance step."""
+        return self._key("upgrade-post-maintenance-start-time")
 
     @property
     def validation_failed_annotation(self) -> str:

@@ -22,11 +22,15 @@ log = get_logger("upgrade.inplace")
 
 class ProcessNodeStateManager(Protocol):
     """A mode strategy: the steps that differ between the in-place mode
-    and the requestor mode (ROADMAP A11)."""
+    and the requestor mode (``requestor.py``)."""
 
     def process_upgrade_required_nodes(
         self, state: ClusterUpgradeState, policy: DriverUpgradePolicySpec
     ) -> None: ...
+
+    def process_node_maintenance_required_nodes(self, state: ClusterUpgradeState) -> None: ...
+
+    def process_post_maintenance_required_nodes(self, state: ClusterUpgradeState) -> None: ...
 
     def process_uncordon_required_nodes(self, state: ClusterUpgradeState) -> None: ...
 
@@ -86,11 +90,21 @@ class InplaceNodeStateManager:
             common.provider.change_node_upgrade_state(node, UpgradeState.CORDON_REQUIRED)
             available -= 1
 
+    def process_node_maintenance_required_nodes(self, state: ClusterUpgradeState) -> None:
+        """Nothing: the in-place mode asks no maintenance operator."""
+
+    def process_post_maintenance_required_nodes(self, state: ClusterUpgradeState) -> None:
+        """Nothing, as the step before."""
+
     def process_uncordon_required_nodes(self, state: ClusterUpgradeState) -> None:
-        """Uncordon, and the node's upgrade is done."""
+        """Uncordon, and the node's upgrade is done. A node in the
+        requestor mode is skipped: the requestor releases its
+        NodeMaintenance first, and the maintenance operator uncordons."""
         common = self.common
 
         def release(ns) -> None:
+            if common.is_node_in_requestor_mode(ns.node):
+                return
             common.cordon_manager.uncordon(ns.node)
             common.provider.change_node_upgrade_state(ns.node, UpgradeState.DONE)
 

@@ -1,21 +1,26 @@
 """ClusterUpgradeStateManager: the rolling-upgrade state machine.
 
-The JAX package's ``upgrade/state_manager.py`` for the in-place path.
-``build_state`` takes a snapshot of the driver DaemonSets, their pods and
-the nodes; ``apply_state`` runs one stateless pass that moves each node at
-most one step, from ``upgrade-required`` through cordon, the wait for
-jobs, pod deletion, drain, the driver pod's restart and validation to
-``upgrade-done`` (or ``upgrade-failed``, from which a node recovers once
-its driver pod is back in sync). All state is on the nodes, as the JAX
-machine writes it, so either machine can carry on a roll the other began.
-An error aborts the pass; the next pass resumes from the node labels.
+The JAX package's ``upgrade/state_manager.py`` for the in-place path and
+the requestor mode. ``build_state`` takes a snapshot of the driver
+DaemonSets, their pods and the nodes (and, in the requestor mode, each
+node's NodeMaintenance object); ``apply_state`` runs one stateless pass
+that moves each node at most one step, from ``upgrade-required`` through
+cordon, the wait for jobs, pod deletion, drain, the driver pod's restart
+and validation to ``upgrade-done`` (or ``upgrade-failed``, from which a
+node recovers once its driver pod is back in sync). In the requestor mode
+(``requestor.enable_requestor_mode``) an external maintenance operator
+cordons and drains instead: the node goes from ``upgrade-required``
+through ``node-maintenance-required`` (and, with ``use_post_maintenance``,
+``post-maintenance-required``) to the driver pod's restart, and the
+requestor releases the object before the node is done. Nodes the in-place
+flow began finish in place. All state is on the nodes and the objects, as
+the JAX machine writes it, so either machine can carry on a roll the
+other began. An error aborts the pass; the next pass resumes from the
+node labels.
 
-What the JAX machine does beyond that path is refused with
+What the JAX machine does beyond that is refused with
 ``NotImplementedError`` naming its ROADMAP item, never skipped:
 
-* the requestor mode with NodeMaintenance objects (A11): ``requestor=``,
-  ``StateOptions.use_maintenance_operator``, a node in requestor mode or
-  labelled ``node-maintenance-required`` or ``post-maintenance-required``;
 * the checkpoint arc (A12): a policy with ``checkpoint.enable``, a node
   labelled ``checkpoint-required`` or carrying a checkpoint manifest;
 * the quarantine arc and the health telemetry it reads (A13): a policy
@@ -54,8 +59,6 @@ log = get_logger("upgrade.state_manager")
 
 #: Node states whose arcs the port's machine does not run, by ROADMAP item.
 _UNPORTED_STATES = {
-    UpgradeState.NODE_MAINTENANCE_REQUIRED: "A11",
-    UpgradeState.POST_MAINTENANCE_REQUIRED: "A11",
     UpgradeState.CHECKPOINT_REQUIRED: "A12",
     UpgradeState.QUARANTINED: "A13",
 }
@@ -73,10 +76,11 @@ class BuildStateError(Exception):
 
 @dataclass
 class StateOptions:
-    """The JAX machine's options. The port's machine takes
-    ``apply_width`` and refuses ``use_maintenance_operator`` (ROADMAP A11)
-    and ``batch_writes`` (A14)."""
+    """The JAX machine's options. The port's machine refuses
+    ``batch_writes`` (ROADMAP A14). The requestor's own settings are on
+    ``requestor.RequestorOptions``."""
 
+    #: Run the requestor strategy (where the manager has one).
     use_maintenance_operator: bool = False
     #: Nodes of a bucket worked on at once (1: one at a time; an inline
     #: runner is serial whatever this says).
@@ -89,7 +93,8 @@ class PassStats:
     """The API calls of one pass: ``build_state`` opens the record,
     ``apply_state`` completes it."""
 
-    #: Client reads of the snapshot.
+    #: Client reads of the snapshot, each node's NodeMaintenance GET in
+    #: the requestor mode included.
     reads_issued: int = 0
     #: State PATCHes sent, and those left out because the node already
     #: held the value.
@@ -110,8 +115,6 @@ class ClusterUpgradeStateManager:
         requestor: Optional[ProcessNodeStateManager] = None,
     ) -> None:
         self.options = options or StateOptions()
-        if requestor is not None or self.options.use_maintenance_operator:
-            raise not_ported("the requestor mode", "A11")
         if self.options.batch_writes:
             raise not_ported("write batching", "A14")
         self.keys = UpgradeKeys(device)
@@ -140,9 +143,9 @@ class ClusterUpgradeStateManager:
         self.snapshot_source: SnapshotSource = ClientSnapshotSource(client)
         self.last_pass_stats = PassStats()
         self.inplace: ProcessNodeStateManager = InplaceNodeStateManager(self.common)
-        #: Always None: the requestor mode is refused. The slice planner
-        #: reads and sets it.
-        self.requestor = None
+        #: The requestor strategy (``requestor.enable_requestor_mode``); it
+        #: runs while ``options.use_maintenance_operator`` is on.
+        self.requestor: Optional[ProcessNodeStateManager] = requestor
 
     # -- what the port's machine refuses -------------------------------------
     def enable_write_batching(self, max_batch: int = 64):
@@ -158,8 +161,6 @@ class ClusterUpgradeStateManager:
         item = _UNPORTED_STATES.get(bucket)
         if item is not None:
             raise not_ported(f"node {node.name} is in state {bucket}", item)
-        if self.common.is_node_in_requestor_mode(node):
-            raise not_ported(f"node {node.name} is in requestor mode", "A11")
         if self.keys.checkpoint_manifest_annotation in node.annotations:
             raise not_ported(f"node {node.name} carries a checkpoint manifest", "A12")
 
@@ -256,6 +257,8 @@ class ClusterUpgradeStateManager:
             reset()
         state = self._build_state_full(namespace, driver_labels, source)
         stats.reads_issued = source.consume_reads()
+        if self._requestor_active():  # one NodeMaintenance GET a node
+            stats.reads_issued += sum(len(b) for b in state.node_states.values())
         return state
 
     def _build_state_full(
@@ -294,10 +297,19 @@ class ClusterUpgradeStateManager:
         self, pod: Pod, ds: Optional[DaemonSet], node: Optional[Node] = None
     ) -> NodeUpgradeState:
         """``node`` comes from the snapshot's node LIST; a node it missed
-        (made since) is read by name."""
+        (made since) is read by name. In the requestor mode the node's
+        NodeMaintenance object is read by name too."""
         if node is None:
             node = self.provider.get_node(pod.node_name)
-        return NodeUpgradeState(node=node, driver_pod=pod, driver_daemonset=ds)
+        maintenance = None
+        if self._requestor_active():
+            maintenance = self.requestor.get_node_maintenance_obj(node.name)
+        return NodeUpgradeState(
+            node=node, driver_pod=pod, driver_daemonset=ds, node_maintenance=maintenance
+        )
+
+    def _requestor_active(self) -> bool:
+        return self.options.use_maintenance_operator and self.requestor is not None
 
     # -- the pass ------------------------------------------------------------
     def apply_state(
@@ -320,18 +332,42 @@ class ClusterUpgradeStateManager:
         try:
             common.process_done_or_unknown_nodes(state, UpgradeState.UNKNOWN)
             common.process_done_or_unknown_nodes(state, UpgradeState.DONE)
-            self.inplace.process_upgrade_required_nodes(state, policy)
+            self._process_upgrade_required_nodes(state, policy)
             common.process_cordon_required_nodes(state)
             common.process_wait_for_jobs_required_nodes(state, policy.wait_for_completion)
             drain_enabled = policy.drain is not None and policy.drain.enable
             common.process_pod_deletion_required_nodes(state, policy.pod_deletion, drain_enabled)
             common.process_drain_nodes(state, policy.drain)
+            self._process_node_maintenance_required_nodes(state)
+            self._process_post_maintenance_required_nodes(state)
             common.process_pod_restart_nodes(state)
             common.process_upgrade_failed_nodes(state)
             common.process_validation_required_nodes(state)
-            self.inplace.process_uncordon_required_nodes(state)
+            self._process_uncordon_required_nodes(state)
         finally:
             writes_after = self.provider.write_stats()
             stats.writes_issued = writes_after["issued"] - writes_before["issued"]
             stats.writes_skipped = writes_after["skipped"] - writes_before["skipped"]
         log.info("state manager finished processing")
+
+    # -- the mode's steps ----------------------------------------------------
+    def _process_upgrade_required_nodes(
+        self, state: ClusterUpgradeState, policy: DriverUpgradePolicySpec
+    ) -> None:
+        mode = self.requestor if self._requestor_active() else self.inplace
+        mode.process_upgrade_required_nodes(state, policy)
+
+    def _process_node_maintenance_required_nodes(self, state: ClusterUpgradeState) -> None:
+        if self._requestor_active():
+            self.requestor.process_node_maintenance_required_nodes(state)
+
+    def _process_post_maintenance_required_nodes(self, state: ClusterUpgradeState) -> None:
+        if self._requestor_active():
+            self.requestor.process_post_maintenance_required_nodes(state)
+
+    def _process_uncordon_required_nodes(self, state: ClusterUpgradeState) -> None:
+        """Both flows: the in-place one finishes the nodes it began after
+        the requestor mode is enabled."""
+        self.inplace.process_uncordon_required_nodes(state)
+        if self._requestor_active():
+            self.requestor.process_uncordon_required_nodes(state)

@@ -15,7 +15,9 @@ rolled by the JAX package's state machine and by the port's; the
 monitor's cycle drives that cluster too. Their control plane imports no
 JAX either (``tests/test_torch_roll.py``). The slice gang runs as one pod on
 every card (``-k gang``) and, with two or more cards, as two pods on half
-the cards each (``-k between_cards``).
+the cards each (``-k between_cards``). The requestor roll (``-k
+requestor``) runs the post-maintenance warm-up hook on the card in this
+process.
 """
 
 import json
@@ -460,6 +462,67 @@ def _roll_one_node_on_the_card(tmp_path, machine):
         "flash_attention", "matmul",
     ]
     assert not roll.cluster.list("Pod", namespace=NS, label_selector=spec.pod_selector)
+
+
+def test_requestor_roll_with_the_warmup_hook_on_the_card(cuda, tmp_path):
+    """One GPU node rolled by the port's machine in the requestor mode: the
+    maintenance operator's stand-in cordons and drains it, the
+    post-maintenance hook runs the gate on the card in this process (both
+    kernels launched), the probe pod's payload validates it, and the
+    operator's finalizer uncordons it once the requestor released its
+    NodeMaintenance."""
+    from test_torch_roll import NS, GpuRoll
+
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
+    from k8s_operator_libs_tpu_torch.kube.sim import MaintenanceOperatorSimulator
+    from k8s_operator_libs_tpu_torch.ops._build import KERNEL_DIR_ENV
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.tpu.health import cache_warmup_hook
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import ValidationPodSpec
+    from k8s_operator_libs_tpu_torch.upgrade import RequestorOptions, enable_requestor_mode
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    env[KERNEL_DIR_ENV] = str(tmp_path / "kernel-cache")
+    spec = ValidationPodSpec(tpu_chips=torch.cuda.device_count())
+    gate = IciHealthGate.tpu_defaults(device=cuda, matmul_size=256)
+    warmup = cache_warmup_hook(gate)
+    calls = []
+
+    def hook(node):
+        before = (matmul.launches, flash_attention.launches)
+        done = warmup(node)
+        calls.append((node.name, Node(node.raw).unschedulable,
+                      matmul.launches - before[0], flash_attention.launches - before[1]))
+        return done
+
+    try:
+        with GpuRoll(spec, {"gpu-0": local_gpu_labels()}, tmp_path, env=env,
+                     extra_args=[], payload_timeout_s=600.0, machine="port") as roll:
+            enable_requestor_mode(roll.mgr, RequestorOptions(
+                use_maintenance_operator=True, use_post_maintenance=True, namespace=NS,
+                post_maintenance_hook=hook,
+            ))
+            operator = MaintenanceOperatorSimulator(roll.cluster, namespace=NS)
+            seen = set()
+
+            def finished(r) -> bool:
+                operator.step()
+                seen.update(s for s in r.states().values() if s)
+                return (GpuRoll.all_done(r) and not r.node("gpu-0").unschedulable
+                        and not r.cluster.list("NodeMaintenance", namespace=NS))
+
+            done = roll.drive(finished, 600.0)
+            states = roll.states()
+            kernels = roll.kernel_line("gpu-0")
+    finally:
+        gate.close()
+    assert done, states
+    assert {"node-maintenance-required", "post-maintenance-required", "upgrade-done"} <= seen
+    ((name, cordoned, k1, k2),) = calls
+    assert name == "gpu-0" and cordoned and k1 > 0 and k2 > 0
+    assert kernels["launches"]["matmul"] > 0 and kernels["launches"]["flash_attention"] > 0
 
 
 # ----------------------------------------------------------------------

@@ -455,6 +455,8 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.upgrade.validation_manager\n"
         "import k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1\n"
         "import k8s_operator_libs_tpu_torch.kube.drain\n"
+        "import k8s_operator_libs_tpu_torch.kube.sim\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.requestor\n"
         "import k8s_operator_libs_tpu_torch.utils.intstr\n"
         "import k8s_operator_libs_tpu_torch.utils.sync\n"
         "import k8s_operator_libs_tpu_torch.utils.faultpoints\n"

@@ -9,9 +9,10 @@ the port's planner. The disruption windows must be the same. The twins of
 planner's guarantees on the GPU pool: the budget counts slices, a wounded
 slice rolls first, a slice cordons together, a crash mid-slice resumes
 without a second window, requestor CRs align to slices whichever mode is
-enabled first. A GPU pool without cliques rolls node by node. The port's
-own ``ClusterUpgradeStateManager`` under the port's planner opens the same
-windows, pass by pass, as the JAX machine under it.
+enabled first, on the JAX machine and on the port's. A GPU pool without
+cliques rolls node by node. The port's own ``ClusterUpgradeStateManager``
+under the port's planner opens the same windows, pass by pass, as the JAX
+machine under it.
 """
 
 from __future__ import annotations
@@ -53,6 +54,9 @@ from k8s_operator_libs_tpu_torch.tpu.monitor import ICI_HEALTHY_CONDITION
 from k8s_operator_libs_tpu_torch.upgrade import ClusterUpgradeStateManager as PortManager
 from k8s_operator_libs_tpu_torch.upgrade import DeviceClass as PortDeviceClass
 from k8s_operator_libs_tpu_torch.upgrade import TaskRunner as PortTaskRunner
+from k8s_operator_libs_tpu_torch.upgrade import RequestorOptions as PortRequestorOptions
+from k8s_operator_libs_tpu_torch.upgrade import enable_requestor_mode as port_enable_requestor_mode
+from k8s_operator_libs_tpu_torch.kube.sim import MaintenanceOperatorSimulator as PortMaintenanceOperator
 from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import (
     DriverUpgradePolicySpec as PortPolicy,
 )
@@ -366,21 +370,31 @@ def test_gpu_pool_without_cliques_rolls_node_by_node():
     assert all(count == 1 for count in stats.per_slice.values())
 
 
-def _requestor_roll(slice_aware_first: bool, wound=None):
-    pool = Pool("gpu")
+def _requestor_roll(slice_aware_first: bool, wound=None, machine: str = "jax"):
+    """A requestor-mode roll under the port's planner, on the JAX machine
+    (its requestor and simulator) or on the port's (the port's)."""
+    pool = Pool("gpu", machine=machine)
     if wound:
         pool.wound(wound)
-    opts = RequestorOptions(
-        use_maintenance_operator=True, requestor_id="gpu.operator.dev", namespace=NS,
-    )
+    if machine == "port":
+        opts = PortRequestorOptions(
+            use_maintenance_operator=True, requestor_id="gpu.operator.dev", namespace=NS,
+        )
+        enable = port_enable_requestor_mode
+        operator = PortMaintenanceOperator(pool.cluster, namespace=NS)
+    else:
+        opts = RequestorOptions(
+            use_maintenance_operator=True, requestor_id="gpu.operator.dev", namespace=NS,
+        )
+        enable = enable_requestor_mode
+        operator = MaintenanceOperatorSimulator(pool.cluster, namespace=NS)
     if slice_aware_first:
         pool.enable_planner()
-        enable_requestor_mode(pool.mgr, opts)
+        enable(pool.mgr, opts)
     else:
-        enable_requestor_mode(pool.mgr, opts)
+        enable(pool.mgr, opts)
         pool.enable_planner()
     assert isinstance(pool.mgr.requestor, port.SliceAwareRequestorManager)
-    operator = MaintenanceOperatorSimulator(pool.cluster, namespace=NS)
     cr_first_pass: dict[str, int] = {}
     live_slices = []
     pass_no = [0]
@@ -400,11 +414,12 @@ def _requestor_roll(slice_aware_first: bool, wound=None):
     return pool, cr_first_pass, live_slices, samples
 
 
+@pytest.mark.parametrize("machine", ["jax", "port"])
 @pytest.mark.parametrize(
     "slice_aware_first", [True, False], ids=["planner-first", "requestor-first"]
 )
-def test_requestor_crs_align_to_slices_whatever_the_enable_order(slice_aware_first):
-    pool, cr_first_pass, live_slices, samples = _requestor_roll(slice_aware_first)
+def test_requestor_crs_align_to_slices_whatever_the_enable_order(slice_aware_first, machine):
+    pool, cr_first_pass, live_slices, samples = _requestor_roll(slice_aware_first, machine=machine)
     assert len(cr_first_pass) == sum(SLICE_SIZES)
     for s, hosts in enumerate(SLICE_SIZES):
         assert len({cr_first_pass[f"s{s}-h{h}"] for h in range(hosts)}) == 1, s
@@ -413,8 +428,9 @@ def test_requestor_crs_align_to_slices_whatever_the_enable_order(slice_aware_fir
     assert pool.cluster.list("NodeMaintenance", namespace=NS) == []
 
 
-def test_wounded_slice_requests_maintenance_first():
-    _, cr_first_pass, _, _ = _requestor_roll(False, wound="s1-h2")
+@pytest.mark.parametrize("machine", ["jax", "port"])
+def test_wounded_slice_requests_maintenance_first(machine):
+    _, cr_first_pass, _, _ = _requestor_roll(False, wound="s1-h2", machine=machine)
     first = {
         s: min(cr_first_pass[f"s{s}-h{h}"] for h in range(hosts))
         for s, hosts in enumerate(SLICE_SIZES)

@@ -16,7 +16,9 @@ failed, pending, total, and the upgrades available).
 
 The handoff tests run one machine for the first passes of a roll on B and
 the other for the rest, against a JAX-only roll on A. The refusal tests
-pin each arc the port's machine does not run to its ROADMAP item.
+pin each arc the port's machine does not run to its ROADMAP item; the
+requestor mode runs, held to the JAX machine's in
+``tests/test_torch_requestor.py``.
 """
 
 from __future__ import annotations
@@ -477,11 +479,9 @@ def _manager(cluster, **kwargs):
 @pytest.mark.parametrize(
     "kwargs, item",
     [
-        ({"requestor": object()}, "A11"),
-        ({"options": StateOptions(use_maintenance_operator=True)}, "A11"),
         ({"options": StateOptions(batch_writes=True)}, "A14"),
     ],
-    ids=["requestor", "use_maintenance_operator", "batch_writes"],
+    ids=["batch_writes"],
 )
 def test_unported_options_are_refused(pool, kwargs, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
@@ -506,15 +506,9 @@ def test_unported_wirings_are_refused(pool, method, item):
     [
         ({KEYS.state_label: "checkpoint-required"}, {}, "A12"),
         ({KEYS.state_label: "quarantined"}, {}, "A13"),
-        ({KEYS.state_label: "node-maintenance-required"}, {}, "A11"),
-        ({KEYS.state_label: "post-maintenance-required"}, {}, "A11"),
-        ({}, {KEYS.requestor_mode_annotation: "true"}, "A11"),
         ({}, {KEYS.checkpoint_manifest_annotation: "{}"}, "A12"),
     ],
-    ids=[
-        "checkpoint-required", "quarantined", "node-maintenance-required",
-        "post-maintenance-required", "requestor-mode", "checkpoint-manifest",
-    ],
+    ids=["checkpoint-required", "quarantined", "checkpoint-manifest"],
 )
 def test_nodes_on_unported_arcs_are_refused(pool, labels, annotations, item):
     pool.patch("Node", node_name(1), patch={"metadata": {"labels": labels, "annotations": annotations}})

@@ -8,8 +8,8 @@ cases of one parametrised test. Each runs on the port's machine over the
 JAX package's in-memory cluster, so it is held to the JAX spec it
 transcribes; ``tests/test_torch_state_manager.py`` holds the two machines
 to each other pass by pass. The requestor spec of the parity file
-(``TestDualModeCoexistence``) has no counterpart: the port's machine
-refuses the requestor mode (``tests/test_torch_state_manager.py``).
+(``TestDualModeCoexistence``) is the last case here; the requestor mode's
+own specs run against the JAX machine in ``tests/test_torch_requestor.py``.
 """
 
 from __future__ import annotations
@@ -24,9 +24,11 @@ from k8s_operator_libs_tpu_torch.upgrade import (
     BuildStateError,
     ClusterUpgradeStateManager,
     DeviceClass,
+    RequestorOptions,
     TaskRunner,
     UpgradeKeys,
     UpgradeState,
+    enable_requestor_mode,
 )
 
 KEYS = UpgradeKeys(DeviceClass.nvidia("gpu"))
@@ -708,3 +710,23 @@ def test_counters():
     assert mgr.get_upgrades_done(state) == 1
     assert mgr.get_upgrades_failed(state) == 1
     assert mgr.get_upgrades_pending(state) == 1
+
+
+def test_inplace_node_mid_flight_continues_under_requestor_mode():
+    """test_state_machine_parity.py::TestDualModeCoexistence::
+    test_inplace_node_mid_flight_continues_under_requestor_mode: enabling
+    the requestor mode strands no node the in-place flow already began."""
+    cluster, sim, mgr = make_harness(node_states=["cordon-required"])
+    enable_requestor_mode(
+        mgr,
+        RequestorOptions(
+            use_maintenance_operator=True, requestor_id="tpu.operator.dev",
+            namespace="maintenance-ns",
+        ),
+    )
+    one_pass(mgr, policy())
+    # The common cordon step still ran for the node in flight...
+    assert state_of(cluster) == "wait-for-jobs-required"
+    assert cluster.get("Node", "node-0").unschedulable
+    # ...and no NodeMaintenance object was made for it.
+    assert cluster.list("NodeMaintenance") == []

@@ -128,7 +128,31 @@ Phases, in order; any failure raises and the script exits non-zero:
     node's states with the pass and second each began, each hook call's
     seconds and launches, each probe pod's seconds to Ready, report and
     launches, and each pass's NodeMaintenance reasons;
-14. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
+14. checkpoint_roll phase (the checkpoint arc): two more nodes rolled the
+    same way in place under ``CHECKPOINT_POLICY`` (the roll's policy with
+    ``checkpoint`` on ``app=trainer``), validated by probe pods on the
+    roll phase's kernel caches. The port's ``CheckpointingWorkloadSimulator``
+    keeps one training pod a node, ticked once a pass, and each pod is
+    backed by ``Trainer``: the flagship model (``entry.ENTRY_CFG``) on the
+    card, trained for real up to the simulator's step, saved with
+    ``torch.save`` at each ack and loaded with ``torch.load`` at each
+    restore. After the roll the jobs tick until each is back past the step
+    it stopped at. Every node must end ``upgrade-done`` and uncordoned,
+    having passed ``checkpoint-required``, ``drain-required`` and
+    ``validation-required`` in that order, its drain event
+    checkpoint-coordinated, its manifest written and then retired; the
+    checkpoint totals 2 completions, 2 restores verified, no escalation;
+    the steps the trainer trained again must equal the simulator's lost
+    steps, below its total; each restore's parameters must be
+    ``torch.equal`` to those saved and its first loss (a forward pass on
+    the next step's batch) equal to the loss recorded there before the
+    eviction; each probe pod must launch the gate's counts without
+    ``nvcc``, the controller none. ``{"checkpoint_roll": ...}`` gives the
+    passes, the wall seconds, each node's states with the pass and second
+    each began, each pass's checkpoint ``PassStats``, each probe pod's
+    seconds to Ready and launches, the trainer's ms a step and save and
+    load seconds, each restore, and the lost, total and restarted steps;
+15. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
     from the card, against a dict-backed client (``DictClient``: Node,
     Pod, Event, NodeHealthReport), its gate the port's
     ``SubprocessHealthGate`` at ``tpu_defaults()``, so each cycle is the
@@ -143,7 +167,7 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``run_quick_probe_loop(once=True)``, forms a world of every card and
     publishes a report. ``{"monitor": ...}`` gives each cycle's wall seconds
     (the child included) and the payload's launches;
-15. gang phase: the payload as a slice gang pod, a child process with
+16. gang phase: the payload as a slice gang pod, a child process with
     ``--coordinator 127.0.0.1:<free port> --num-processes 1 --process-id 0
     --publish-report`` (``NODE_NAME`` set, the kubeconfig pointing at
     ``ApiStub``, an HTTP front of the same kind of dict-backed client). Its
@@ -161,8 +185,9 @@ Phases, in order; any failure raises and the script exits non-zero:
 The last lines are the kernel table as one JSON object (each row with the
 launches of the gate, the burn-in forward, the flagship MoE flash
 forward, the probe pod, the roll's probe pods together, the requestor
-roll's hook calls together and its probe pods together, the monitor's
-payload and the gang's payload),
+roll's hook calls together and its probe pods together, the checkpoint
+roll's probe pods together, the monitor's payload and the gang's
+payload),
 the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
 or run from a directory that holds only this file, it exits non-zero and
@@ -183,6 +208,7 @@ import tempfile
 import threading
 import time
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+from typing import Optional
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 
@@ -254,6 +280,30 @@ ROLL_PASS_INTERVAL_S = 0.2
 #: objects.
 REQUESTOR_NODES = ("gpu-req-0", "gpu-req-1")
 MAINTENANCE_NS = "nvidia-maintenance-operator"
+#: The checkpoint roll's nodes, the namespace of its training pods, its
+#: policy (the roll's, with the checkpoint arc on the training pods) and
+#: the seed of its trainers' parameters and batches.
+CHECKPOINT_NODES = ("gpu-ckpt-0", "gpu-ckpt-1")
+TRAINING_NS = "training"
+CHECKPOINT_POLICY = {
+    **ROLL_POLICY,
+    "checkpoint": {"enable": True, "podSelector": "app=trainer", "timeoutSeconds": 300},
+}
+TRAINER_SEED = 1017
+#: Workload ticks after the roll for the evicted jobs to come back and
+#: train past the step they stopped at.
+CATCH_UP_TICKS = 20
+#: The checkpoint fields of ``PassStats`` read after each pass.
+CHECKPOINT_STATS = (
+    "checkpoint_nodes_waiting",
+    "checkpoint_requests_issued",
+    "checkpoint_completions",
+    "checkpoint_escalations",
+    "checkpoint_escalations_total",
+    "checkpoints_completed_total",
+    "checkpoint_restores_verified_total",
+    "checkpoint_restore_escalations_total",
+)
 GANG_NODES = ("gang-node-0", "gang-node-1")
 
 
@@ -1641,10 +1691,10 @@ def roll_pool(client, nodes):
 
 
 def drive_roll(label: str, client, mgr, installer, kubelet, before_apply=None,
-               after_apply=None) -> dict:
+               after_apply=None, policy: dict = ROLL_POLICY) -> dict:
     """Bump the driver to the new version, set every launch count to 0,
     then passes (the kubelet's tick, ``before_apply()``, one pass of
-    ``mgr``, ``after_apply()``) until every node reads ``upgrade-done``
+    ``mgr`` under ``policy``, ``after_apply()``) until every node reads ``upgrade-done``
     uncordoned and ``after_apply()`` (if given) returned True. A node in
     ``upgrade-failed``, or none changing state for ``ROLL_STALL_S``, fails
     the phase. The passes, wall seconds, build_state retries and each
@@ -1654,7 +1704,7 @@ def drive_roll(label: str, client, mgr, installer, kubelet, before_apply=None,
     from k8s_operator_libs_tpu_torch.upgrade import BuildStateError, DeviceClass, UpgradeKeys
 
     keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
-    policy = DriverUpgradePolicySpec.from_dict(ROLL_POLICY)
+    policy = DriverUpgradePolicySpec.from_dict(policy)
     trajectories: dict[str, list] = {name: [] for name in kubelet.nodes}
     retries = passes = 0
     kubelet.tick()  # every driver pod at the old version
@@ -1695,9 +1745,9 @@ def drive_roll(label: str, client, mgr, installer, kubelet, before_apply=None,
         time.sleep(ROLL_PASS_INTERVAL_S)
 
 
-def check_rolled_pods(label: str, client, installer, nodes, runs: dict) -> list:
-    """Each node's probe pod ran; no workload pod is left and every driver
-    pod is Ready at the new version. The pods left."""
+def check_rolled_pods(label: str, client, installer, nodes, runs: dict, others=()) -> list:
+    """Each node's probe pod ran; no workload pod is left but ``others``
+    and every driver pod is Ready at the new version. The pods left."""
     from k8s_operator_libs_tpu_torch.kube.objects import Pod
 
     if sorted(run["node"] for run in runs.values()) != sorted(nodes):
@@ -1706,7 +1756,7 @@ def check_rolled_pods(label: str, client, installer, nodes, runs: dict) -> list:
     if any(name.startswith("train-") for name in pods):
         raise AssertionError(f"{label}: the drain left workload pods: {pods}")
     driver = {installer.name + "-" + n for n in nodes}
-    if set(pods) != driver:
+    if set(pods) != driver | set(others):
         raise AssertionError(f"{label}: pods after the roll: {pods}")
     for name in driver:
         pod = Pod(client.get("Pod", name, installer.spec.namespace).raw)
@@ -1885,6 +1935,375 @@ def requestor_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dic
     return result
 
 
+class TrainingJob:
+    """One training pod's model, as ``Trainer`` keeps it."""
+
+    def __init__(self, pod: str, seed: int) -> None:
+        self.pod = pod
+        self.seed = seed
+        self.params = None
+        #: The step the parameters are at, and the highest ever trained.
+        self.step = 0
+        self.high_water = 0
+        self.restarts = 0
+        #: The last ack acted on: (epoch, step).
+        self.ack: Optional[tuple] = None
+        #: Each step's loss (the train step's, before its update), first time.
+        self.losses: dict[int, float] = {}
+        #: Step -> a CPU copy of the parameters saved there (step 0: made
+        #: from the seed), and the loss of a forward pass at them on the
+        #: next step's batch.
+        self.saved: dict[int, list] = {}
+        self.saved_forward_loss: dict[int, float] = {}
+        self.retrained = 0
+        #: Steps trained again whose loss differs from the first time's.
+        self.replay_loss_diffs: list = []
+
+
+class Trainer:
+    """The training job behind each pod of a ``CheckpointingWorkloadSimulator``
+    on ``nodes``: the burn-in model (``models/burnin.py``) at ``cfg`` on
+    ``device``, trained for real up to the simulator's step for the pod
+    (``sync``, after each of the simulator's ticks). Step ``s`` trains on
+    the batch of seed ``job.seed + s``, so a step trained again sees the
+    same data. A pod's new ack saves its parameters at the acked step
+    (``torch.save`` under ``directory``); a pod made again from
+    ``base_step`` b loads the step-b file (b = 0: made again from the
+    seed). Each restore holds the loaded parameters against the saved ones
+    (``torch.equal``) and the first loss after it, a forward pass on the
+    batch of step b + 1, against the loss recorded at that step before the
+    eviction (the train step's, and the forward pass's at the save)."""
+
+    def __init__(self, client, workload, keys, cfg, device: str, seed: int, directory: str,
+                 nodes) -> None:
+        self.client = client
+        self.workload = workload
+        self.keys = keys
+        self.cfg = cfg
+        self.device = device
+        self.directory = directory
+        os.makedirs(directory, exist_ok=True)
+        self.jobs = {
+            node: TrainingJob(pod=workload.workload(node).pod_name, seed=seed + 1000 * i)
+            for i, node in enumerate(nodes)
+        }
+        self.step_ms: list[float] = []
+        self.save_s: list[float] = []
+        self.load_s: list[float] = []
+        self.restores: list[dict] = []
+
+    def _batch(self, job: TrainingJob, step: int) -> dict:
+        import torch
+
+        from k8s_operator_libs_tpu_torch.models.burnin import synthetic_batch
+
+        return synthetic_batch(torch.Generator().manual_seed(job.seed + step), self.cfg,
+                               self.device)
+
+    def _forward_loss(self, job: TrainingJob, params, step: int) -> float:
+        import torch
+
+        from k8s_operator_libs_tpu_torch.models.burnin import loss_fn
+
+        with torch.no_grad():
+            return loss_fn(params, self._batch(job, step), self.cfg).item()
+
+    def _init(self, job: TrainingJob):
+        import torch
+
+        from k8s_operator_libs_tpu_torch.models.burnin import init_params
+
+        return init_params(torch.Generator().manual_seed(job.seed), self.cfg, self.device)
+
+    @staticmethod
+    def _cpu_leaves(params) -> list:
+        from k8s_operator_libs_tpu_torch.models.burnin import _leaves
+
+        return [t.detach().to("cpu", copy=True) for t in _leaves(params)]
+
+    def _ack(self, pod: str) -> Optional[tuple]:
+        from k8s_operator_libs_tpu_torch.kube.client import get_or_none
+
+        obj = get_or_none(self.client, "Pod", pod, self.workload.namespace)
+        if obj is None:
+            return None
+        annotations = obj.raw["metadata"].get("annotations") or {}
+        epoch = annotations.get(self.keys.checkpoint_complete_annotation)
+        if not epoch:
+            return None
+        return epoch, int(annotations[self.keys.checkpoint_step_annotation])
+
+    def sync(self) -> None:
+        for node, job in self.jobs.items():
+            w = self.workload.workload(node)
+            if w.restarts != job.restarts:  # evicted; maybe made again since
+                job.restarts = w.restarts
+                job.params = None
+            if not w.running:
+                continue
+            if job.params is None:
+                self._start(job, w.base_step)
+            ack = self._ack(job.pod)
+            if ack is not None and ack != job.ack:
+                job.ack = ack
+                self._train_to(job, ack[1])
+                self._save(job)
+            self._train_to(job, w.step)
+
+    def _start(self, job: TrainingJob, base: int) -> None:
+        """The first start from the seed, or a restore from step ``base``."""
+        import torch
+
+        if job.high_water == 0 and not job.saved:
+            job.params = self._init(job)
+            job.saved[0] = self._cpu_leaves(job.params)
+            job.saved_forward_loss[0] = self._forward_loss(job, job.params, 1)
+            return
+        load_s = None
+        if base == 0:
+            params = self._init(job)
+        else:
+            start = time.perf_counter()
+            params = torch.load(self._path(job, base), map_location=self.device)
+            if self.device == "cuda":
+                torch.cuda.synchronize()
+            load_s = time.perf_counter() - start
+            self.load_s.append(load_s)
+        loaded = self._cpu_leaves(params)
+        equal = all(torch.equal(a, b) for a, b in zip(loaded, job.saved[base], strict=True))
+        first = self._forward_loss(job, params, base + 1)
+        before = job.losses.get(base + 1)
+        self.restores.append({
+            "pod": job.pod,
+            "restored_step": base,
+            "stopped_at": job.step,
+            "load_s": load_s,
+            "params_equal": equal,
+            "first_loss": first,
+            "loss_at_save": job.saved_forward_loss[base],
+            "loss_before_eviction": before,
+            "first_minus_at_save": first - job.saved_forward_loss[base],
+            "first_minus_before_eviction": None if before is None else first - before,
+        })
+        job.params = params
+        job.step = base
+
+    def _path(self, job: TrainingJob, step: int) -> str:
+        return os.path.join(self.directory, f"{job.pod}-step{step}.pt")
+
+    def _save(self, job: TrainingJob) -> None:
+        import torch
+
+        start = time.perf_counter()
+        torch.save(job.params, self._path(job, job.step))
+        self.save_s.append(time.perf_counter() - start)
+        job.saved[job.step] = self._cpu_leaves(job.params)
+        job.saved_forward_loss[job.step] = self._forward_loss(job, job.params, job.step + 1)
+
+    def _train_to(self, job: TrainingJob, target: int) -> None:
+        from k8s_operator_libs_tpu_torch.models.burnin import train_step
+
+        while job.step < target:
+            batch = self._batch(job, job.step + 1)
+            start = time.perf_counter()
+            job.params, loss = train_step(job.params, batch, self.cfg)
+            loss = loss.item()  # waits for the step
+            self.step_ms.append((time.perf_counter() - start) * 1e3)
+            job.step += 1
+            if job.step <= job.high_water:
+                job.retrained += 1
+                if loss != job.losses[job.step]:
+                    job.replay_loss_diffs.append([job.step, loss - job.losses[job.step]])
+            else:
+                job.high_water = job.step
+                job.losses[job.step] = loss
+
+    def retrained(self) -> int:
+        return sum(job.retrained for job in self.jobs.values())
+
+    def caught_up(self) -> bool:
+        """Every job running again and past the step it stopped at."""
+        return all(
+            self.workload.workload(node).running and job.params is not None
+            and job.step >= job.high_water
+            for node, job in self.jobs.items()
+        )
+
+
+class EventLog:
+    """A recorder that keeps each event's object name, type and message."""
+
+    def __init__(self) -> None:
+        self.events: list[tuple] = []
+
+    def eventf(self, obj, event_type, reason, fmt, *args) -> None:
+        self.events.append((obj.name, event_type, fmt % args if args else fmt))
+
+
+def checkpoint_roll(client, mgr, installer, kubelet, workload, trainer) -> dict:
+    """Roll under ``CHECKPOINT_POLICY``, the simulator ticked and the
+    trainer synced once a pass, each pass's checkpoint stats and whether
+    each node holds a manifest read after it; then tick until every
+    evicted job is back and past the step it stopped at."""
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
+
+    pass_stats: list[dict] = []
+    manifests: list[dict] = []
+
+    def before_apply() -> None:
+        workload.step()
+        trainer.sync()
+
+    def after_apply() -> bool:
+        stats = mgr.last_pass_stats
+        pass_stats.append({f: getattr(stats, f) for f in CHECKPOINT_STATS})
+        manifests.append({
+            n.name: mgr.keys.checkpoint_manifest_annotation in Node(n.raw).annotations
+            for n in client.list("Node")
+        })
+        return True
+
+    run = drive_roll("checkpoint_roll", client, mgr, installer, kubelet,
+                     before_apply=before_apply, after_apply=after_apply,
+                     policy=CHECKPOINT_POLICY)
+    ticks = 0
+    while not trainer.caught_up():
+        if ticks == CATCH_UP_TICKS:
+            raise AssertionError(f"checkpoint_roll: the jobs did not come back in "
+                                 f"{CATCH_UP_TICKS} ticks: {trainer.restores}")
+        workload.step()
+        trainer.sync()
+        ticks += 1
+    return {**run, "catch_up_ticks": ticks, "pass_stats": pass_stats,
+            "manifests_by_pass": manifests}
+
+
+def check_checkpoint_roll(run: dict, nodes, mgr, workload, trainer, events) -> dict:
+    """The arc on every node (``checkpoint-required``, then
+    ``drain-required``, then ``validation-required``; a coordinated drain;
+    the manifest written, then retired; each checkpoint verified, none
+    escalated) and the trainer's account (its steps trained again are the
+    simulator's lost steps, below its total; each restore equal to its
+    save). The summary."""
+    label = "checkpoint_roll"
+    for name in nodes:
+        states = [step[1] for step in run["trajectories"][name]]
+        wanted = ("checkpoint-required", "drain-required", "validation-required", "upgrade-done")
+        missing = [w for w in wanted if w not in states]
+        order = [states.index(w) for w in wanted if w in states]
+        if missing or order != sorted(order):
+            raise AssertionError(f"{label}: {name} went {states}")
+        drains = [m for n, _, m in events if n == name and m.startswith("Scheduling")]
+        if drains != ["Scheduling checkpoint-coordinated drain of the node"]:
+            raise AssertionError(f"{label}: {name}'s drain events {drains}")
+        held = [m[name] for m in run["manifests_by_pass"]]
+        if not any(held) or held[-1]:
+            raise AssertionError(f"{label}: {name}'s manifest by pass {held}")
+    totals = mgr.common.checkpoint_manager.totals()
+    if (totals["restores_verified"] != len(nodes) or totals["completions"] != len(nodes)
+            or totals["escalations"] or totals["restore_escalations"]):
+        raise AssertionError(f"{label}: checkpoint totals {totals}")
+    steps = {"lost_steps": workload.lost_steps(), "total_steps": workload.total_steps(),
+             "restarts": workload.restarts(), "retrained_steps": trainer.retrained()}
+    if steps["retrained_steps"] != steps["lost_steps"] or not (
+            steps["lost_steps"] < steps["total_steps"]):
+        raise AssertionError(f"{label}: steps {steps}")
+    if len(trainer.restores) != steps["restarts"] or steps["restarts"] != len(nodes):
+        raise AssertionError(f"{label}: restores {trainer.restores}, steps {steps}")
+    for restore in trainer.restores:
+        if not restore["params_equal"] or restore["first_loss"] != restore["loss_at_save"] or (
+                restore["loss_before_eviction"] is not None
+                and restore["first_loss"] != restore["loss_before_eviction"]):
+            raise AssertionError(f"{label}: a restore differs from its save: {restore}")
+    summed = {f: sum(s[f] for s in run["pass_stats"]) for f in CHECKPOINT_STATS[:4]}
+    lifetime = {f: run["pass_stats"][-1][f] for f in CHECKPOINT_STATS[4:]}
+    return {**steps, "totals": totals, "pass_stats_summed": summed,
+            "pass_stats_lifetime": lifetime}
+
+
+def checkpoint_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+    """Two more GPU nodes rolled from driver 550 to 560 by the port's machine
+    with the checkpoint arc: a training pod a node (the port's
+    ``CheckpointingWorkloadSimulator``, ticked once a pass), each backed
+    by a real trainer of the flagship model on the card, checkpointed
+    before its node's drain and restored after; each node's probe pod
+    validates it on a roll-phase node's kernel cache."""
+    import torch
+
+    from k8s_operator_libs_tpu_torch.entry import ENTRY_CFG
+    from k8s_operator_libs_tpu_torch.kube.sim import CheckpointingWorkloadSimulator
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
+        ValidationPodManager,
+        ValidationPodSpec,
+    )
+    from k8s_operator_libs_tpu_torch.upgrade import ClusterUpgradeStateManager, DeviceClass
+
+    client = DictClient()
+    installer = roll_pool(client, CHECKPOINT_NODES)
+    recorder = EventLog()
+    mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"), recorder=recorder)
+    mgr.with_validation_enabled(
+        pod_provisioner=ValidationPodManager(client, ValidationPodSpec())
+    )
+    workload = CheckpointingWorkloadSimulator(client, mgr.keys, namespace=TRAINING_NS,
+                                              name="trainer")
+    caches = {c: os.path.join(cache_root, r) for c, r in zip(CHECKPOINT_NODES, ROLL_NODES)}
+    print(f"checkpoint_roll: each node's probe pod takes the kernel cache of "
+          f"{json.dumps(dict(zip(CHECKPOINT_NODES, ROLL_NODES)))} from the roll phase, "
+          "so its payload skips nvcc", flush=True)
+    with tempfile.TemporaryDirectory(prefix="checkpoint-roll-") as workdir:
+        trainer = Trainer(client, workload, mgr.keys, ENTRY_CFG, "cuda", TRAINER_SEED,
+                          os.path.join(workdir, "checkpoints"), CHECKPOINT_NODES)
+        kubelet = RollKubelet(client, installer, CHECKPOINT_NODES, workdir, gate_launches, caches)
+        try:
+            run = checkpoint_roll(client, mgr, installer, kubelet, workload, trainer)
+        finally:
+            mgr.runner.shutdown()
+        torch.cuda.synchronize()
+        controller = counts()
+    runs = kubelet.probe_runs
+    step_ms = sorted(trainer.step_ms)
+    result = {
+        "nodes": list(CHECKPOINT_NODES),
+        "versions": list(ROLL_VERSIONS),
+        "policy": CHECKPOINT_POLICY,
+        **run,
+        "probe_pods": runs,
+        "pod_launches": total_launches(runs.values()),
+        "controller_launches": {lib: controller[lib] for lib in ("matmul", "flash_attention")},
+        "trainer": {
+            "cfg": {k: str(v) if k == "dtype" else v
+                    for k, v in dataclasses.asdict(ENTRY_CFG).items()},
+            "steps_trained": len(step_ms),
+            "ms_per_step_median": step_ms[len(step_ms) // 2],
+            "ms_per_step_mean": sum(step_ms) / len(step_ms),
+            "ms_first_step": trainer.step_ms[0],
+            "save_s": trainer.save_s,
+            "load_s": trainer.load_s,
+            "restores": trainer.restores,
+            "replay_loss_diffs": {j.pod: j.replay_loss_diffs for j in trainer.jobs.values()},
+        },
+        "drain_events": [e for e in recorder.events if e[2].startswith("Scheduling")],
+        "lost_steps": workload.lost_steps(),
+        "total_steps": workload.total_steps(),
+        "restarts": workload.restarts(),
+        "retrained_steps": trainer.retrained(),
+        "checkpoint_totals": mgr.common.checkpoint_manager.totals(),
+        "pods_after": sorted(p.name for p in client.list("Pod")),
+    }
+    print(json.dumps({"checkpoint_roll": result, "card": card}), flush=True)
+    result["summary"] = check_checkpoint_roll(run, CHECKPOINT_NODES, mgr, workload, trainer,
+                                              recorder.events)
+    if controller["matmul"] or controller["flash_attention"]:
+        raise AssertionError(f"checkpoint_roll: the controller launched kernels: {controller}")
+    built = {name: run["build_s"] for name, run in runs.items() if any(run["build_s"].values())}
+    if built:
+        raise AssertionError(f"checkpoint_roll: pods built their kernels again: {built}")
+    check_rolled_pods("checkpoint_roll", client, installer, CHECKPOINT_NODES, runs,
+                      others=[job.pod for job in trainer.jobs.values()])
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -1922,6 +2341,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="kernel-caches-") as cache_root:
         roll = roll_phase(card, launches, cache_root)
         requestor = requestor_roll_phase(card, launches, cache_root)
+        checkpoint = checkpoint_roll_phase(card, launches, cache_root)
     monitor = monitor_phase(card, launches)
     gang = gang_phase(card, launches)
 
@@ -1934,6 +2354,7 @@ def main() -> int:
         row["launches_roll"] = roll["launches"][kernel]
         row["launches_requestor_hook"] = requestor["hook_launches"][kernel]
         row["launches_requestor_pods"] = requestor["pod_launches"][kernel]
+        row["launches_checkpoint_roll"] = checkpoint["pod_launches"][kernel]
         row["launches_monitor"] = monitor["pass_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         if kernel == "matmul":

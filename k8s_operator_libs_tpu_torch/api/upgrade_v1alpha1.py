@@ -5,11 +5,16 @@ operator embeds in its CRD, with the same camelCase JSON, the same
 defaults (``autoUpgrade`` false, ``maxParallelUpgrades`` 1,
 ``maxUnavailable`` "25%", drain and pod-deletion timeouts 300 s) and the
 same eager validation, so every policy document of the JAX package parses
-here and ``to_dict`` gives it back unchanged. ``CheckpointSpec`` and
-``QuarantineSpec`` parse too; the port's state machine refuses a policy
-that enables either arc (``upgrade/state_manager.py``). The
-WorkloadCheckpoint contract of the JAX module belongs to the checkpoint
-arc and is not here.
+here and ``to_dict`` gives it back unchanged. ``CheckpointSpec`` drives
+the checkpoint arc (``upgrade/checkpoint_manager.py``); ``QuarantineSpec``
+parses too, but the port's state machine refuses a policy that enables the
+quarantine arc (``upgrade/state_manager.py``).
+
+The WorkloadCheckpoint contract is the workload's side of the checkpoint
+arc: asked to checkpoint, a workload persists its state, records it as a
+WorkloadCheckpoint object named after its pod, and acks on the pod; the
+restore-verified uncordon checks these objects against the node's
+checkpoint manifest.
 """
 
 from __future__ import annotations
@@ -23,6 +28,50 @@ DEFAULT_MAX_UNAVAILABLE = IntOrString("25%")
 DEFAULT_DRAIN_TIMEOUT_SECONDS = 300
 DEFAULT_POD_DELETION_TIMEOUT_SECONDS = 300
 DEFAULT_CHECKPOINT_TIMEOUT_SECONDS = 300
+
+WORKLOAD_CHECKPOINT_KIND = "WorkloadCheckpoint"
+WORKLOAD_CHECKPOINT_API_VERSION = "upgrade.tpu-operator.dev/v1alpha1"
+WORKLOAD_CHECKPOINT_PLURAL = "workloadcheckpoints"
+
+
+def workload_checkpoint_name(pod_name: str) -> str:
+    """The name of a pod's WorkloadCheckpoint: both sides of the contract
+    derive it from the pod's name."""
+    return f"{pod_name}-checkpoint"
+
+
+def make_workload_checkpoint(
+    pod_name: str,
+    namespace: str,
+    node_name: str,
+    step: int,
+    request_id: str = "",
+) -> dict[str, Any]:
+    """A raw WorkloadCheckpoint object, for any client's ``create``."""
+    return {
+        "apiVersion": WORKLOAD_CHECKPOINT_API_VERSION,
+        "kind": WORKLOAD_CHECKPOINT_KIND,
+        "metadata": {
+            "name": workload_checkpoint_name(pod_name),
+            "namespace": namespace,
+        },
+        "spec": {
+            "podName": pod_name,
+            "nodeName": node_name,
+            "step": int(step),
+            "requestId": request_id,
+        },
+    }
+
+
+def workload_checkpoint_step(raw: Mapping[str, Any]) -> int:
+    """The training step a WorkloadCheckpoint was taken at; -1 for a
+    malformed object, so that a corrupt checkpoint reads as unusable
+    rather than as step 0."""
+    try:
+        return int((raw.get("spec") or {}).get("step"))
+    except (TypeError, ValueError):
+        return -1
 
 
 def _require_non_negative(name: str, value: int) -> None:

@@ -33,6 +33,11 @@ from dataclasses import dataclass, field
 from typing import Any, Mapping, Optional
 
 from ..api.telemetry_v1alpha1 import NODE_HEALTH_REPORT_API_VERSION
+from ..api.upgrade_v1alpha1 import (
+    WORKLOAD_CHECKPOINT_API_VERSION,
+    WORKLOAD_CHECKPOINT_KIND,
+    WORKLOAD_CHECKPOINT_PLURAL,
+)
 from .client import (
     AlreadyExistsError,
     ApiError,
@@ -57,6 +62,7 @@ RESOURCES: dict[str, tuple[str, str, bool]] = {
     "ControllerRevision": ("apps/v1", "controllerrevisions", True),
     "NodeHealthReport": (NODE_HEALTH_REPORT_API_VERSION, "nodehealthreports", False),
     "NodeMaintenance": ("maintenance.nvidia.com/v1alpha1", "nodemaintenances", True),
+    WORKLOAD_CHECKPOINT_KIND: (WORKLOAD_CHECKPOINT_API_VERSION, WORKLOAD_CHECKPOINT_PLURAL, True),
 }
 
 _ERRORS = {

@@ -1,9 +1,10 @@
-"""The rolling-upgrade state machine's in-place path and requestor mode,
-the device class and its upgrade keys and states, and the monitor's
-metrics endpoint (a subset of the JAX package's ``upgrade`` package; what
-the port's machine does not run it refuses, naming the ROADMAP item:
-``state_manager.py``)."""
+"""The rolling-upgrade state machine's in-place path, requestor mode and
+checkpoint arc, the device class and its upgrade keys and states, and the
+monitor's metrics endpoint (a subset of the JAX package's ``upgrade``
+package; what the port's machine does not run it refuses, naming the
+ROADMAP item: ``state_manager.py``)."""
 
+from .checkpoint_manager import RESTORE_VERIFY_TIMEOUT_SECONDS, CheckpointManager
 from .common_manager import ClusterUpgradeState, CommonUpgradeManager, NodeUpgradeState
 from .consts import DeviceClass, UpgradeKeys, UpgradeState
 from .cordon_manager import CordonManager
@@ -27,6 +28,7 @@ from .validation_manager import VALIDATION_TIMEOUT_SECONDS, ValidationManager
 
 __all__ = [
     "BuildStateError",
+    "CheckpointManager",
     "ClientSnapshotSource",
     "ClusterUpgradeState",
     "ClusterUpgradeStateManager",
@@ -44,6 +46,7 @@ __all__ = [
     "PodManager",
     "PodManagerConfig",
     "ProcessNodeStateManager",
+    "RESTORE_VERIFY_TIMEOUT_SECONDS",
     "RequestorNodeStateManager",
     "RequestorOptions",
     "RevisionHashError",

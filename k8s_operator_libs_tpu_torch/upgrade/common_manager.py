@@ -1,14 +1,14 @@
 """CommonUpgradeManager: the per-state processors of a pass, and the
 budget's counters.
 
-The JAX package's ``upgrade/common_manager.py`` for the in-place path and
-the requestor mode. It holds the node managers (cordon, drain, pod,
-validation, safe load) and moves the nodes of each state's bucket one
-step. A bucket runs through the task runner with each node's error
-isolated; once the bucket is done its first error aborts the pass, and the
-next pass resumes from the node labels. The checkpoint and quarantine
-arcs and the tracing spans of the JAX module are not here; the state
-machine refuses what would need them (``state_manager.py``).
+The JAX package's ``upgrade/common_manager.py`` for the in-place path, the
+requestor mode and the checkpoint arc. It holds the node managers (cordon,
+drain, pod, validation, safe load, checkpoint) and moves the nodes of each
+state's bucket one step. A bucket runs through the task runner with each
+node's error isolated; once the bucket is done its first error aborts the
+pass, and the next pass resumes from the node labels. The quarantine arc
+and the tracing spans of the JAX module are not here; the state machine
+refuses what would need them (``state_manager.py``).
 """
 
 from __future__ import annotations
@@ -17,7 +17,13 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Callable, Mapping, Optional, Sequence, TypeVar
 
-from ..api.upgrade_v1alpha1 import DrainSpec, PodDeletionSpec, WaitForCompletionSpec
+from ..api.upgrade_v1alpha1 import (
+    CheckpointSpec,
+    DrainSpec,
+    PodDeletionSpec,
+    WaitForCompletionSpec,
+)
+from ..kube.client import Client
 from ..kube.objects import DaemonSet, Node, NodeMaintenance, Pod
 from ..policy import BudgetView, UpgradePolicy, for_spec
 from ..utils.faultpoints import wall_now
@@ -31,6 +37,7 @@ from .consts import (
     UpgradeKeys,
     UpgradeState,
 )
+from .checkpoint_manager import CheckpointManager
 from .cordon_manager import CordonManager
 from .drain_manager import DrainConfiguration, DrainManager
 from .pod_manager import PodManager, PodManagerConfig
@@ -92,6 +99,7 @@ class ClusterUpgradeState:
 class CommonUpgradeManager:
     def __init__(
         self,
+        client: Client,
         state_provider: NodeUpgradeStateProvider,
         keys: UpgradeKeys,
         cordon_manager: CordonManager,
@@ -99,6 +107,7 @@ class CommonUpgradeManager:
         pod_manager: PodManager,
         validation_manager: ValidationManager,
         safe_load_manager: SafeDriverLoadManager,
+        recorder=None,
         runner: Optional[TaskRunner] = None,
         apply_width: Optional[int] = None,
     ) -> None:
@@ -109,6 +118,10 @@ class CommonUpgradeManager:
         self.pod_manager = pod_manager
         self.validation_manager = validation_manager
         self.safe_load_manager = safe_load_manager
+        self.checkpoint_manager = CheckpointManager(client, state_provider, keys, recorder=recorder)
+        # The validation bucket runs the checkpoint arc's restore-verified
+        # uncordon.
+        self.validation_manager.restore_gate = self.checkpoint_manager.restore_gate
         self.runner = runner if runner is not None else TaskRunner(inline=True)
         self.apply_width = apply_width
         self.pod_deletion_enabled = False
@@ -297,25 +310,73 @@ class CommonUpgradeManager:
             "cordon", state.nodes_in(UpgradeState.CORDON_REQUIRED), lambda ns: ns.node.name, cordon
         )
 
+    def _post_checkpoint_state(self) -> UpgradeState:
+        """Where a node goes after the checkpoint arc (complete, escalated
+        or withdrawn), or after the wait for jobs without it: the eviction
+        path."""
+        return (
+            UpgradeState.POD_DELETION_REQUIRED
+            if self.pod_deletion_enabled
+            else UpgradeState.DRAIN_REQUIRED
+        )
+
     def process_wait_for_jobs_required_nodes(
-        self, state: ClusterUpgradeState, wait_spec: Optional[WaitForCompletionSpec]
+        self,
+        state: ClusterUpgradeState,
+        wait_spec: Optional[WaitForCompletionSpec],
+        checkpoint_enabled: bool = False,
     ) -> None:
         """Without a pod selector the nodes go straight on to pod deletion
         (or, with it off, the drain); with one, each node waits for its
-        selected pods to finish, within the spec's timeout."""
+        selected pods to finish, within the spec's timeout, and then goes
+        on to pod deletion. With the checkpoint arc enabled, both paths
+        lead to ``checkpoint-required`` instead."""
         nodes = [ns.node for ns in state.nodes_in(UpgradeState.WAIT_FOR_JOBS_REQUIRED)]
         if wait_spec is None or not wait_spec.pod_selector:
             next_state = (
-                UpgradeState.POD_DELETION_REQUIRED
-                if self.pod_deletion_enabled
-                else UpgradeState.DRAIN_REQUIRED
+                UpgradeState.CHECKPOINT_REQUIRED
+                if checkpoint_enabled
+                else self._post_checkpoint_state()
             )
             self._advance_all("wait-for-jobs", nodes, next_state)
             return
         if not nodes:
             return
         self.pod_manager.schedule_check_on_pod_completion(
-            PodManagerConfig(nodes=nodes, wait_for_completion_spec=wait_spec)
+            PodManagerConfig(
+                nodes=nodes,
+                wait_for_completion_spec=wait_spec,
+                completion_next_state=(
+                    UpgradeState.CHECKPOINT_REQUIRED
+                    if checkpoint_enabled
+                    else UpgradeState.POD_DELETION_REQUIRED
+                ),
+            )
+        )
+
+    def process_checkpoint_required_nodes(
+        self, state: ClusterUpgradeState, checkpoint_spec: Optional[CheckpointSpec]
+    ) -> None:
+        """Ask the selected workload pods to checkpoint, hold the drain
+        until they ack, escalate to a plain drain at each node's deadline
+        (``checkpoint_manager.py``). With the spec absent or disabled (a
+        policy changed in the middle of a roll) the nodes held here go on
+        to the eviction path, their clocks cleared."""
+        node_states = state.nodes_in(UpgradeState.CHECKPOINT_REQUIRED)
+        next_state = self._post_checkpoint_state()
+        if checkpoint_spec is None or not checkpoint_spec.enable:
+            self._for_each(
+                "advance[checkpoint]",
+                node_states,
+                lambda ns: ns.node.name,
+                lambda ns: self.checkpoint_manager.abandon(ns.node, next_state),
+            )
+            return
+        self._for_each(
+            "checkpoint",
+            node_states,
+            lambda ns: ns.node.name,
+            lambda ns: self.checkpoint_manager.coordinate(ns.node, checkpoint_spec, next_state),
         )
 
     def process_pod_deletion_required_nodes(
@@ -363,7 +424,12 @@ class CommonUpgradeManager:
                 return
             self.safe_load_manager.unblock_loading(ns.node)
             if self.is_driver_pod_in_sync(ns):
-                if not self.validation_enabled:
+                # A checkpoint manifest goes through the validation bucket
+                # even with validation off: the restore-verified uncordon
+                # runs there.
+                if not (
+                    self.validation_enabled or self.checkpoint_manager.has_manifest(ns.node)
+                ):
                     self.update_node_to_uncordon_or_done_state(ns)
                     return
                 self.provider.change_node_upgrade_state(ns.node, UpgradeState.VALIDATION_REQUIRED)
@@ -383,15 +449,20 @@ class CommonUpgradeManager:
         """A failed node whose driver pod is back in sync recovers: to
         uncordon (or done, if it started cordoned); back through validation
         if validation failed it, since a Ready driver pod is no proof that
-        the cards are healthy."""
+        the cards are healthy, or if it carries a checkpoint manifest,
+        whose restore-verified uncordon runs there (and retires the
+        manifest, so that it cannot follow the node into the next roll)."""
 
         def recover(ns: NodeUpgradeState) -> None:
             if not self.is_driver_pod_in_sync(ns):
                 return
             failed_validation = self.keys.validation_failed_annotation in ns.node.annotations
-            if self.validation_enabled and failed_validation:
+            if (
+                self.validation_enabled and failed_validation
+            ) or self.checkpoint_manager.has_manifest(ns.node):
                 log.info(
-                    "node %s failed validation; recovery goes through the gate again",
+                    "node %s failed validation or carries checkpoints to verify; "
+                    "recovery goes through the gate again",
                     ns.node.name,
                 )
                 self.provider.change_node_upgrade_state(ns.node, UpgradeState.VALIDATION_REQUIRED)

@@ -157,17 +157,54 @@ class UpgradeKeys:
         gate: its recovery validates again instead of uncordoning."""
         return self._key("upgrade-validation-failed")
 
+    # -- the checkpoint arc (checkpoint_manager.py) --------------------------
+    @property
+    def checkpoint_request_annotation(self) -> str:
+        """Pod key the controller writes to ask a selected workload pod to
+        checkpoint. Its value is the node's checkpoint epoch (the stamp of
+        the node's checkpoint clock), so an ack from an earlier arc never
+        satisfies a new one."""
+        return self._key("upgrade-checkpoint-request")
+
+    @property
+    def checkpoint_complete_annotation(self) -> str:
+        """Pod key the workload writes once its checkpoint is durable: the
+        ack, valid only while it echoes the current epoch."""
+        return self._key("upgrade-checkpoint-complete")
+
+    @property
+    def checkpoint_step_annotation(self) -> str:
+        """Pod key holding the training step the checkpoint was taken at:
+        disruption is counted in steps trained again."""
+        return self._key("upgrade-checkpoint-step")
+
+    @property
+    def checkpoint_start_annotation(self) -> str:
+        """Node key: the durable clock of the checkpoint deadline; its
+        stamp is also the checkpoint epoch."""
+        return self._key("upgrade-checkpoint-start-time")
+
     @property
     def checkpoint_manifest_annotation(self) -> str:
-        """Written by the JAX machine's checkpoint arc before a drain; the
-        port's machine refuses a node that carries it."""
+        """Node key: the JSON map ``{"<ns>/<pod>": step}`` of the
+        checkpoints acknowledged before the drain, which the
+        restore-verified uncordon checks against the WorkloadCheckpoint
+        objects; retired by that check."""
         return self._key("upgrade-checkpoint-manifest")
 
     @property
     def checkpoint_escalated_annotation(self) -> str:
-        """Written by the JAX machine's checkpoint arc at its deadline;
-        retired when the node's upgrade ends."""
+        """Node key marking that the checkpoint deadline expired and the
+        drain went on as a plain drain; retired when the node's upgrade
+        ends."""
         return self._key("upgrade-checkpoint-escalated")
+
+    @property
+    def restore_verify_start_annotation(self) -> str:
+        """Node key: the durable clock of the restore-verified uncordon (a
+        checkpoint that cannot be verified degrades to a cold restart at
+        its deadline; it never stalls the roll)."""
+        return self._key("upgrade-restore-verify-start-time")
 
     @property
     def upgrade_requested_annotation(self) -> str:

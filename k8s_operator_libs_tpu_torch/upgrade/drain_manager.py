@@ -3,7 +3,9 @@
 
 A node already being drained is not scheduled again. The outcome is the
 node's next state: ``pod-restart-required`` after a drain,
-``upgrade-failed`` when it fails or times out.
+``upgrade-failed`` when it fails or times out. The event that schedules a
+drain names its kind: coordinated by the checkpoint arc, escalated past
+the checkpoint deadline, or plain.
 """
 
 from __future__ import annotations
@@ -88,9 +90,20 @@ class DrainManager:
             self._provider.change_node_upgrade_state(node, UpgradeState.POD_RESTART_REQUIRED)
 
         if self._runner.submit(node.name, task):
-            self._event(node, "Normal", "Scheduling drain of the node")
+            self._event(node, "Normal", self._drain_flavor(node))
         else:
             log.info("node %s is already being drained, skipping", node.name)
+
+    def _drain_flavor(self, node: Node) -> str:
+        """A checkpoint-coordinated drain evicts workloads whose state is
+        saved; an escalated one gave up on a wedged workload at the
+        deadline; a plain one never entered the checkpoint arc."""
+        annotations = node.annotations
+        if annotations.get(self._keys.checkpoint_escalated_annotation) == TRUE_STRING:
+            return "Scheduling drain of the node (checkpoint deadline escalated - plain drain)"
+        if self._keys.checkpoint_manifest_annotation in annotations:
+            return "Scheduling checkpoint-coordinated drain of the node"
+        return "Scheduling drain of the node"
 
     def _event(self, node: Node, event_type: str, message: str) -> None:
         if self._recorder is not None:

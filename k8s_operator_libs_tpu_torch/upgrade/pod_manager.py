@@ -17,11 +17,11 @@ from ..api.upgrade_v1alpha1 import PodDeletionSpec, WaitForCompletionSpec
 from ..kube.client import Client, NotFoundError, get_or_none, has_reason
 from ..kube.drain import DrainConfig, DrainError, DrainHelper
 from ..kube.objects import ControllerRevision, DaemonSet, Node, Pod
+from ..utils.faultpoints import wall_now
 from ..utils.log import get_logger
 from .consts import NULL_STRING, UpgradeKeys, UpgradeState
 from .state_provider import NodeUpgradeStateProvider
 from .task_runner import TaskRunner
-from .validation_manager import advance_durable_clock
 
 log = get_logger("upgrade.pod")
 
@@ -39,6 +39,10 @@ class PodManagerConfig:
     deletion_spec: Optional[PodDeletionSpec] = None
     wait_for_completion_spec: Optional[WaitForCompletionSpec] = None
     drain_enabled: bool = False
+    #: Where a node goes once its awaited workload pods finished or their
+    #: wait timed out: ``pod-deletion-required``, or ``checkpoint-required``
+    #: where the policy enables the checkpoint arc.
+    completion_next_state: UpgradeState = UpgradeState.POD_DELETION_REQUIRED
 
 
 class PodManager:
@@ -233,8 +237,8 @@ class PodManager:
     # -- completion waits --------------------------------------------------
     def schedule_check_on_pod_completion(self, config: PodManagerConfig) -> None:
         """Move each node whose awaited workload pods have finished on to
-        ``pod-deletion-required``; otherwise leave it, with its timeout
-        clock running. Joined before it returns."""
+        ``config.completion_next_state``; otherwise leave it, with its
+        timeout clock running. Joined before it returns."""
         if config.wait_for_completion_spec is None:
             raise ValueError("wait-for-completion spec should not be empty")
         spec = config.wait_for_completion_spec
@@ -244,23 +248,40 @@ class PodManager:
             if any(self.is_pod_running_or_pending(p) for p in pods):
                 log.info("workload pods still running on node %s", node.name)
                 if spec.timeout_seconds != 0:
-                    self.handle_timeout_on_pod_completions(node, spec.timeout_seconds)
+                    self.handle_timeout_on_pod_completions(
+                        node, spec.timeout_seconds, next_state=config.completion_next_state
+                    )
                 return
             self._provider.change_node_upgrade_annotation(
                 node, self._keys.wait_for_pod_completion_start_annotation, NULL_STRING
             )
-            self._provider.change_node_upgrade_state(node, UpgradeState.POD_DELETION_REQUIRED)
+            self._provider.change_node_upgrade_state(node, config.completion_next_state)
 
         self._join_bucket([(node.name, (lambda node=node: check(node))) for node in config.nodes])
 
-    def handle_timeout_on_pod_completions(self, node: Node, timeout_seconds: int) -> None:
+    def handle_timeout_on_pod_completions(
+        self,
+        node: Node,
+        timeout_seconds: int,
+        next_state: UpgradeState = UpgradeState.POD_DELETION_REQUIRED,
+    ) -> None:
         """Start, or check, the durable start-time annotation; at its
-        expiry the node goes on to pod deletion."""
-        if advance_durable_clock(
-            self._provider, node, self._keys.wait_for_pod_completion_start_annotation,
-            timeout_seconds,
-        ):
-            self._provider.change_node_upgrade_state(node, UpgradeState.POD_DELETION_REQUIRED)
+        expiry the node goes on to ``next_state``, and then the annotation
+        is cleared (the JAX machine's order of writes and events)."""
+        key = self._keys.wait_for_pod_completion_start_annotation
+        now = int(wall_now())
+        start_raw = node.annotations.get(key)
+        try:
+            expired = start_raw is not None and now > int(start_raw) + timeout_seconds
+        except ValueError:
+            log.error("node %s has invalid completion start-time %r; resetting",
+                      node.name, start_raw)
+            start_raw = None
+        if start_raw is None:
+            self._provider.change_node_upgrade_annotation(node, key, str(now))
+        elif expired:
+            self._provider.change_node_upgrade_state(node, next_state)
+            self._provider.change_node_upgrade_annotation(node, key, NULL_STRING)
 
     # -- helpers -----------------------------------------------------------
     def list_pods(self, selector: str = "", node_name: str = "") -> list[Pod]:

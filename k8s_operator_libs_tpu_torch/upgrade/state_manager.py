@@ -1,28 +1,31 @@
 """ClusterUpgradeStateManager: the rolling-upgrade state machine.
 
-The JAX package's ``upgrade/state_manager.py`` for the in-place path and
-the requestor mode. ``build_state`` takes a snapshot of the driver
-DaemonSets, their pods and the nodes (and, in the requestor mode, each
-node's NodeMaintenance object); ``apply_state`` runs one stateless pass
-that moves each node at most one step, from ``upgrade-required`` through
-cordon, the wait for jobs, pod deletion, drain, the driver pod's restart
-and validation to ``upgrade-done`` (or ``upgrade-failed``, from which a
-node recovers once its driver pod is back in sync). In the requestor mode
+The JAX package's ``upgrade/state_manager.py`` for the in-place path,
+the requestor mode and the checkpoint arc. ``build_state`` takes a
+snapshot of the driver DaemonSets, their pods and the nodes (and, in the
+requestor mode, each node's NodeMaintenance object); ``apply_state``
+runs one stateless pass that moves each node at most one step, from
+``upgrade-required`` through cordon, the wait for jobs, pod deletion,
+drain, the driver pod's restart and validation to ``upgrade-done`` (or
+``upgrade-failed``, from which a node recovers once its driver pod is
+back in sync). In the requestor mode
 (``requestor.enable_requestor_mode``) an external maintenance operator
 cordons and drains instead: the node goes from ``upgrade-required``
-through ``node-maintenance-required`` (and, with ``use_post_maintenance``,
-``post-maintenance-required``) to the driver pod's restart, and the
-requestor releases the object before the node is done. Nodes the in-place
-flow began finish in place. All state is on the nodes and the objects, as
-the JAX machine writes it, so either machine can carry on a roll the
+through ``node-maintenance-required`` (and, with
+``use_post_maintenance``, ``post-maintenance-required``) to the driver
+pod's restart, and the requestor releases the object before the node is
+done. Nodes the in-place flow began finish in place. With a policy's
+``checkpoint`` enabled, a node passes through ``checkpoint-required``
+before its eviction, where its training pods checkpoint, and its
+uncordon waits until those checkpoints are verified restorable
+(``checkpoint_manager.py``). All state is on the nodes and the objects,
+as the JAX machine writes it, so either machine can carry on a roll the
 other began. An error aborts the pass; the next pass resumes from the
 node labels.
 
 What the JAX machine does beyond that is refused with
 ``NotImplementedError`` naming its ROADMAP item, never skipped:
 
-* the checkpoint arc (A12): a policy with ``checkpoint.enable``, a node
-  labelled ``checkpoint-required`` or carrying a checkpoint manifest;
 * the quarantine arc and the health telemetry it reads (A13): a policy
   with an enabled ``quarantine``, a node labelled ``quarantined``,
   ``with_health_telemetry``;
@@ -59,7 +62,6 @@ log = get_logger("upgrade.state_manager")
 
 #: Node states whose arcs the port's machine does not run, by ROADMAP item.
 _UNPORTED_STATES = {
-    UpgradeState.CHECKPOINT_REQUIRED: "A12",
     UpgradeState.QUARANTINED: "A13",
 }
 
@@ -100,6 +102,21 @@ class PassStats:
     #: held the value.
     writes_issued: int = 0
     writes_skipped: int = 0
+    # The checkpoint arc, counted once a pass has seen it.
+    #: Nodes still held in checkpoint-required after this pass.
+    checkpoint_nodes_waiting: int = 0
+    #: Checkpoint requests written on workload pods this pass.
+    checkpoint_requests_issued: int = 0
+    #: Nodes whose checkpoint gate completed this pass.
+    checkpoint_completions: int = 0
+    #: Escalations to a plain drain at the deadline this pass.
+    checkpoint_escalations: int = 0
+    #: The ``CheckpointManager``'s lifetime counters: an escalation means
+    #: a workload started over.
+    checkpoint_escalations_total: int = 0
+    checkpoints_completed_total: int = 0
+    checkpoint_restores_verified_total: int = 0
+    checkpoint_restore_escalations_total: int = 0
 
 
 class ClusterUpgradeStateManager:
@@ -123,6 +140,7 @@ class ClusterUpgradeStateManager:
         self.provider = provider
         width = self.options.apply_width
         self.common = CommonUpgradeManager(
+            client=client,
             state_provider=provider,
             keys=self.keys,
             cordon_manager=CordonManager(client, self.keys, recorder=recorder),
@@ -134,6 +152,7 @@ class ClusterUpgradeStateManager:
             ),
             validation_manager=ValidationManager(client, provider, self.keys, recorder=recorder),
             safe_load_manager=SafeDriverLoadManager(provider, self.keys),
+            recorder=recorder,
             runner=runner,
             apply_width=width,
         )
@@ -146,6 +165,10 @@ class ClusterUpgradeStateManager:
         #: The requestor strategy (``requestor.enable_requestor_mode``); it
         #: runs while ``options.use_maintenance_operator`` is on.
         self.requestor: Optional[ProcessNodeStateManager] = requestor
+        #: Set once a pass saw the checkpoint arc (a policy enabling it or
+        #: a node in its bucket); from then on every pass counts the arc
+        #: in its PassStats.
+        self._checkpoint_seen = False
 
     # -- what the port's machine refuses -------------------------------------
     def enable_write_batching(self, max_batch: int = 64):
@@ -157,17 +180,14 @@ class ClusterUpgradeStateManager:
     def with_health_telemetry(self, *args, **kwargs):
         raise not_ported("the health telemetry and the quarantine arc", "A13")
 
-    def _refuse_node(self, node: Node, bucket: UpgradeState) -> None:
+    @staticmethod
+    def _refuse_node(node: Node, bucket: UpgradeState) -> None:
         item = _UNPORTED_STATES.get(bucket)
         if item is not None:
             raise not_ported(f"node {node.name} is in state {bucket}", item)
-        if self.keys.checkpoint_manifest_annotation in node.annotations:
-            raise not_ported(f"node {node.name} carries a checkpoint manifest", "A12")
 
     @staticmethod
     def _refuse_policy(policy: DriverUpgradePolicySpec) -> None:
-        if policy.checkpoint is not None and policy.checkpoint.enable:
-            raise not_ported("a policy with checkpoint.enable", "A12")
         if policy.quarantine is not None and policy.quarantine.enable:
             raise not_ported("a policy with quarantine enabled", "A13")
 
@@ -219,6 +239,8 @@ class ClusterUpgradeStateManager:
             pod_provisioner=pod_provisioner,
             **kwargs,
         )
+        # The new manager carries the restore-verified uncordon.
+        self.common.validation_manager.restore_gate = self.common.checkpoint_manager.restore_gate
         self.common.validation_enabled = True
         return self
 
@@ -329,12 +351,24 @@ class ClusterUpgradeStateManager:
         common = self.common
         stats = self.last_pass_stats
         writes_before = self.provider.write_stats()
+        checkpoint_enabled = policy.checkpoint is not None and policy.checkpoint.enable
+        checkpoint_bucket = len(state.nodes_in(UpgradeState.CHECKPOINT_REQUIRED))
+        if checkpoint_enabled or checkpoint_bucket:
+            self._checkpoint_seen = True
+        checkpoint_before = common.checkpoint_manager.totals() if self._checkpoint_seen else None
+        if policy.checkpoint is not None:
+            # The restore check follows the policy in force now, not the
+            # one the node checkpointed under.
+            common.checkpoint_manager.set_verify_restore(policy.checkpoint.verify_restore)
         try:
             common.process_done_or_unknown_nodes(state, UpgradeState.UNKNOWN)
             common.process_done_or_unknown_nodes(state, UpgradeState.DONE)
             self._process_upgrade_required_nodes(state, policy)
             common.process_cordon_required_nodes(state)
-            common.process_wait_for_jobs_required_nodes(state, policy.wait_for_completion)
+            common.process_wait_for_jobs_required_nodes(
+                state, policy.wait_for_completion, checkpoint_enabled
+            )
+            common.process_checkpoint_required_nodes(state, policy.checkpoint)
             drain_enabled = policy.drain is not None and policy.drain.enable
             common.process_pod_deletion_required_nodes(state, policy.pod_deletion, drain_enabled)
             common.process_drain_nodes(state, policy.drain)
@@ -348,7 +382,26 @@ class ClusterUpgradeStateManager:
             writes_after = self.provider.write_stats()
             stats.writes_issued = writes_after["issued"] - writes_before["issued"]
             stats.writes_skipped = writes_after["skipped"] - writes_before["skipped"]
+            if checkpoint_before is not None:
+                self._count_checkpoints(
+                    stats, checkpoint_before, checkpoint_bucket if checkpoint_enabled else None
+                )
         log.info("state manager finished processing")
+
+    def _count_checkpoints(self, stats: PassStats, before: dict, bucket: Optional[int]) -> None:
+        """The pass's checkpoint counts: the difference of the manager's
+        totals, and the nodes of the bucket (``None`` with the arc off)
+        that did not advance."""
+        after = self.common.checkpoint_manager.totals()
+        stats.checkpoint_requests_issued = after["requests"] - before["requests"]
+        stats.checkpoint_completions = after["completions"] - before["completions"]
+        stats.checkpoint_escalations = after["escalations"] - before["escalations"]
+        advanced = after["advanced"] - before["advanced"]
+        stats.checkpoint_nodes_waiting = 0 if bucket is None else max(0, bucket - advanced)
+        stats.checkpoint_escalations_total = after["escalations"]
+        stats.checkpoints_completed_total = after["completions"]
+        stats.checkpoint_restores_verified_total = after["restores_verified"]
+        stats.checkpoint_restore_escalations_total = after["restore_escalations"]
 
     # -- the mode's steps ----------------------------------------------------
     def _process_upgrade_required_nodes(

@@ -1,7 +1,9 @@
 """ValidationManager: the gate a node passes before it is uncordoned.
 
-The JAX package's ``upgrade/validation_manager.py`` without the checkpoint
-arc's restore gate and its tracing spans. After the driver pod restarts at
+The JAX package's ``upgrade/validation_manager.py`` without its tracing
+spans. First the checkpoint arc's ``restore_gate``, where one is set: it
+runs even with validation otherwise off, outside the validation clock,
+since it keeps its own deadline. After the driver pod restarts at
 the new revision, every pod matching ``pod_selector`` on the node must be
 Running with all containers ready, and the ``validation_hook``, where one
 is given, must pass. A ``pod_provisioner`` (the port's
@@ -74,13 +76,34 @@ class ValidationManager:
         self._timeout = timeout_seconds
         self._recorder = recorder
         self._provisioner = pod_provisioner
+        #: The restore-verified uncordon (``CheckpointManager.restore_gate``),
+        #: set by the state machine and carried across a manager swap. It
+        #: runs before the other gates, so that a deferral does not run the
+        #: probe every pass, and outside the validation clock, so that a
+        #: deferral does not spend the validation budget into a failure.
+        self.restore_gate: Optional[Callable[[Node], bool]] = None
 
     @property
     def enabled(self) -> bool:
         return bool(self._pod_selector) or self._hook is not None
 
+    def _restore_ok(self, node: Node) -> bool:
+        if self.restore_gate is None:
+            return True
+        return bool(self.restore_gate(node))
+
     def validate(self, node: Node) -> bool:
-        """True when the node passes validation."""
+        """True when the node passes validation. The restore gate comes
+        first, with validation on or off: a node with a checkpoint
+        manifest goes through the validation bucket for it alone."""
+        if not self._restore_ok(node):
+            # Deferred, not failed. The gates below are not running, so
+            # their clock is retired: left to age through a long deferral,
+            # a later flap of the probe pod would read it as expired.
+            self._provider.change_node_upgrade_annotation(
+                node, self._keys.validation_start_annotation, NULL_STRING
+            )
+            return False
         if not self.enabled:
             return True
         if self._provisioner is not None:

@@ -17,9 +17,11 @@ JAX either (``tests/test_torch_roll.py``). The slice gang runs as one pod on
 every card (``-k gang``) and, with two or more cards, as two pods on half
 the cards each (``-k between_cards``). The requestor roll (``-k
 requestor``) runs the post-maintenance warm-up hook on the card in this
-process.
+process. The checkpoint roll's trainer (``-k trainer``) saves, restores
+and trains again the flagship model on the card.
 """
 
+import importlib.util
 import json
 import math
 import os
@@ -523,6 +525,71 @@ def test_requestor_roll_with_the_warmup_hook_on_the_card(cuda, tmp_path):
     ((name, cordoned, k1, k2),) = calls
     assert name == "gpu-0" and cordoned and k1 > 0 and k2 > 0
     assert kernels["launches"]["matmul"] > 0 and kernels["launches"]["flash_attention"] > 0
+
+
+def chip_smoke_module():
+    """``chip_smoke.py`` as a module, loaded once."""
+    import sys
+
+    name = "chip_smoke_for_tests"
+    if name not in sys.modules:
+        path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+        spec = importlib.util.spec_from_file_location(name, path)
+        module = importlib.util.module_from_spec(spec)
+        sys.modules[name] = module
+        spec.loader.exec_module(module)
+    return sys.modules[name]
+
+
+def save_restore_replay(device, cfg, directory):
+    """``chip_smoke.py``'s ``Trainer`` behind one simulated training pod:
+    the pod made and three steps, a checkpoint asked for and acked at step
+    4, two steps more, the pod evicted, made again from step 4 and trained
+    on to step 7. The simulator and the trainer."""
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
+    from k8s_operator_libs_tpu_torch.kube.sim import CheckpointingWorkloadSimulator
+    from k8s_operator_libs_tpu_torch.upgrade import DeviceClass, UpgradeKeys
+
+    smoke = chip_smoke_module()
+    keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
+    client = smoke.DictClient()
+    client.create(Node.new("node-0"))
+    workload = CheckpointingWorkloadSimulator(client, keys, namespace=smoke.TRAINING_NS,
+                                              name="trainer")
+    trainer = smoke.Trainer(client, workload, keys, cfg, device, seed=7,
+                            directory=str(directory), nodes=["node-0"])
+    pod = workload.workload("node-0").pod_name
+
+    def tick(n: int) -> None:
+        for _ in range(n):
+            workload.step()
+            trainer.sync()
+
+    tick(4)
+    client.patch("Pod", pod, smoke.TRAINING_NS, patch={"metadata": {"annotations": {
+        keys.checkpoint_request_annotation: "1"}}})
+    tick(3)
+    client.delete("Pod", pod, smoke.TRAINING_NS)
+    tick(4)
+    return workload, trainer
+
+
+def check_save_restore_replay(workload, trainer) -> None:
+    assert workload.lost_steps() == trainer.retrained() == 2
+    assert workload.total_steps() == 7
+    (restore,) = trainer.restores
+    assert (restore["restored_step"], restore["stopped_at"]) == (4, 6)
+    assert restore["params_equal"], restore
+    assert restore["first_loss"] == restore["loss_at_save"] == restore["loss_before_eviction"]
+    assert len(trainer.save_s) == len(trainer.load_s) == 1
+
+
+def test_trainer_saves_restores_and_replays_on_the_card(cuda, tmp_path):
+    """The checkpoint roll's trainer at the flagship width on the card:
+    the parameters loaded at the restore equal those saved, and the first
+    loss after it equals the loss of that step before the eviction."""
+    workload, trainer = save_restore_replay("cuda", port_entry.ENTRY_CFG, tmp_path)
+    check_save_restore_replay(workload, trainer)
 
 
 # ----------------------------------------------------------------------

@@ -18,7 +18,8 @@ The handoff tests run one machine for the first passes of a roll on B and
 the other for the rest, against a JAX-only roll on A. The refusal tests
 pin each arc the port's machine does not run to its ROADMAP item; the
 requestor mode runs, held to the JAX machine's in
-``tests/test_torch_requestor.py``.
+``tests/test_torch_requestor.py``, and so does the checkpoint arc, in
+``tests/test_torch_checkpoint.py``.
 """
 
 from __future__ import annotations
@@ -504,11 +505,9 @@ def test_unported_wirings_are_refused(pool, method, item):
 @pytest.mark.parametrize(
     "labels, annotations, item",
     [
-        ({KEYS.state_label: "checkpoint-required"}, {}, "A12"),
         ({KEYS.state_label: "quarantined"}, {}, "A13"),
-        ({}, {KEYS.checkpoint_manifest_annotation: "{}"}, "A12"),
     ],
-    ids=["checkpoint-required", "quarantined", "checkpoint-manifest"],
+    ids=["quarantined"],
 )
 def test_nodes_on_unported_arcs_are_refused(pool, labels, annotations, item):
     pool.patch("Node", node_name(1), patch={"metadata": {"labels": labels, "annotations": annotations}})
@@ -521,10 +520,9 @@ def test_nodes_on_unported_arcs_are_refused(pool, labels, annotations, item):
 @pytest.mark.parametrize(
     "extra, item",
     [
-        ({"checkpoint": {"enable": True, "podSelector": "app=train"}}, "A12"),
         ({"quarantine": {"enable": True}}, "A13"),
     ],
-    ids=["checkpoint", "quarantine"],
+    ids=["quarantine"],
 )
 def test_policies_enabling_unported_arcs_are_refused(pool, extra, item):
     mgr = _manager(pool)
@@ -532,6 +530,36 @@ def test_policies_enabling_unported_arcs_are_refused(pool, extra, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         mgr.apply_state(state, DriverUpgradePolicySpec.from_dict(policy(**extra)))
     assert all(KEYS.state_label not in n.labels for n in pool.list("Node"))
+
+
+CHECKPOINT = {"checkpoint": {"enable": True, "podSelector": "app=trainer"}}
+
+
+@pytest.mark.parametrize(
+    "labels, annotations, extra, wanted, totals",
+    [
+        ({KEYS.state_label: "checkpoint-required"}, {}, CHECKPOINT, "drain-required",
+         {"completions": 1, "advanced": 1}),
+        ({KEYS.state_label: "pod-restart-required"},
+         {KEYS.checkpoint_manifest_annotation: "{}"}, {}, "validation-required", {}),
+        ({KEYS.state_label: "wait-for-jobs-required"}, {}, CHECKPOINT, "checkpoint-required",
+         {}),
+    ],
+    ids=["checkpoint-required", "manifest-in-pod-restart", "checkpoint-policy"],
+)
+def test_the_checkpoint_arc_runs_one_pass(pool, labels, annotations, extra, wanted, totals):
+    """Each way into the checkpoint arc runs: a node in its state, a node
+    with a manifest, a policy enabling it. One pass moves node-1 one step
+    along the arc (the whole arc is held to the JAX machine in
+    ``tests/test_torch_checkpoint.py``)."""
+    meta = {"labels": labels, "annotations": annotations}
+    pool.patch("Node", node_name(1), patch={"metadata": meta})
+    mgr = _manager(pool)
+    mgr.apply_state(mgr.build_state(NS, LABELS), DriverUpgradePolicySpec.from_dict(policy(**extra)))
+    states = {n.name: n.labels.get(KEYS.state_label) for n in pool.list("Node")}
+    assert states == {node_name(0): "upgrade-done", node_name(1): wanted}
+    counted = {k: v for k, v in mgr.common.checkpoint_manager.totals().items() if v}
+    assert counted == totals
 
 
 def test_disabled_arcs_in_a_policy_are_accepted(pool):

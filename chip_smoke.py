@@ -127,7 +127,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``{"requestor_roll": ...}`` gives the passes, the wall seconds, each
     node's states with the pass and second each began, each hook call's
     seconds and launches, each probe pod's seconds to Ready, report and
-    launches, and each pass's NodeMaintenance reasons;
+    launches, and each pass's NodeMaintenance reasons. The watch phase's
+    NodeMaintenance informer (15) watches this phase's client throughout;
 14. checkpoint_roll phase (the checkpoint arc): two more nodes rolled the
     same way in place under ``CHECKPOINT_POLICY`` (the roll's policy with
     ``checkpoint`` on ``app=trainer``), validated by probe pods on the
@@ -152,7 +153,28 @@ Phases, in order; any failure raises and the script exits non-zero:
     each began, each pass's checkpoint ``PassStats``, each probe pod's
     seconds to Ready and launches, the trainer's ms a step and save and
     load seconds, each restore, and the lost, total and restarted steps;
-15. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
+15. watch phase (the port's informer, ``kube/informer.py``, over
+    ``DictClient``'s journal-backed watch, which selects through the port's
+    ``kube/selectors.py``), around the requestor roll and the monitor
+    phase. A NodeMaintenance informer in ``MAINTENANCE_NS`` with
+    ``WATCH_WINDOW_S`` windows starts before the requestor roll; after it,
+    a handler filtered by ``requestor_id_predicate`` must have seen one
+    ADDED and one DELETED for each requestor node's object, the store must
+    be empty and at least one window must have resumed; then the journal
+    is compacted below the informer's revision, which must re-list, its
+    store equal to ``client.list``. Before the monitor phase its client is
+    seeded with ``WATCH_POOL_NODES`` GPU nodes of about 2.6 KB each (labels
+    from the card, the kubelet's status), and a Node informer on
+    ``WATCH_NODE_SELECTOR`` must hold all 257 nodes after
+    ``wait_for_sync`` (timed), with a NodeHealthReport informer beside it.
+    During the monitor phase the report informer's copy of the monitored
+    node's report must equal the published one (resourceVersion and
+    status), with the card's ``mxu_tflops``; after it, a handler filtered
+    by ``condition_changed_predicate`` must have seen the node's
+    ``TpuIciHealthy`` turn True and then False. ``{"watch": ...}`` gives
+    the sync seconds, the events each informer's handlers saw, the windows
+    and resumed windows, the re-lists and each informer's events a second;
+16. monitor phase: ``TpuHealthMonitor.check_once()`` on a node labelled
     from the card, against a dict-backed client (``DictClient``: Node,
     Pod, Event, NodeHealthReport), its gate the port's
     ``SubprocessHealthGate`` at ``tpu_defaults()``, so each cycle is the
@@ -161,13 +183,15 @@ Phases, in order; any failure raises and the script exits non-zero:
     NodeHealthReport whose ``mxu_tflops`` is the report's; its payload must
     launch each kernel as often as the gate phase (the child's own counts,
     from its stderr line). A cycle with ``--min-mxu-tflops 1e9`` and
-    ``failure_threshold=1`` must write ``False`` and one Warning Event. A
-    live pod holding ``nvidia.com/gpu`` on the node must skip the cycle
+    ``failure_threshold=1`` must write ``False`` and one Warning Event; that
+    Warning recorded once more through the monitor's correlated
+    ``EventRecorder`` must leave the same one Event object, its ``count``
+    2. A live pod holding ``nvidia.com/gpu`` on the node must skip the cycle
     without running the gate. One quick-tier cycle,
     ``run_quick_probe_loop(once=True)``, forms a world of every card and
     publishes a report. ``{"monitor": ...}`` gives each cycle's wall seconds
     (the child included) and the payload's launches;
-16. gang phase: the payload as a slice gang pod, a child process with
+17. gang phase: the payload as a slice gang pod, a child process with
     ``--coordinator 127.0.0.1:<free port> --num-processes 1 --process-id 0
     --publish-report`` (``NODE_NAME`` set, the kubeconfig pointing at
     ``ApiStub``, an HTTP front of the same kind of dict-backed client). Its
@@ -276,10 +300,21 @@ ROLL_POLICY = {
 ROLL_STALL_S = 300.0
 #: Seconds between two passes of the roll.
 ROLL_PASS_INTERVAL_S = 0.2
-#: The requestor roll's nodes, and the namespace of their NodeMaintenance
-#: objects.
+#: The requestor roll's nodes, the namespace of their NodeMaintenance
+#: objects and the requestor's id.
 REQUESTOR_NODES = ("gpu-req-0", "gpu-req-1")
 MAINTENANCE_NS = "nvidia-maintenance-operator"
+REQUESTOR_ID = "gpu.operator.dev"
+#: The watch phase's pool beside the monitored node (256 nodes: at 8 cards
+#: a node, one large training cluster; each labelled from this card), the
+#: label its Node informer selects, and
+#: the NodeMaintenance informer's watch window (short, so that windows end
+#: and resume during the requestor roll).
+WATCH_POOL_NODES = 256
+WATCH_NODE_SELECTOR = "nvidia.com/gpu.present=true"
+WATCH_WINDOW_S = 1
+#: Seconds an informer may take to catch up with a write it must see.
+WATCH_SETTLE_S = 30.0
 #: The checkpoint roll's nodes, the namespace of its training pods, its
 #: policy (the roll's, with the checkpoint arc on the training pods) and
 #: the seed of its trainers' parameters and batches.
@@ -1088,14 +1123,19 @@ def device_class_phase(card: str, gate_launches: dict) -> dict:
 # ----------------------------------------------------------------------
 
 class DictClient:
-    """The operator's client, as far as the monitor, the report publisher
-    and the state machine use it, over dicts: Node, Pod, Event,
-    NodeHealthReport, DaemonSet, ControllerRevision and NodeMaintenance,
-    resourceVersions checked on update, errors with the API's reasons; an
-    eviction deletes the pod (no disruption budget guards it). Finalizers
-    hold a deleted object as the API server does: the delete sets its
-    ``deletionTimestamp``, and the write that empties its finalizers
-    removes it."""
+    """The operator's client, as far as the monitor, the report publisher,
+    the state machine and the informer use it, over dicts: Node, Pod,
+    Event, NodeHealthReport, DaemonSet, ControllerRevision and
+    NodeMaintenance, resourceVersions checked on update, errors with the
+    API's reasons; an eviction deletes the pod (no disruption budget guards
+    it). Finalizers hold a deleted object as the API server does: the
+    delete sets its ``deletionTimestamp``, and the write that empties its
+    finalizers removes it. Lists and watches select through the port's
+    ``kube/selectors.py``. Every write appends ``(rv, type, object, old
+    object)`` to a journal that ``watch`` streams from: resumed after a
+    revision, an object that leaves a watch's selectors arriving as
+    DELETED; a revision older than ``compact`` left raises the port's
+    ``WatchExpiredError``. Watches serve no bookmarks."""
 
     CLUSTER_SCOPED = ("Node", "NodeHealthReport")
 
@@ -1103,6 +1143,12 @@ class DictClient:
         self.objects: dict[tuple, dict] = {}
         self.version = 0
         self.lock = threading.Lock()
+        self.changed = threading.Condition(self.lock)
+        self.journal: list[tuple] = []
+        #: The journal holds no entry at or below this revision.
+        self.compacted = 0
+        #: Watch windows opened, by kind.
+        self.windows: dict[str, int] = {}
 
     def _key(self, kind: str, name: str, namespace: str) -> tuple:
         return (kind, "" if kind in self.CLUSTER_SCOPED else namespace or "default", name)
@@ -1114,15 +1160,24 @@ class DictClient:
             raise NotFoundError(f"{key[0]} {key[2]} not found")
         return self.objects[key]
 
+    def _record(self, event: str, key: tuple, raw: dict, old: Optional[dict]) -> None:
+        from k8s_operator_libs_tpu_torch.kube.objects import deep_copy_json
+
+        self.journal.append((self.version, event, key, deep_copy_json(raw), old))
+        self.changed.notify_all()
+
     def _put(self, key: tuple, raw: dict):
         from k8s_operator_libs_tpu_torch.kube.objects import wrap
 
+        old = self.objects.get(key)
         self.version += 1
         raw["metadata"]["resourceVersion"] = str(self.version)
         if raw["metadata"].get("deletionTimestamp") and not raw["metadata"].get("finalizers"):
             self.objects.pop(key, None)  # the last finalizer is gone
+            self._record("DELETED", key, raw, old)
         else:
             self.objects[key] = raw
+            self._record("ADDED" if old is None else "MODIFIED", key, raw, old)
         return wrap(json.loads(json.dumps(raw)))
 
     def get(self, kind: str, name: str, namespace: str = ""):
@@ -1131,27 +1186,103 @@ class DictClient:
         with self.lock:
             return wrap(json.loads(json.dumps(self._stored(self._key(kind, name, namespace)))))
 
-    def list(self, kind: str, namespace: str = "", label_selector=None, field_selector=None):
-        from k8s_operator_libs_tpu_torch.kube.objects import wrap
+    @staticmethod
+    def _selectors(label_selector, field_selector):
+        from k8s_operator_libs_tpu_torch.kube.selectors import (
+            LabelSelector,
+            parse_field_selector,
+            parse_selector,
+        )
 
         if isinstance(label_selector, dict):
-            wanted = dict(label_selector)
+            labels = LabelSelector.from_match_labels(label_selector)
         else:
-            wanted = dict(p.split("=", 1) for p in (label_selector or "").split(",") if p)
-        fields = dict(p.split("=", 1) for p in (field_selector or "").split(",") if p)
+            labels = parse_selector(label_selector)
+        return labels, parse_field_selector(field_selector)
+
+    @staticmethod
+    def _selected(raw: Optional[dict], selectors) -> bool:
+        labels, fields = selectors
+        return (
+            raw is not None
+            and labels.matches(raw["metadata"].get("labels"))
+            and fields.matches(raw)
+        )
+
+    def list_with_revision(self, kind: str, namespace: str = "", label_selector=None,
+                           field_selector=None):
+        """``list`` and the revision a watch resumes from after it."""
+        from k8s_operator_libs_tpu_torch.kube.objects import wrap
+
+        selectors = self._selectors(label_selector, field_selector)
         out = []
         with self.lock:
             for (k, ns, _), raw in sorted(self.objects.items()):
-                labels = raw["metadata"].get("labels") or {}
                 if k != kind or (namespace and ns != namespace):
                     continue
-                if any(labels.get(a) != b for a, b in wanted.items()):
+                if self._selected(raw, selectors):
+                    out.append(wrap(json.loads(json.dumps(raw))))
+            return out, str(self.version)
+
+    def list(self, kind: str, namespace: str = "", label_selector=None, field_selector=None):
+        return self.list_with_revision(kind, namespace, label_selector, field_selector)[0]
+
+    def watch(self, kind: str, namespace: str = "", label_selector=None, field_selector=None,
+              timeout_seconds=None, resource_version=None, handle=None,
+              allow_bookmarks: bool = False):
+        """The journal's events after ``resource_version`` (after now
+        without one) for ``kind`` in ``namespace`` within the selectors,
+        until ``timeout_seconds`` (the client's default window without
+        one) pass or ``handle`` is cancelled."""
+        from k8s_operator_libs_tpu_torch.kube.client import WatchExpiredError
+        from k8s_operator_libs_tpu_torch.kube.objects import deep_copy_json, wrap
+        from k8s_operator_libs_tpu_torch.kube.rest import DEFAULT_WATCH_TIMEOUT_SECONDS
+
+        selectors = self._selectors(label_selector, field_selector)
+        if timeout_seconds is None:
+            timeout_seconds = DEFAULT_WATCH_TIMEOUT_SECONDS
+        deadline = time.monotonic() + timeout_seconds
+        with self.lock:
+            self.windows[kind] = self.windows.get(kind, 0) + 1
+            since = int(resource_version) if resource_version else self.version
+        while not (handle is not None and handle.cancelled):
+            with self.changed:
+                if since < self.compacted:
+                    raise WatchExpiredError(
+                        f"resourceVersion {since} is older than the journal, "
+                        f"compacted through {self.compacted}"
+                    )
+                first = len(self.journal)
+                while first > 0 and self.journal[first - 1][0] > since:
+                    first -= 1
+                batch = self.journal[first:]
+                if not batch:
+                    remaining = deadline - time.monotonic()
+                    if remaining <= 0:
+                        return
+                    self.changed.wait(min(remaining, 0.1))
                     continue
-                node = (raw.get("spec") or {}).get("nodeName")
-                if "spec.nodeName" in fields and node != fields["spec.nodeName"]:
+            for rv, event, (k, ns, _), raw, old in batch:
+                since = rv
+                if k != kind or (namespace and ns != namespace):
                     continue
-                out.append(wrap(json.loads(json.dumps(raw))))
-        return out
+                now_in, was_in = self._selected(raw, selectors), self._selected(old, selectors)
+                if event == "DELETED":
+                    event = "DELETED" if now_in or was_in else ""
+                elif now_in:
+                    event = "MODIFIED" if was_in else "ADDED"
+                else:
+                    event = "DELETED" if was_in else ""
+                if event:
+                    yield event, wrap(deep_copy_json(raw))
+
+    def compact(self) -> int:
+        """Drop the whole journal; a watch from any earlier revision than
+        now raises ``WatchExpiredError``. The revision compacted through."""
+        with self.lock:
+            self.journal.clear()
+            self.compacted = self.version
+            return self.compacted
 
     def create(self, obj):
         from k8s_operator_libs_tpu_torch.kube.client import AlreadyExistsError
@@ -1216,7 +1347,11 @@ class DictClient:
         with self.lock:
             meta = self._stored(key)["metadata"]
             if not meta.get("finalizers"):
-                del self.objects[key]
+                old = self.objects.pop(key)
+                self.version += 1
+                gone = json.loads(json.dumps(old))
+                gone["metadata"]["resourceVersion"] = str(self.version)
+                self._record("DELETED", key, gone, old)
             elif not meta.get("deletionTimestamp"):
                 raw = json.loads(json.dumps(self.objects[key]))
                 raw["metadata"]["deletionTimestamp"] = rfc3339_now()
@@ -1325,11 +1460,281 @@ def check_launches(label: str, launches: dict, gate_launches: dict) -> None:
             )
 
 
-def monitor_phase(card: str, gate_launches: dict) -> dict:
-    """Monitor cycles on the card: pass, fail, busy, quick tier."""
-    from k8s_operator_libs_tpu_torch.kube.events import EventRecorder
-    from k8s_operator_libs_tpu_torch.kube.objects import Node, Pod, condition_status
+def pool_node(name: str, labels: dict):
+    """A Node as a GPU host's kubelet reports it (labels, capacity,
+    conditions, node info, addresses, images): about 2.6 KB of JSON."""
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
+
+    gpus = labels.get("nvidia.com/gpu.count", "1")
+    node = Node.new(name, labels={
+        **labels,
+        "kubernetes.io/hostname": name,
+        "kubernetes.io/os": "linux",
+        "kubernetes.io/arch": "amd64",
+        "node.kubernetes.io/instance-type": "gpu-8x",
+        "topology.kubernetes.io/zone": "zone-a",
+    })
+    resources = {"cpu": "208", "memory": "2113389068Ki", "ephemeral-storage": "3748905412Ki",
+                 "hugepages-2Mi": "0", "nvidia.com/gpu": gpus, "pods": "110"}
+    stamp = "2026-01-01T00:00:00Z"
+    node.raw["spec"] = {"podCIDR": "10.64.0.0/24", "providerID": f"gce://fleet/zone-a/{name}"}
+    node.raw["status"] = {
+        "capacity": dict(resources),
+        "allocatable": dict(resources),
+        "conditions": [
+            {"type": kind, "status": status, "reason": reason, "message": message,
+             "lastHeartbeatTime": stamp, "lastTransitionTime": stamp}
+            for kind, status, reason, message in (
+                ("MemoryPressure", "False", "KubeletHasSufficientMemory",
+                 "kubelet has sufficient memory available"),
+                ("DiskPressure", "False", "KubeletHasNoDiskPressure",
+                 "kubelet has no disk pressure"),
+                ("PIDPressure", "False", "KubeletHasSufficientPID",
+                 "kubelet has sufficient PID available"),
+                ("Ready", "True", "KubeletReady", "kubelet is posting ready status"),
+            )
+        ],
+        "addresses": [{"type": "InternalIP", "address": "10.128.0.2"},
+                      {"type": "Hostname", "address": name}],
+        "daemonEndpoints": {"kubeletEndpoint": {"Port": 10250}},
+        "nodeInfo": {
+            "machineID": "3f6c0e1d2b8a4c7e9f10a2b3c4d5e6f7",
+            "systemUUID": "4c4c4544-0042-3510-8052-b4c04f4e3732",
+            "bootID": "a1b2c3d4-e5f6-4789-a0b1-c2d3e4f5a6b7",
+            "kernelVersion": "6.8.0-1015-gcp", "osImage": "Ubuntu 22.04.4 LTS",
+            "containerRuntimeVersion": "containerd://1.7.19", "kubeletVersion": "v1.30.3",
+            "kubeProxyVersion": "v1.30.3", "operatingSystem": "linux", "architecture": "amd64",
+        },
+        "images": [
+            {"names": [f"nvcr.io/nvidia/{image}"], "sizeBytes": size}
+            for image, size in (("driver:560.35.03-ubuntu22.04", 1450000000),
+                                ("k8s-device-plugin:v0.16.2", 130000000),
+                                ("gpu-feature-discovery:v0.16.2", 120000000),
+                                ("dcgm-exporter:3.3.7-3.5.0-ubuntu22.04", 450000000))
+        ],
+    }
+    return node
+
+
+class WatchPhase:
+    """The port's informers over the monitor's and the requestor roll's
+    ``DictClient``: a Node informer on the GPU label over a pool of
+    ``WATCH_POOL_NODES`` nodes beside the monitored one, a NodeHealthReport
+    informer, and a NodeMaintenance informer with ``WATCH_WINDOW_S``
+    windows. Each informer counts every event its handlers see; a handler
+    filtered by ``condition_changed_predicate`` keeps the monitored node's
+    ``TpuIciHealthy`` transitions, one filtered by ``requestor_id_predicate``
+    the NodeMaintenance events by node. Any check that fails raises."""
+
+    def __init__(self) -> None:
+        self.info: dict = {}
+        self.informers: dict = {}
+        self.counts: dict[str, int] = {}
+        self.started: dict[str, float] = {}
+        self.transitions: list[str] = []
+        self.maintenance_events: list[tuple] = []
+
+    def _start(self, label: str, client, kind: str, handler=None, **kw):
+        """Start an informer with the counting handler and ``handler``."""
+        from k8s_operator_libs_tpu_torch.kube.informer import Informer
+
+        informer = Informer(client, kind, **kw)
+        self.counts[label] = 0
+
+        def count(event_type, obj, old) -> None:
+            self.counts[label] += 1
+
+        for h in (count, handler):
+            if h is not None:
+                informer.add_event_handler(h)
+        self.informers[label] = informer
+        self.started[label] = time.perf_counter()
+        informer.start()
+        return informer
+
+    @staticmethod
+    def _settle(what: str, predicate) -> None:
+        deadline = time.monotonic() + WATCH_SETTLE_S
+        while not predicate():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"watch: {what} within {WATCH_SETTLE_S} s")
+            time.sleep(0.02)
+
+    def start_maintenance(self, client) -> None:
+        """The NodeMaintenance informer on the requestor roll's client."""
+        from k8s_operator_libs_tpu_torch.kube.objects import NodeMaintenance
+        from k8s_operator_libs_tpu_torch.upgrade import requestor_id_predicate
+
+        def ours(event_type, obj, old) -> None:
+            if requestor_id_predicate(obj.raw, REQUESTOR_ID):
+                self.maintenance_events.append((NodeMaintenance(obj.raw).node_name, event_type))
+
+        informer = self._start("node_maintenance", client, "NodeMaintenance", ours,
+                               namespace=MAINTENANCE_NS, watch_timeout_seconds=WATCH_WINDOW_S)
+        if not informer.wait_for_sync(WATCH_SETTLE_S):
+            raise AssertionError("watch: the NodeMaintenance informer never synced")
+
+    def check_maintenance(self, client) -> None:
+        """After the roll: each node's object ADDED then DELETED once, the
+        store empty, a window resumed; then the journal compacted below the
+        informer's revision: it must re-list, and its store equal the list."""
+        from k8s_operator_libs_tpu_torch.kube.objects import NodeMaintenance
+
+        informer = self.informers["node_maintenance"]
+        self._settle("the NodeMaintenance store empties", lambda: not informer.list())
+        by_node = {node: [e for n, e in self.maintenance_events if n == node]
+                   for node in REQUESTOR_NODES}
+        for node, events in by_node.items():
+            if events.count("ADDED") != 1 or events.count("DELETED") != 1:
+                raise AssertionError(f"watch: {node}'s NodeMaintenance events {events}")
+        windows = client.windows.get("NodeMaintenance", 0)
+        resumed = windows - informer.full_relists - informer.delta_relists
+        if resumed < 1:
+            raise AssertionError(f"watch: no NodeMaintenance window resumed ({windows} windows)")
+        relists = informer.full_relists
+        client.patch("Node", REQUESTOR_NODES[0],
+                     patch={"metadata": {"labels": {"watch-phase": "compact"}}})
+        compacted = client.compact()
+        self._settle("the NodeMaintenance informer re-lists after the compaction",
+                     lambda: informer.full_relists > relists)
+        probe = NodeMaintenance.new("watch-phase-probe", namespace=MAINTENANCE_NS)
+        probe.requestor_id = "other.operator.dev"
+        client.create(probe)
+        self._settle(
+            "the NodeMaintenance store equals the list after the re-list",
+            lambda: [o.raw for o in informer.list()]
+            == [o.raw for o in client.list("NodeMaintenance", namespace=MAINTENANCE_NS)],
+        )
+        client.delete("NodeMaintenance", probe.name, MAINTENANCE_NS)
+        self._settle("the probe's deletion reaches the store", lambda: not informer.list())
+        self._finish("node_maintenance")
+        self.info["node_maintenance"].update({
+            "events_by_node": by_node,
+            "windows": windows,
+            "resumed_windows": resumed,
+            "relists_before_compaction": relists,
+            "compacted_through": compacted,
+            "relists_after_compaction": informer.full_relists - relists,
+        })
+
+    def start_pool(self, client) -> None:
+        """Seed ``client`` (holding the monitored node) with the pool, then
+        the Node and NodeHealthReport informers; the Node informer's sync
+        is timed and must hold every node."""
+        from k8s_operator_libs_tpu_torch.kube.objects import condition_status
+        from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+        from k8s_operator_libs_tpu_torch.tpu.monitor import ICI_HEALTHY_CONDITION
+        from k8s_operator_libs_tpu_torch.upgrade import condition_changed_predicate
+
+        labels = local_gpu_labels()
+        sizes = []
+        for i in range(WATCH_POOL_NODES):
+            node = pool_node(f"gpu-pool-{i:03d}", labels)
+            sizes.append(len(json.dumps(node.raw)))
+            client.create(node)
+        expected = len(client.list("Node", label_selector=WATCH_NODE_SELECTOR))
+
+        def transitions(event_type, obj, old) -> None:
+            if (obj.name == MONITOR_NODE and old is not None
+                    and condition_changed_predicate(old.raw, obj.raw)):
+                self.transitions.append(condition_status(obj.raw.get("status") or {},
+                                                         ICI_HEALTHY_CONDITION))
+
+        start = time.perf_counter()
+        nodes = self._start("node", client, "Node", transitions,
+                            label_selector=WATCH_NODE_SELECTOR)
+        if not nodes.wait_for_sync(WATCH_SETTLE_S):
+            raise AssertionError("watch: the Node informer never synced")
+        sync_s = time.perf_counter() - start
+        held = len(nodes.list())
+        self.info["node"] = {
+            "pool_nodes": WATCH_POOL_NODES, "node_bytes_mean": sum(sizes) / len(sizes),
+            "synced": held, "sync_s": sync_s, "synced_per_s": held / sync_s,
+        }
+        if held != expected or held != WATCH_POOL_NODES + 1:
+            raise AssertionError(f"watch: the Node informer holds {held} nodes, {expected} listed")
+        reports = self._start("node_health_report", client, "NodeHealthReport")
+        if not reports.wait_for_sync(WATCH_SETTLE_S):
+            raise AssertionError("watch: the NodeHealthReport informer never synced")
+
+    def check_report(self, client, mxu_tflops: float) -> None:
+        """The NodeHealthReport informer's copy of the monitored node's
+        report equals the published one, and carries the card's
+        ``mxu_tflops``."""
+        reports = self.informers["node_health_report"]
+        published = client.get("NodeHealthReport", MONITOR_NODE).raw
+        self._settle(
+            "the NodeHealthReport informer reaches the published report",
+            lambda: (reports.get(MONITOR_NODE) is not None
+                     and reports.get(MONITOR_NODE).resource_version
+                     == published["metadata"]["resourceVersion"]),
+        )
+        cached = reports.get(MONITOR_NODE).raw
+        if cached["status"] != published["status"]:
+            raise AssertionError("watch: the cached NodeHealthReport's status differs")
+        if cached["status"]["metrics"].get("mxu_tflops") != mxu_tflops:
+            raise AssertionError(
+                f"watch: the cached report's mxu_tflops {cached['status']['metrics']}, "
+                f"the card's {mxu_tflops}"
+            )
+        self.info["node_health_report"] = {
+            "resource_version": cached["metadata"]["resourceVersion"],
+            "mxu_tflops": cached["status"]["metrics"]["mxu_tflops"],
+        }
+
+    def check_monitor(self, client) -> None:
+        """The predicate-filtered handler saw ``TpuIciHealthy`` go True on
+        the passing cycle and then False on the failing one."""
+        nodes = self.informers["node"]
+        stored = client.get("Node", MONITOR_NODE).resource_version
+        self._settle("the Node informer reaches the monitored node's last write",
+                     lambda: nodes.get(MONITOR_NODE).resource_version == stored)
+        seen = [t for i, t in enumerate(self.transitions) if i == 0 or t != self.transitions[i - 1]]
+        self.info["node"]["ici_healthy_transitions"] = list(self.transitions)
+        if seen[:2] != ["True", "False"]:
+            raise AssertionError(f"watch: TpuIciHealthy transitions seen {self.transitions}")
+
+    def _finish(self, label: str) -> None:
+        """Stop one informer (again: no-op) and record its life."""
+        informer = self.informers[label]
+        if not informer.started:
+            return
+        informer.stop()
+        seconds = time.perf_counter() - self.started[label]
+        self.info.setdefault(label, {}).update({
+            "events": self.counts[label],
+            "seconds": seconds,
+            "events_per_s": self.counts[label] / seconds,
+            "full_relists": informer.full_relists,
+            "delta_relists": informer.delta_relists,
+        })
+
+    def stop(self) -> dict:
+        """Stop every informer; the phase's line."""
+        for label in self.informers:
+            self._finish(label)
+        return self.info
+
+
+def monitor_client():
+    """A ``DictClient`` holding the monitored node, labelled from the card."""
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
     from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+
+    client = DictClient()
+    node = Node.new(MONITOR_NODE, labels=local_gpu_labels())
+    node.set_ready(True)
+    client.create(node)
+    return client
+
+
+def monitor_phase(card: str, gate_launches: dict, client, watch: "WatchPhase") -> dict:
+    """Monitor cycles on the card: pass, fail, busy, quick tier, over
+    ``client`` (``monitor_client()``, its pool seeded and watched by
+    ``watch``). The Warning the failing cycle records is recorded once
+    more through the monitor's recorder: one Event object, its count 2."""
+    from k8s_operator_libs_tpu_torch.kube.events import EventRecorder
+    from k8s_operator_libs_tpu_torch.kube.objects import Pod, condition_status
     from k8s_operator_libs_tpu_torch.tpu.health import IciHealthGate, SubprocessHealthGate
     from k8s_operator_libs_tpu_torch.tpu.monitor import (
         ICI_HEALTHY_CONDITION,
@@ -1339,10 +1744,8 @@ def monitor_phase(card: str, gate_launches: dict) -> dict:
         run_quick_probe_loop,
     )
 
-    client = DictClient()
-    node = Node.new(MONITOR_NODE, labels=local_gpu_labels())
-    node.set_ready(True)
-    client.create(node)
+    node = client.get("Node", MONITOR_NODE)
+    recorder = EventRecorder(client)
 
     def condition() -> str:
         return condition_status(client.get("Node", MONITOR_NODE).status, ICI_HEALTHY_CONDITION)
@@ -1350,7 +1753,7 @@ def monitor_phase(card: str, gate_launches: dict) -> dict:
     def cycle(gate) -> tuple:
         monitor = TpuHealthMonitor(
             client, MONITOR_NODE, gate=gate, failure_threshold=1, success_threshold=1,
-            recorder=EventRecorder(client), report_publisher=ReportPublisher(client, MONITOR_NODE),
+            recorder=recorder, report_publisher=ReportPublisher(client, MONITOR_NODE),
         )
         start = time.perf_counter()
         report = monitor.check_once()
@@ -1382,6 +1785,7 @@ def monitor_phase(card: str, gate_launches: dict) -> dict:
             f"monitor: NodeHealthReport mxu_tflops {info['report_mxu_tflops']}, "
             f"the card's {report.mxu.tflops}"
         )
+    watch.check_report(client, report.mxu.tflops)
 
     gate = subprocess_gate(min_mxu_tflops=1e9)
     report, info["fail_wall_s"] = cycle(gate)
@@ -1391,6 +1795,14 @@ def monitor_phase(card: str, gate_launches: dict) -> dict:
     info["warning_events"] = [e["message"] for e in warnings]
     if report is None or report.ok or info["fail_condition"] != "False" or len(warnings) != 1:
         raise AssertionError(f"monitor: the failing cycle: {info}")
+    # The correlated recorder: the same Warning again patches its count.
+    recorder.event(client.get("Node", MONITOR_NODE), warnings[0]["type"], warnings[0]["reason"],
+                   warnings[0]["message"])
+    again = [e.raw for e in client.list("Event") if e.raw["type"] == "Warning"]
+    info["warning_event_counts"] = [e["count"] for e in again]
+    same = again[0]["metadata"]["name"] == warnings[0]["metadata"]["name"]
+    if info["warning_event_counts"] != [2] or not same:
+        raise AssertionError(f"monitor: the repeated Warning left {again}")
 
     class Counted:
         runs = 0
@@ -1810,13 +2222,14 @@ def roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
     return result
 
 
-def requestor_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+def requestor_roll_phase(card: str, gate_launches: dict, cache_root: str, client) -> dict:
     """Two more GPU nodes rolled from driver 550 to 560 by the port's
     machine in the requestor mode: the maintenance operator's stand-in
     cordons and drains them through NodeMaintenance objects, the
     post-maintenance hook runs the gate on the card in this process, and
     each node's probe pod validates it, on the kernel cache a node of the
-    roll phase left (a second roll of the same hosts)."""
+    roll phase left (a second roll of the same hosts). ``client`` is a
+    fresh ``DictClient``."""
     import torch
 
     from k8s_operator_libs_tpu_torch.kube.sim import MaintenanceOperatorSimulator
@@ -1832,7 +2245,6 @@ def requestor_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dic
         enable_requestor_mode,
     )
 
-    client = DictClient()
     installer = roll_pool(client, REQUESTOR_NODES)
     mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
     mgr.with_validation_enabled(
@@ -1864,7 +2276,7 @@ def requestor_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dic
 
     enable_requestor_mode(mgr, RequestorOptions(
         use_maintenance_operator=True, use_post_maintenance=True,
-        requestor_id="gpu.operator.dev", namespace=MAINTENANCE_NS,
+        requestor_id=REQUESTOR_ID, namespace=MAINTENANCE_NS,
         post_maintenance_hook=hook,
     ))
     operator = MaintenanceOperatorSimulator(client, namespace=MAINTENANCE_NS)
@@ -2338,11 +2750,22 @@ def main() -> int:
     dryrun_phase(card)
     cli_phase()
     pod = device_class_phase(card, launches)
-    with tempfile.TemporaryDirectory(prefix="kernel-caches-") as cache_root:
-        roll = roll_phase(card, launches, cache_root)
-        requestor = requestor_roll_phase(card, launches, cache_root)
-        checkpoint = checkpoint_roll_phase(card, launches, cache_root)
-    monitor = monitor_phase(card, launches)
+    watch = WatchPhase()
+    try:
+        with tempfile.TemporaryDirectory(prefix="kernel-caches-") as cache_root:
+            roll = roll_phase(card, launches, cache_root)
+            requestor_client = DictClient()
+            watch.start_maintenance(requestor_client)
+            requestor = requestor_roll_phase(card, launches, cache_root, requestor_client)
+            watch.check_maintenance(requestor_client)
+            checkpoint = checkpoint_roll_phase(card, launches, cache_root)
+        client = monitor_client()
+        watch.start_pool(client)
+        monitor = monitor_phase(card, launches, client, watch)
+        watch.check_monitor(client)
+    finally:
+        watched = watch.stop()
+    print(json.dumps({"watch": watched, "card": card}), flush=True)
     gang = gang_phase(card, launches)
 
     for row in rows:

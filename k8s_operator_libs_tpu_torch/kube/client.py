@@ -7,14 +7,14 @@ recognises them by their ``reason`` attribute, the API's ``Status.reason``
 cannot tell them apart: ``AlreadyExists`` and ``Conflict`` are both 409.
 
 The client itself is duck-typed: :class:`Client` names the methods the
-device class and the state machine call, with the JAX package's
-signatures. ``rest.RestClient`` is one; so is the JAX package's in-memory
-cluster.
+device class, the state machine and the informer call, with the JAX
+package's signatures. ``rest.RestClient`` is one; so is the JAX package's
+in-memory cluster.
 """
 
 from __future__ import annotations
 
-from typing import Any, Callable, Mapping, Optional, Protocol, TypeVar
+from typing import Any, Callable, Iterator, Mapping, Optional, Protocol, TypeVar
 
 T = TypeVar("T")
 
@@ -49,6 +49,13 @@ class InvalidError(ApiError):
     """The object failed validation (422)."""
 
     reason = "Invalid"
+
+
+class WatchExpiredError(ApiError):
+    """The watch's resume revision fell out of the server's event journal
+    (410 Gone): the caller must re-list and start a fresh watch."""
+
+    reason = "Expired"
 
 
 class TooManyRequestsError(ApiError):
@@ -91,6 +98,25 @@ class Client(Protocol):
     ) -> Any: ...
 
     def delete(self, kind: str, name: str, namespace: str = "") -> None: ...
+
+    def watch(
+        self,
+        kind: str,
+        namespace: str = "",
+        label_selector: Optional[str | Mapping[str, str]] = None,
+        field_selector: Optional[str] = None,
+        timeout_seconds: Optional[int] = None,
+        resource_version: Optional[str] = None,
+        handle: Any = None,
+        allow_bookmarks: bool = False,
+    ) -> Iterator[tuple[str, Any]]:
+        """Stream ``(event_type, object)`` watch events, resumed after
+        ``resource_version`` (a revision that fell out of the server's
+        journal raises an error of ``WatchExpiredError``'s reason); the
+        stream ends after ``timeout_seconds`` or when ``handle`` is
+        cancelled. ``allow_bookmarks`` opts into ``BOOKMARK`` events,
+        which carry only a fresh resume revision."""
+        ...
 
     def evict(self, pod_name: str, namespace: str = "") -> None:
         """Evict a pod through its eviction subresource."""

@@ -1,6 +1,7 @@
 """Thin typed views over Kubernetes object dicts.
 
-A subset of the JAX package's ``kube/objects.py``: ``Node``, ``Pod``,
+A subset of the JAX package's ``kube/objects.py``: ``deep_copy_json``
+(the informer's copy of a document), ``Node``, ``Pod``,
 ``DaemonSet``, ``ControllerRevision``, ``Service``, ``Event`` and the
 external maintenance operator's ``NodeMaintenance`` with the accessors
 the GPU device class, the monitor, the slice gang and the upgrade state
@@ -18,6 +19,19 @@ from __future__ import annotations
 import copy
 import time
 from typing import Any, Iterable, Mapping, MutableMapping, Optional
+
+
+def deep_copy_json(obj: Any) -> Any:
+    """Deep copy of a JSON-shaped API document, far cheaper than
+    ``copy.deepcopy`` (no memo table, no type dispatch): dicts and lists
+    are copied, every other value is shared, which is safe because the
+    scalars of an API document are immutable."""
+    t = type(obj)
+    if t is dict:
+        return {k: deep_copy_json(v) for k, v in obj.items()}
+    if t is list:
+        return [deep_copy_json(v) for v in obj]
+    return obj
 
 
 def _ensure(d: dict[str, Any], key: str) -> dict[str, Any]:

@@ -9,28 +9,34 @@ read as JSON, which kubectl also accepts; a YAML one needs PyYAML, and
 the error says so where it is missing.
 
 The operations are those of the operator's client: ``get``,
-``get_or_none``, ``list`` (label and field selectors), ``create``,
-``update``, ``update_status``, ``patch``, ``delete`` and ``evict`` (the
-pod's eviction subresource), on Node, Pod, Service, Event, DaemonSet,
-ControllerRevision, NodeHealthReport and NodeMaintenance. Objects come
-back as the views of ``kube/objects.py``. An API error is raised with the
-API's ``Status.reason``, as the classes of ``kube/client.py`` where it is
-one of theirs, so ``has_reason`` and ``retry_on_conflict`` read it.
+``get_or_none``, ``list`` and ``list_with_revision`` (label and field
+selectors; the latter also returns the collection's resourceVersion),
+``watch`` (a bounded stream of watch events, resumable from a revision
+and cancelled through a :class:`WatchHandle`), ``create``, ``update``,
+``update_status``, ``patch``, ``delete`` and ``evict`` (the pod's
+eviction subresource), on Node, Pod, Service, Event, DaemonSet,
+ControllerRevision, NodeHealthReport, NodeMaintenance and
+WorkloadCheckpoint. Objects come back as the views of
+``kube/objects.py``. An API error is raised with the API's
+``Status.reason``, as the classes of ``kube/client.py`` where it is one of
+theirs, so ``has_reason`` and ``retry_on_conflict`` read it.
 """
 
 from __future__ import annotations
 
 import atexit
 import base64
+import http.client
 import json
 import os
+import socket
 import ssl
 import tempfile
 import urllib.error
 import urllib.parse
 import urllib.request
 from dataclasses import dataclass, field
-from typing import Any, Mapping, Optional
+from typing import Any, Iterator, Mapping, Optional
 
 from ..api.telemetry_v1alpha1 import NODE_HEALTH_REPORT_API_VERSION
 from ..api.upgrade_v1alpha1 import (
@@ -46,6 +52,7 @@ from .client import (
     InvalidError,
     NotFoundError,
     TooManyRequestsError,
+    WatchExpiredError,
 )
 from .objects import KubeObject, wrap
 
@@ -69,9 +76,15 @@ _ERRORS = {
     cls.reason: cls
     for cls in (
         NotFoundError, AlreadyExistsError, ConflictError, BadRequestError,
-        InvalidError, TooManyRequestsError,
+        InvalidError, TooManyRequestsError, WatchExpiredError,
     )
 }
+
+#: The stream bound of a watch called without ``timeout_seconds``. An
+#: unbounded watch would need an unbounded socket read, which parks on a
+#: half-open connection for ever; bounded windows resumed from the last
+#: revision are the shape client-go's reflector takes for the same reason.
+DEFAULT_WATCH_TIMEOUT_SECONDS = 300
 
 _PATCH_TYPES = {
     "merge": "application/merge-patch+json",
@@ -82,6 +95,27 @@ _PATCH_TYPES = {
 
 class RestConfigError(Exception):
     """No usable credentials were found."""
+
+
+class WatchHandle:
+    """Cancels a streaming watch from another thread. The consumer is
+    parked in a socket read that no flag can interrupt, so ``cancel()``
+    shuts the stream's socket down, which ends the read and the generator.
+    ``_sock`` is that socket once the stream is open (the sign that the
+    watch is live)."""
+
+    def __init__(self) -> None:
+        self._sock: Optional[socket.socket] = None
+        self.cancelled = False
+
+    def cancel(self) -> None:
+        self.cancelled = True
+        sock = self._sock
+        if sock is not None:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass  # already closed
 
 
 def _load_kubeconfig(path: str) -> dict:
@@ -239,6 +273,8 @@ def _api_error(code: int, body: bytes) -> ApiError:
     reason = status.get("reason") or ""
     message = status.get("message") or body.decode(errors="replace")[:500] or f"HTTP {code}"
     cls = _ERRORS.get(reason)
+    if cls is None and code == 410:
+        cls = WatchExpiredError  # Gone: a revision the server no longer holds
     error = cls(message) if cls is not None else ApiError(message)
     if cls is None and reason:
         error.reason = reason
@@ -284,15 +320,19 @@ class RestClient:
     def _namespace(self, kind: str, namespace: str) -> str:
         return namespace or (self.config.namespace if RESOURCES[kind][2] else "")
 
+    def _headers(self) -> dict[str, str]:
+        headers = {"Accept": "application/json"}
+        if self.config.token:
+            headers["Authorization"] = f"Bearer {self.config.token}"
+        return headers
+
     def _request(self, method: str, path: str, body: Any = None,
                  content_type: str = "application/json",
                  query: Optional[Mapping[str, str]] = None) -> Any:
         url = self.config.server.rstrip("/") + path
         if query:
             url += "?" + urllib.parse.urlencode(query)
-        headers = {"Accept": "application/json"}
-        if self.config.token:
-            headers["Authorization"] = f"Bearer {self.config.token}"
+        headers = self._headers()
         data = None
         if body is not None:
             data = json.dumps(body).encode()
@@ -304,6 +344,33 @@ class RestClient:
         except urllib.error.HTTPError as e:
             raise _api_error(e.code, e.read()) from None
         return json.loads(payload) if payload else None
+
+    def _connection(self, timeout: float) -> http.client.HTTPConnection:
+        """A connection of its own to the server (``urllib``'s transport,
+        whose socket ``urlopen`` hides until the response's headers)."""
+        url = urllib.parse.urlsplit(self.config.server)
+        if url.scheme == "https":
+            return http.client.HTTPSConnection(
+                url.hostname, url.port, timeout=timeout, context=self._ssl
+            )
+        return http.client.HTTPConnection(url.hostname, url.port, timeout=timeout)
+
+    @property
+    def _base_path(self) -> str:
+        """The server URL's own path, which every API path extends."""
+        return urllib.parse.urlsplit(self.config.server).path.rstrip("/")
+
+    @staticmethod
+    def _selector_query(label_selector: Optional[str | Mapping[str, str]],
+                        field_selector: Optional[str]) -> dict[str, str]:
+        query = {}
+        if isinstance(label_selector, Mapping):
+            label_selector = ",".join(f"{k}={v}" for k, v in label_selector.items())
+        if label_selector:
+            query["labelSelector"] = label_selector
+        if field_selector:
+            query["fieldSelector"] = field_selector
+        return query
 
     @staticmethod
     def _wrap(kind: str, data: dict) -> KubeObject:
@@ -327,15 +394,94 @@ class RestClient:
              field_selector: Optional[str] = None) -> list[KubeObject]:
         """Every object of ``kind`` (in ``namespace``; all namespaces when
         it is empty) that the selectors match."""
-        query = {}
-        if isinstance(label_selector, Mapping):
-            label_selector = ",".join(f"{k}={v}" for k, v in label_selector.items())
-        if label_selector:
-            query["labelSelector"] = label_selector
-        if field_selector:
-            query["fieldSelector"] = field_selector
-        body = self._request("GET", self._path(kind, namespace), query=query)
-        return [self._wrap(kind, item) for item in (body or {}).get("items") or []]
+        return self.list_with_revision(kind, namespace, label_selector, field_selector)[0]
+
+    def list_with_revision(self, kind: str, namespace: str = "",
+                           label_selector: Optional[str | Mapping[str, str]] = None,
+                           field_selector: Optional[str] = None,
+                           ) -> tuple[list[KubeObject], str]:
+        """``list`` and the collection's ``metadata.resourceVersion``: the
+        revision a watch resumes from with no event lost in between, which
+        an empty list has too. One request, unpaged: the ``limit`` and
+        ``continue`` pager of the operator's client waits for ROADMAP
+        A18."""
+        body = self._request(
+            "GET", self._path(kind, namespace),
+            query=self._selector_query(label_selector, field_selector),
+        ) or {}
+        items = [self._wrap(kind, item) for item in body.get("items") or []]
+        return items, str((body.get("metadata") or {}).get("resourceVersion", ""))
+
+    def watch(self, kind: str, namespace: str = "",
+              label_selector: Optional[str | Mapping[str, str]] = None,
+              field_selector: Optional[str] = None,
+              timeout_seconds: Optional[int] = None,
+              resource_version: Optional[str] = None,
+              handle: Optional[WatchHandle] = None,
+              allow_bookmarks: bool = False) -> Iterator[tuple[str, KubeObject]]:
+        """Stream watch events as ``(event_type, object)`` pairs.
+
+        With ``resource_version`` the events after that revision replay
+        first, so a list followed by a watch from the list's revision
+        loses nothing; a revision the server's journal no longer holds
+        raises ``WatchExpiredError`` (410), and the caller re-lists. The
+        server ends the stream after ``timeout_seconds``
+        (``DEFAULT_WATCH_TIMEOUT_SECONDS`` when None) and the generator
+        ends with it; the socket read times out a client timeout later,
+        so a half-open connection cannot park the caller. An ``ERROR``
+        frame inside the stream raises its ``Status``'s error.
+        ``allow_bookmarks`` asks for ``BOOKMARK`` events, which carry only
+        a fresh resume revision. ``handle.cancel()`` ends the stream from
+        another thread. Each watch takes a connection of its own, on
+        ``http.client`` (the transport under ``urllib``), so that the
+        handle holds its socket from the connect on.
+        """
+        if timeout_seconds is None:
+            timeout_seconds = DEFAULT_WATCH_TIMEOUT_SECONDS
+        query = self._selector_query(label_selector, field_selector)
+        query["watch"] = "true"
+        query["timeoutSeconds"] = str(int(timeout_seconds))  # an int64 to the server
+        if allow_bookmarks:
+            query["allowWatchBookmarks"] = "true"
+        if resource_version is not None:
+            query["resourceVersion"] = resource_version
+        path = self._path(kind, namespace) + "?" + urllib.parse.urlencode(query)
+        handle = handle if handle is not None else WatchHandle()
+        conn = self._connection(timeout_seconds + self.timeout)
+        try:
+            try:
+                conn.connect()
+                # Known to the handle from the connect on: a server that
+                # takes the request and never answers cannot park a cancel.
+                handle._sock = conn.sock
+                if handle.cancelled:
+                    return
+                conn.request("GET", self._base_path + path, headers=self._headers())
+                resp = conn.getresponse()
+            except (OSError, http.client.HTTPException) as e:
+                if handle.cancelled:
+                    return
+                raise ApiError(f"GET {path}: watch failed: {e}") from None
+            if resp.status >= 300:
+                raise _api_error(resp.status, resp.read())
+            while not handle.cancelled:
+                try:
+                    line = resp.readline()
+                except (OSError, http.client.HTTPException) as e:
+                    if handle.cancelled:
+                        return
+                    raise ApiError(f"GET {path}: watch stream died: {e}") from None
+                if not line:
+                    return  # the server ended the stream
+                if not line.strip():
+                    continue
+                event = json.loads(line)
+                if event.get("type") == "ERROR":
+                    status = event.get("object") or {}
+                    raise _api_error(int(status.get("code") or 500), json.dumps(status).encode())
+                yield event["type"], self._wrap(kind, event["object"])
+        finally:
+            conn.close()
 
     def create(self, obj: KubeObject) -> KubeObject:
         kind = obj.raw.get("kind", "")

@@ -18,13 +18,16 @@ every card (``-k gang``) and, with two or more cards, as two pods on half
 the cards each (``-k between_cards``). The requestor roll (``-k
 requestor``) runs the post-maintenance warm-up hook on the card in this
 process. The checkpoint roll's trainer (``-k trainer``) saves, restores
-and trains again the flagship model on the card.
+and trains again the flagship model on the card. The NodeHealthReport
+informer over ``chip_smoke.py``'s ``DictClient`` (``-k informer``) sees the
+report of a monitor cycle that ran the card's payload.
 """
 
 import importlib.util
 import json
 import math
 import os
+import time
 from pathlib import Path
 
 import pytest
@@ -654,6 +657,46 @@ def test_monitor_cycle_on_the_card(cuda):
     )
     assert line["kernels"]["launches"]["matmul"] > 0
     assert line["kernels"]["launches"]["flash_attention"] > 0
+
+
+def test_report_informer_over_dict_client_sees_the_gate_report(cuda):
+    """The port's NodeHealthReport informer over ``chip_smoke.py``'s
+    ``DictClient`` (its journal-backed watch): a monitor cycle whose
+    subprocess gate runs the card's payload publishes the report, and the
+    informer's copy equals it, the card's ``mxu_tflops`` included."""
+    from k8s_operator_libs_tpu_torch.kube.informer import Informer
+    from k8s_operator_libs_tpu_torch.tpu.health import SubprocessHealthGate
+    from k8s_operator_libs_tpu_torch.tpu.monitor import ReportPublisher, TpuHealthMonitor
+
+    smoke = chip_smoke_module()
+    client = smoke.monitor_client()
+    env, repo = _payload_env()
+    gate = SubprocessHealthGate(
+        cli_args=IciHealthGate.tpu_defaults(matmul_size=512).to_cli_args(),
+        timeout_seconds=600, env=env, cwd=repo,
+    )
+    monitor = TpuHealthMonitor(
+        client, smoke.MONITOR_NODE, gate=gate, failure_threshold=1, success_threshold=1,
+        report_publisher=ReportPublisher(client, smoke.MONITOR_NODE),
+    )
+    seen = []
+    with Informer(client, "NodeHealthReport", watch_timeout_seconds=1) as reports:
+        reports.add_event_handler(lambda event_type, obj, old: seen.append((event_type, obj.name)))
+        assert reports.wait_for_sync(10)
+        report = monitor.check_once()
+        assert report is not None and report.ok, report and report.failures
+        published = client.get("NodeHealthReport", smoke.MONITOR_NODE).raw
+        deadline = time.monotonic() + 10
+        while reports.get(smoke.MONITOR_NODE) is None or (
+            reports.get(smoke.MONITOR_NODE).resource_version
+            != published["metadata"]["resourceVersion"]
+        ):
+            assert time.monotonic() < deadline, "the informer never saw the report"
+            time.sleep(0.05)
+        cached = reports.get(smoke.MONITOR_NODE).raw
+    assert cached == published
+    assert cached["status"]["metrics"]["mxu_tflops"] == report.mxu.tflops
+    assert ("ADDED", smoke.MONITOR_NODE) in seen
 
 
 def test_one_pod_gang_through_the_tcp_rendezvous(cuda):

@@ -449,6 +449,12 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.tpu.slice_gate\n"
         "import k8s_operator_libs_tpu_torch.kube.rest\n"
         "import k8s_operator_libs_tpu_torch.kube.events\n"
+        "import k8s_operator_libs_tpu_torch.kube.informer\n"
+        "import k8s_operator_libs_tpu_torch.kube.selectors\n"
+        "import k8s_operator_libs_tpu_torch.kube.jsonpath\n"
+        "import k8s_operator_libs_tpu_torch.utils.lifecycle\n"
+        "import k8s_operator_libs_tpu_torch.kube as k\n"
+        "[getattr(k, name) for name in k.__all__]\n"
         "import k8s_operator_libs_tpu_torch.upgrade.metrics\n"
         "import k8s_operator_libs_tpu_torch.upgrade as u\n"
         "[getattr(u, name) for name in u.__all__]\n"

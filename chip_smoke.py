@@ -204,14 +204,40 @@ Phases, in order; any failure raises and the script exits non-zero:
     ready files must read ``slice=N/N over 2 hosts`` and each report's
     hop to the other child must name the other member's node.
     ``{"gang": ...}`` gives each child's world formation split as
-    ``World.form_times`` does, the TCP join included.
+    ``World.form_times`` does, the TCP join included;
+18. quarantine phase (the quarantine arc and the health telemetry it
+    reads), after the monitor phase and before the gang phase: the monitor
+    phase keeps the two NodeHealthReports it published, after its passing
+    and its failing cycle (the failing cycle must publish one). A pool of
+    ``QUARANTINE_NODES`` (the monitored node and three more, the roll's
+    helpers, ``ROLL_POLICY``'s budget of one node) in a ``DictClient``,
+    reconciled by the port's ``ClusterUpgradeStateManager`` with
+    ``with_health_telemetry()`` (its ``HealthSource`` an informer over the
+    client), validation by probe pods, and the quarantine arc on: the
+    entry threshold halfway between the two reports' scores, recovery at
+    the healthy report's, both read off the reports; its clock virtual,
+    advanced past each deadline. The pool settles ``upgrade-done``; the
+    failing report, written as the node's report, makes one pass
+    quarantine and cordon that node alone, with an event saying so; a
+    recheck past the backoff keeps it and doubles the backoff; the passing
+    report releases and uncordons it and the next pass classifies it
+    done; the failing report again quarantines it and, past
+    ``QUARANTINE_HANDOFF_S``, hands it off to ``upgrade-required`` still
+    cordoned; the roll then takes it to ``upgrade-done`` through its probe
+    pod, on a roll-phase node's kernel cache (no ``nvcc``), launching each
+    kernel as often as the gate phase; the controller launches none.
+    ``HealthMetrics.render()`` must count 2 entries, 1 release and 1
+    hand-off. ``{"quarantine": ...}`` gives both scores and thresholds
+    (the healthy card's score among them), each pass's node states, the
+    totals, the rendered counters, the probe pod's seconds to Ready and
+    launches, and the phase's wall seconds.
 
 The last lines are the kernel table as one JSON object (each row with the
 launches of the gate, the burn-in forward, the flagship MoE flash
 forward, the probe pod, the roll's probe pods together, the requestor
 roll's hook calls together and its probe pods together, the checkpoint
-roll's probe pods together, the monitor's payload and the gang's
-payload),
+roll's probe pods together, the monitor's payload, the quarantine
+hand-off's probe pod and the gang's payload),
 the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
 or run from a directory that holds only this file, it exits non-zero and
@@ -340,6 +366,13 @@ CHECKPOINT_STATS = (
     "checkpoint_restore_escalations_total",
 )
 GANG_NODES = ("gang-node-0", "gang-node-1")
+#: The quarantine phase's pool: the monitored node, whose reports it
+#: replays, and three more; and its clocks, in virtual seconds: the first
+#: recheck, the backoff's cap, and the hand-off.
+QUARANTINE_NODES = (MONITOR_NODE, "gpu-quar-1", "gpu-quar-2", "gpu-quar-3")
+QUARANTINE_BACKOFF_S = 60
+QUARANTINE_MAX_BACKOFF_S = 900
+QUARANTINE_HANDOFF_S = 600
 
 
 def card_line() -> str:
@@ -1774,6 +1807,7 @@ def monitor_phase(card: str, gate_launches: dict, client, watch: "WatchPhase") -
     info["pass_elapsed_s"] = report.elapsed_s if report else None
     info["pass_condition"] = condition()
     published = client.get("NodeHealthReport", MONITOR_NODE).raw
+    reports = {"healthy": published}
     info["report_mxu_tflops"] = published["status"]["metrics"].get("mxu_tflops")
     info["report_score"] = published["status"]["score"]
     if report is None or not report.ok:
@@ -1791,6 +1825,11 @@ def monitor_phase(card: str, gate_launches: dict, client, watch: "WatchPhase") -
     report, info["fail_wall_s"] = cycle(gate)
     info["fail_launches"] = payload_lines(gate.last_stderr)["kernels"]["launches"]
     info["fail_condition"] = condition()
+    reports["degraded"] = client.get("NodeHealthReport", MONITOR_NODE).raw
+    info["report_scores"] = {k: raw["status"]["score"] for k, raw in reports.items()}
+    rvs = {raw["metadata"]["resourceVersion"] for raw in reports.values()}
+    if len(rvs) != 2:
+        raise AssertionError("monitor: the failing cycle published no NodeHealthReport")
     warnings = [e.raw for e in client.list("Event") if e.raw["type"] == "Warning"]
     info["warning_events"] = [e["message"] for e in warnings]
     if report is None or report.ok or info["fail_condition"] != "False" or len(warnings) != 1:
@@ -1839,7 +1878,7 @@ def monitor_phase(card: str, gate_launches: dict, client, watch: "WatchPhase") -
     if rc != 0 or quick["status"]["checks"] != {"ring_allreduce": True, "mxu": True}:
         raise AssertionError(f"monitor: quick tier rc {rc}: {quick['status']}")
     check_launches("monitor payload", info["pass_launches"], gate_launches)
-    return info
+    return {**info, "reports": reports}
 
 
 def gang_phase(card: str, gate_launches: dict) -> dict:
@@ -2716,6 +2755,217 @@ def checkpoint_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
     return result
 
 
+def put_report(client, raw: dict) -> None:
+    """Write ``raw`` (a NodeHealthReport as the monitor published it) as the
+    node's live report: created, or replacing the one there."""
+    from k8s_operator_libs_tpu_torch.kube.client import get_or_none
+    from k8s_operator_libs_tpu_torch.kube.objects import deep_copy_json, wrap
+
+    body = deep_copy_json(raw)
+    name = body["metadata"]["name"]
+    body["metadata"] = {"name": name}
+    existing = get_or_none(client, "NodeHealthReport", name)
+    if existing is None:
+        client.create(wrap(body))
+        return
+    body["metadata"]["resourceVersion"] = existing.resource_version
+    client.update(wrap(body))
+
+
+def quarantine_policy(healthy_score: float, degraded_score: float) -> dict:
+    """The roll's policy with the quarantine arc: the entry threshold halfway
+    between the two reports' scores, recovery at the healthy report's."""
+    return {
+        **ROLL_POLICY,
+        "quarantine": {
+            "enable": True,
+            "unhealthyScore": (healthy_score + degraded_score) / 2,
+            "recoveryScore": healthy_score,
+            "reprobeBackoffSeconds": QUARANTINE_BACKOFF_S,
+            "maxBackoffSeconds": QUARANTINE_MAX_BACKOFF_S,
+            "handoffAfterSeconds": QUARANTINE_HANDOFF_S,
+        },
+    }
+
+
+class VirtualClock:
+    """The quarantine manager's clock, advanced past its deadlines by the
+    phase instead of waited out."""
+
+    def __init__(self, start: float) -> None:
+        self.now = start
+
+    def wall(self) -> float:
+        return self.now
+
+
+def quarantine_arc(client, mgr, installer, kubelet, reports: dict, events) -> dict:
+    """The quarantine arc of ``QUARANTINE_NODES[0]`` on ``mgr`` (with health
+    telemetry), driven by ``reports`` ("healthy" and "degraded", raw
+    NodeHealthReports): settle the pool, the degraded report quarantines
+    and cordons the node alone, a recheck past the backoff keeps it and
+    doubles the backoff, the healthy report releases and uncordons it and
+    the next pass classifies it done, the degraded report again and the
+    hand-off deadline send it still cordoned to ``upgrade-required``, and
+    the roll takes it to ``upgrade-done`` through its probe pod. The
+    quarantine clock is virtual; every other wait is bounded. Each pass's
+    node states, the scores, thresholds and totals, and the counters
+    ``HealthMetrics`` renders."""
+    from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import DriverUpgradePolicySpec
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
+    from k8s_operator_libs_tpu_torch.upgrade import HealthMetrics
+
+    node = QUARANTINE_NODES[0]
+    keys = mgr.keys
+    source = mgr.health_source
+    qm = mgr.common.quarantine_manager
+    clock = VirtualClock(time.time())
+    qm._now = clock.wall
+    scores = {k: float(raw["status"]["score"]) for k, raw in reports.items()}
+    if not scores["degraded"] < scores["healthy"]:
+        raise AssertionError(f"quarantine: the failing report does not score lower: {scores}")
+    doc = quarantine_policy(scores["healthy"], scores["degraded"])
+    policy = DriverUpgradePolicySpec.from_dict(doc)
+    family = HealthMetrics(source, quarantine_totals=qm.totals)
+    passes: list = []
+
+    def nodes() -> dict:
+        return {n.name: Node(n.raw) for n in client.list("Node")}
+
+    def one_pass(label: str) -> dict:
+        kubelet.tick()
+        mgr.apply_state(mgr.build_state(installer.spec.namespace, installer.match_labels),
+                        policy)
+        states = {name: [n.labels.get(keys.state_label, ""), bool(n.unschedulable)]
+                  for name, n in nodes().items()}
+        passes.append({"label": label, "clock_s": round(clock.now - start, 3), "states": states})
+        return states
+
+    def expect(label: str, states: dict, wanted: list) -> None:
+        others = {n: s for n, s in states.items() if n != node}
+        if states[node] != wanted or any(s != ["upgrade-done", False] for s in others.values()):
+            raise AssertionError(f"quarantine: after {label} {states}, {node} should be {wanted}")
+
+    def report(kind: str) -> None:
+        put_report(client, reports[kind])
+        deadline = time.perf_counter() + WATCH_SETTLE_S
+        while (source.health_of(node) is None
+               or source.health_of(node).score != scores[kind]):
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"quarantine: the health source never saw the {kind} report")
+            time.sleep(0.01)
+
+    start = clock.now
+    kubelet.tick()  # the driver pods
+    for _ in range(3):
+        states = one_pass("settle")
+    expect("settling", states, ["upgrade-done", False])
+    report("degraded")
+    expect("the degraded report", one_pass("degraded"), ["quarantined", True])
+    if not any(n == node and "quarantined" in m for n, _, m in events.events):
+        raise AssertionError(f"quarantine: no event says {node} was quarantined: {events.events}")
+    clock.now += QUARANTINE_BACKOFF_S + 1
+    expect("the first recheck", one_pass("recheck"), ["quarantined", True])
+    backoff = nodes()[node].annotations.get(keys.quarantine_backoff_annotation)
+    if backoff != str(2 * QUARANTINE_BACKOFF_S):
+        raise AssertionError(f"quarantine: backoff {backoff} after a recheck that found it sick")
+    report("healthy")
+    clock.now += 2 * QUARANTINE_BACKOFF_S + 1
+    expect("the healthy report", one_pass("recovered"), ["", False])
+    expect("the reclassification", one_pass("reclassified"), ["upgrade-done", False])
+    report("degraded")
+    expect("the degraded report again", one_pass("degraded-again"), ["quarantined", True])
+    clock.now += QUARANTINE_HANDOFF_S + 1
+    expect("the hand-off deadline", one_pass("handoff"), ["upgrade-required", True])
+    roll_start = last_change = time.perf_counter()
+    while True:
+        states = one_pass("roll")
+        if states[node] == ["upgrade-done", False]:
+            break
+        if states[node][0] == "upgrade-failed":
+            raise AssertionError(f"quarantine: the roll failed {node}: {passes[-1]}")
+        if passes[-2]["states"][node] != states[node]:
+            last_change = time.perf_counter()
+        elif time.perf_counter() - last_change > ROLL_STALL_S:
+            raise AssertionError(f"quarantine: {node} stuck in {states[node]}")
+        time.sleep(ROLL_PASS_INTERVAL_S)
+    expect("the roll", states, ["upgrade-done", False])
+    rendered = family.render()
+    counters = {
+        key: int(line.rsplit(" ", 1)[1])
+        for line in rendered.splitlines()
+        for key, name in (("entered", "entries"), ("released", "releases"),
+                          ("handed_off", "handoffs"))
+        if line.startswith(f"tpu_operator_health_quarantine_{name}_total ")
+    }
+    if counters != {"entered": 2, "released": 1, "handed_off": 1}:
+        raise AssertionError(f"quarantine: HealthMetrics counted {counters}: {rendered}")
+    return {
+        "node": node,
+        "scores": scores,
+        "thresholds": {"unhealthy": doc["quarantine"]["unhealthyScore"],
+                       "recovery": doc["quarantine"]["recoveryScore"]},
+        "passes": passes,
+        "roll_wall_s": time.perf_counter() - roll_start,
+        "totals": qm.totals(),
+        "counters": counters,
+        "events": [m for n, _, m in events.events if n == node and "uarantine" in m],
+    }
+
+
+def quarantine_phase(card: str, gate_launches: dict, cache_root: str, reports: dict) -> dict:
+    """The quarantine arc on the port's machine with health telemetry, over
+    the monitor phase's two published reports of the card, in a pool of
+    ``QUARANTINE_NODES``; the handed-off node's probe pod validates it on a
+    roll-phase node's kernel cache."""
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
+        ValidationPodManager,
+        ValidationPodSpec,
+    )
+    from k8s_operator_libs_tpu_torch.upgrade import ClusterUpgradeStateManager, DeviceClass
+
+    start = time.perf_counter()
+    client = DictClient()
+    installer = roll_pool(client, QUARANTINE_NODES)
+    events = EventLog()
+    mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"), recorder=events)
+    mgr.with_validation_enabled(
+        pod_provisioner=ValidationPodManager(client, ValidationPodSpec())
+    )
+    caches = {name: os.path.join(cache_root, ROLL_NODES[0]) for name in QUARANTINE_NODES}
+    print(f"quarantine: {QUARANTINE_NODES[0]}'s probe pod takes the kernel cache of "
+          f"{ROLL_NODES[0]} from the roll phase, so its payload skips nvcc", flush=True)
+    source = mgr.with_health_telemetry()
+    try:
+        with tempfile.TemporaryDirectory(prefix="quarantine-") as workdir:
+            kubelet = RollKubelet(client, installer, QUARANTINE_NODES, workdir, gate_launches,
+                                  caches)
+            reset_counts()
+            run = quarantine_arc(client, mgr, installer, kubelet, reports, events)
+            controller = counts()
+    finally:
+        source.stop()
+        mgr.runner.shutdown()
+    runs = kubelet.probe_runs
+    result = {
+        **run,
+        "healthy_card_score": run["scores"]["healthy"],
+        "probe_pods": runs,
+        "pod_launches": total_launches(runs.values()),
+        "controller_launches": {lib: controller[lib] for lib in ("matmul", "flash_attention")},
+        "wall_s": time.perf_counter() - start,
+    }
+    print(json.dumps({"quarantine": result, "card": card}), flush=True)
+    if [r["node"] for r in runs.values()] != [QUARANTINE_NODES[0]]:
+        raise AssertionError(f"quarantine: probe pods ran on {[r['node'] for r in runs.values()]}")
+    built = {name: r["build_s"] for name, r in runs.items() if any(r["build_s"].values())}
+    if built:
+        raise AssertionError(f"quarantine: the probe pod built its kernels again: {built}")
+    if controller["matmul"] or controller["flash_attention"]:
+        raise AssertionError(f"quarantine: the controller launched kernels: {controller}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -2759,10 +3009,11 @@ def main() -> int:
             requestor = requestor_roll_phase(card, launches, cache_root, requestor_client)
             watch.check_maintenance(requestor_client)
             checkpoint = checkpoint_roll_phase(card, launches, cache_root)
-        client = monitor_client()
-        watch.start_pool(client)
-        monitor = monitor_phase(card, launches, client, watch)
-        watch.check_monitor(client)
+            client = monitor_client()
+            watch.start_pool(client)
+            monitor = monitor_phase(card, launches, client, watch)
+            watch.check_monitor(client)
+            quarantine = quarantine_phase(card, launches, cache_root, monitor["reports"])
     finally:
         watched = watch.stop()
     print(json.dumps({"watch": watched, "card": card}), flush=True)
@@ -2779,6 +3030,7 @@ def main() -> int:
         row["launches_requestor_pods"] = requestor["pod_launches"][kernel]
         row["launches_checkpoint_roll"] = checkpoint["pod_launches"][kernel]
         row["launches_monitor"] = monitor["pass_launches"][kernel]
+        row["launches_quarantine_pod"] = quarantine["pod_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         if kernel == "matmul":
             row["path_launches"] = launches["matmul_by_path"].get(row["path"], 0)

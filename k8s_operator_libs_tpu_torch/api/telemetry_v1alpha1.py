@@ -1,5 +1,5 @@
-"""The NodeHealthReport contract (v1alpha1): the part the monitor and the
-planner use.
+"""The NodeHealthReport contract (v1alpha1): what the monitor publishes and
+the planner, the health source and the quarantine arc read.
 
 A NodeHealthReport is the structured form of one probe battery on one
 node: per-check verdicts, numeric metrics, a bounded rolling history, a
@@ -12,7 +12,8 @@ package's publisher continues the other's history.
 The link map does not fold into the score: a sick link between two healthy
 hosts lives only there. Consumers localize it with
 :func:`fold_link_topology`, which degrades both endpoints of a link even
-when only one of them observed it.
+when only one of them observed it, and :func:`effective_scores`, which
+takes for each node the worse of its own score and its worst link's.
 """
 
 from __future__ import annotations
@@ -86,6 +87,21 @@ LINK_VERDICT_SCORES = {LINK_OK: 100.0, LINK_DEGRADED: 40.0, LINK_FAILED: 0.0}
 def _link_rank(verdict: str) -> int:
     """Worst-first order for folds: failed < degraded < ok."""
     return {LINK_FAILED: 0, LINK_DEGRADED: 1}.get(verdict, 2)
+
+
+def link_verdict_value(verdict: str) -> int:
+    """A verdict as a metric: failed -1, degraded 0, ok 1."""
+    return {LINK_FAILED: -1, LINK_OK: 1}.get(verdict, 0)
+
+
+def sicker_link(a: "LinkHealth", b: "LinkHealth") -> "LinkHealth":
+    """The sicker of two observations of one directed link: the worse
+    verdict, the lower bandwidth breaking a tie. Two copies of one node's
+    report merge by this, so a duplicate can only make a link look
+    sicker."""
+    if _link_rank(a.verdict) != _link_rank(b.verdict):
+        return a if _link_rank(a.verdict) < _link_rank(b.verdict) else b
+    return a if a.gbytes_per_s <= b.gbytes_per_s else b
 
 
 def raw_link_entries(links: Mapping[str, "LinkHealth"]) -> dict:
@@ -485,3 +501,71 @@ def fold_link_topology(
                 reporters=reporters,
             )
     return out
+
+
+def node_link_scores(
+    topology: Mapping[tuple, LinkObservation],
+) -> dict[str, float]:
+    """node -> the score (``LINK_VERDICT_SCORES``) of its worst incident
+    link in the folded topology. Both endpoints of every link have an
+    entry, also one that published no report of its own; a node whose
+    links are all ok reads 100."""
+    out: dict[str, float] = {}
+    for obs in topology.values():
+        score = LINK_VERDICT_SCORES.get(obs.verdict, 100.0)
+        for endpoint in (obs.a, obs.b):
+            prev = out.get(endpoint)
+            if prev is None or score < prev:
+                out[endpoint] = score
+    return out
+
+
+def effective_scores(health: Mapping[str, NodeHealth]) -> dict[str, float]:
+    """node -> the lower of its own score and its worst incident link's:
+    what the planner orders by and the quarantine arc judges. Nodes named
+    only as a peer have an entry too; so do device tags, which a reader
+    keyed by node name never looks up."""
+    out = node_link_scores(fold_link_topology(health))
+    for name, entry in (health or {}).items():
+        prev = out.get(name)
+        if prev is None or entry.score < prev:
+            out[name] = entry.score
+    return out
+
+
+def effective_node_score(node_name: str, health: Mapping[str, NodeHealth]) -> Optional[float]:
+    """One node's effective score; ``None`` when neither its own report
+    nor any link names it (no telemetry is no verdict)."""
+    return effective_scores(health).get(node_name)
+
+
+def sick_links_from_topology(
+    node_name: str, topology: Mapping[tuple, LinkObservation]
+) -> list[dict[str, Any]]:
+    """The node's incident links that are not ok, over a topology folded
+    already, as JSON (peer, verdict, and the bandwidth and latency where
+    measured), sorted by peer. A caller walking many nodes folds once and
+    extracts each node's in O(links)."""
+    out: list[dict[str, Any]] = []
+    for obs in topology.values():
+        if node_name not in (obs.a, obs.b) or obs.verdict == LINK_OK:
+            continue
+        entry: dict[str, Any] = {
+            "peer": obs.b if obs.a == node_name else obs.a,
+            "verdict": obs.verdict,
+        }
+        if obs.gbytes_per_s > 0:
+            entry["gbytesPerS"] = round(obs.gbytes_per_s, 3)
+        if obs.latency_s > 0:
+            entry["latencyS"] = round(obs.latency_s, 6)
+        out.append(entry)
+    return sorted(out, key=lambda e: e["peer"])
+
+
+def sick_links_for(node_name: str, health: Mapping[str, NodeHealth]) -> list[dict[str, Any]]:
+    """The node's sick incident links over the folded topology, a link
+    only the peer reported included: the ``worstLinks`` the requestor
+    writes into a NodeMaintenance's ``spec.nodeHealth``. Empty when every
+    incident link is ok. One fold a call; see
+    :func:`sick_links_from_topology` for many nodes."""
+    return sick_links_from_topology(node_name, fold_link_topology(health))

@@ -6,9 +6,8 @@ defaults (``autoUpgrade`` false, ``maxParallelUpgrades`` 1,
 ``maxUnavailable`` "25%", drain and pod-deletion timeouts 300 s) and the
 same eager validation, so every policy document of the JAX package parses
 here and ``to_dict`` gives it back unchanged. ``CheckpointSpec`` drives
-the checkpoint arc (``upgrade/checkpoint_manager.py``); ``QuarantineSpec``
-parses too, but the port's state machine refuses a policy that enables the
-quarantine arc (``upgrade/state_manager.py``).
+the checkpoint arc (``upgrade/checkpoint_manager.py``) and
+``QuarantineSpec`` the quarantine arc (``upgrade/quarantine_manager.py``).
 
 The WorkloadCheckpoint contract is the workload's side of the checkpoint
 arc: asked to checkpoint, a workload persists its state, records it as a

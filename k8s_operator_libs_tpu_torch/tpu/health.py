@@ -72,6 +72,10 @@ log = get_logger("tpu.health")
 #: (and lets tmp cleaners evict the build).
 KERNEL_CACHE_DIR = "/var/cache/gpu-health-kernels"
 
+#: A floor failure's first word -> the observation check it fails: the
+#: probe's numerics passed, but its rate is below the gate's floor.
+_FLOOR_CHECKS = {"mxu": "mxu", "ring": "ppermute_ring"}
+
 
 @dataclass
 class HealthReport:
@@ -134,7 +138,9 @@ class HealthReport:
     def observation(self) -> tuple[dict[str, bool], dict[str, float]]:
         """``(checks, metrics)`` for the telemetry plane: per-probe verdicts
         plus every numeric signal the battery measured. Probes that did not
-        run are absent, not failed."""
+        run are absent, not failed. A probe below its floor fails its check
+        (the JAX package's passes it, so that a report failed only by a
+        floor reads as healthy and its publisher writes nothing)."""
         from ..api.telemetry_v1alpha1 import (
             METRIC_MXU_TFLOPS,
             METRIC_PROBE_LATENCY_S,
@@ -155,6 +161,10 @@ class HealthReport:
             checks["ulysses"] = self.ulysses.ok
         if self.flash is not None:
             checks["flash_attention"] = self.flash.ok
+        for failure in self.failures:
+            check = _FLOOR_CHECKS.get(failure.split(" ", 1)[0])
+            if " below floor " in failure and check in checks:
+                checks[check] = False
         metrics: dict[str, float] = {}
         if self.elapsed_s:
             metrics[METRIC_PROBE_LATENCY_S] = self.elapsed_s

@@ -1,16 +1,18 @@
-"""The rolling-upgrade state machine's in-place path, requestor mode and
-checkpoint arc, the device class and its upgrade keys and states, and the
-monitor's metrics endpoint (a subset of the JAX package's ``upgrade``
-package; what the port's machine does not run it refuses, naming the
-ROADMAP item: ``state_manager.py``)."""
+"""The rolling-upgrade state machine's in-place path, requestor mode,
+checkpoint arc and quarantine arc, the health telemetry it reads, the
+device class and its upgrade keys and states, and the metrics endpoint (a
+subset of the JAX package's ``upgrade`` package; what the port's machine
+does not run it refuses, naming the ROADMAP item: ``state_manager.py``)."""
 
 from .checkpoint_manager import RESTORE_VERIFY_TIMEOUT_SECONDS, CheckpointManager
 from .common_manager import ClusterUpgradeState, CommonUpgradeManager, NodeUpgradeState
 from .consts import DeviceClass, UpgradeKeys, UpgradeState
 from .cordon_manager import CordonManager
 from .drain_manager import DrainConfiguration, DrainManager
+from .health_source import HealthMetrics, HealthSource, LinkMetrics
 from .inplace import InplaceNodeStateManager, ProcessNodeStateManager
 from .pod_manager import PodDeletionFilter, PodManager, PodManagerConfig, RevisionHashError
+from .quarantine_manager import QuarantineManager
 from .requestor import (
     DEFAULT_NODE_MAINTENANCE_NAME_PREFIX,
     RequestorNodeStateManager,
@@ -38,7 +40,10 @@ __all__ = [
     "DeviceClass",
     "DrainConfiguration",
     "DrainManager",
+    "HealthMetrics",
+    "HealthSource",
     "InplaceNodeStateManager",
+    "LinkMetrics",
     "NodeUpgradeState",
     "NodeUpgradeStateProvider",
     "PassStats",
@@ -46,6 +51,7 @@ __all__ = [
     "PodManager",
     "PodManagerConfig",
     "ProcessNodeStateManager",
+    "QuarantineManager",
     "RESTORE_VERIFY_TIMEOUT_SECONDS",
     "RequestorNodeStateManager",
     "RequestorOptions",

@@ -2,13 +2,12 @@
 budget's counters.
 
 The JAX package's ``upgrade/common_manager.py`` for the in-place path, the
-requestor mode and the checkpoint arc. It holds the node managers (cordon,
-drain, pod, validation, safe load, checkpoint) and moves the nodes of each
-state's bucket one step. A bucket runs through the task runner with each
-node's error isolated; once the bucket is done its first error aborts the
-pass, and the next pass resumes from the node labels. The quarantine arc
-and the tracing spans of the JAX module are not here; the state machine
-refuses what would need them (``state_manager.py``).
+requestor mode, the checkpoint arc and the quarantine arc. It holds the
+node managers (cordon, drain, pod, validation, safe load, checkpoint,
+quarantine) and moves the nodes of each state's bucket one step. A bucket
+runs through the task runner with each node's error isolated; once the
+bucket is done its first error aborts the pass, and the next pass resumes
+from the node labels. The JAX module's tracing spans wait for ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -17,10 +16,17 @@ from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Callable, Mapping, Optional, Sequence, TypeVar
 
+from ..api.telemetry_v1alpha1 import (
+    NodeHealth,
+    effective_scores,
+    fold_link_topology,
+    sick_links_from_topology,
+)
 from ..api.upgrade_v1alpha1 import (
     CheckpointSpec,
     DrainSpec,
     PodDeletionSpec,
+    QuarantineSpec,
     WaitForCompletionSpec,
 )
 from ..kube.client import Client
@@ -41,6 +47,7 @@ from .checkpoint_manager import CheckpointManager
 from .cordon_manager import CordonManager
 from .drain_manager import DrainConfiguration, DrainManager
 from .pod_manager import PodManager, PodManagerConfig
+from .quarantine_manager import QuarantineManager
 from .safe_driver_load import SafeDriverLoadManager
 from .state_provider import NodeUpgradeStateProvider
 from .task_runner import TaskRunner
@@ -77,23 +84,39 @@ class ClusterUpgradeState:
     node_states: dict[UpgradeState, list[NodeUpgradeState]] = field(
         default_factory=lambda: defaultdict(list)
     )
-    #: The nodes' telemetry, for the slice planner: always None here,
-    #: since the port's machine reads no NodeHealthReports (ROADMAP A13).
-    node_health: Optional[Mapping] = None
+    #: node name -> :class:`NodeHealth` from the NodeHealthReports, attached
+    #: by the state machine when a ``HealthSource`` is wired
+    #: (``with_health_telemetry``). None without one: the planner orders by
+    #: name and the quarantine arc admits no node.
+    node_health: Optional[Mapping[str, NodeHealth]] = None
+    #: The link topology folded from ``node_health`` and the map it was
+    #: folded from (by identity: the health source attaches the same
+    #: mapping until a report changes), so :meth:`sick_links_of` folds once
+    #: a snapshot, not once a node. A cache, not state.
+    _link_fold: Optional[dict] = field(default=None, repr=False, compare=False)
+    _link_fold_src: Optional[Mapping[str, NodeHealth]] = field(
+        default=None, repr=False, compare=False
+    )
 
     def nodes_in(self, state: UpgradeState) -> list[NodeUpgradeState]:
         return self.node_states.get(state, [])
 
-    def health_of(self, node_name: str):
+    def health_of(self, node_name: str) -> Optional[NodeHealth]:
+        """The node's parsed telemetry, where a health source is wired."""
         if self.node_health is None:
             return None
         return self.node_health.get(node_name)
 
     def sick_links_of(self, node_name: str) -> list:
-        """The node's sick links for its NodeMaintenance request: always
-        empty here, since ``node_health`` is (the link fold comes with the
-        telemetry, ROADMAP A13)."""
-        return []
+        """The node's sick incident links over the folded topology, for its
+        NodeMaintenance request's ``nodeHealth.worstLinks``; empty without
+        telemetry or with every link ok."""
+        if self.node_health is None:
+            return []
+        if self._link_fold is None or self._link_fold_src is not self.node_health:
+            self._link_fold = fold_link_topology(self.node_health)
+            self._link_fold_src = self.node_health
+        return sick_links_from_topology(node_name, self._link_fold)
 
 
 class CommonUpgradeManager:
@@ -122,6 +145,11 @@ class CommonUpgradeManager:
         # The validation bucket runs the checkpoint arc's restore-verified
         # uncordon.
         self.validation_manager.restore_gate = self.checkpoint_manager.restore_gate
+        # The quarantine arc admits no node until a policy enables it and a
+        # health source attaches node_health to the snapshots.
+        self.quarantine_manager = QuarantineManager(
+            cordon_manager, state_provider, keys, recorder=recorder
+        )
         self.runner = runner if runner is not None else TaskRunner(inline=True)
         self.apply_width = apply_width
         self.pod_deletion_enabled = False
@@ -378,6 +406,87 @@ class CommonUpgradeManager:
             lambda ns: ns.node.name,
             lambda ns: self.checkpoint_manager.coordinate(ns.node, checkpoint_spec, next_state),
         )
+
+    def process_quarantined_nodes(self, state: ClusterUpgradeState, policy) -> None:
+        """The quarantine arc: the ``quarantined`` bucket (hand-off
+        deadlines, re-evaluation on the backoff clock, releases), then the
+        admission of newly degraded idle nodes within the disruption budget.
+
+        Both halves poll: the clocks run on time, not on events, and a slot
+        freed by another node's release must admit a candidate refused
+        passes ago. With the spec absent or disabled, the nodes held are
+        released, so a withdrawn policy strands no cordoned capacity."""
+        spec: Optional[QuarantineSpec] = getattr(policy, "quarantine", None)
+        qm = self.quarantine_manager
+        node_states = state.nodes_in(UpgradeState.QUARANTINED)
+        if spec is None or not spec.enable:
+            if node_states:
+                qm.adopt(ns.node.name for ns in node_states)
+                self._for_each(
+                    "advance[quarantine]",
+                    node_states,
+                    lambda ns: ns.node.name,
+                    lambda ns: qm.release(ns.node, "quarantine disabled by policy"),
+                )
+            return
+        # The link fold once a pass, for the bucket's rechecks and the
+        # admission alike.
+        eff_scores = effective_scores(state.node_health) if state.node_health else {}
+        if node_states:
+            # Membership first: a restarted controller's gauge counts the
+            # nodes an earlier one quarantined.
+            qm.adopt(ns.node.name for ns in node_states)
+            self._for_each(
+                "quarantine",
+                node_states,
+                lambda ns: ns.node.name,
+                lambda ns: qm.evaluate(ns.node, spec, state.node_health, scores=eff_scores),
+            )
+        if not state.node_health:
+            return
+        # Admission: idle (unknown or done) schedulable nodes whose effective
+        # score (their own, or their worst incident link's: both endpoints
+        # of a sick link are candidates, also one that never reported) is
+        # below the threshold, worst first, within the roll's own
+        # unavailability budget. The health map is scanned first, so a
+        # healthy pool walks no bucket.
+        degraded = {
+            name: score for name, score in eff_scores.items() if score < spec.unhealthy_score
+        }
+        if not degraded:
+            return
+        candidates: list[tuple[float, NodeUpgradeState]] = []
+        for bucket in (UpgradeState.UNKNOWN, UpgradeState.DONE):
+            for ns in state.nodes_in(bucket):
+                node = ns.node
+                score = degraded.get(node.name)
+                if score is None:
+                    continue
+                if node.unschedulable or not node.is_ready():
+                    continue  # out of service already: nothing to protect
+                if self.skip_node_upgrade(node):
+                    continue
+                if self.provider.get_upgrade_state(node) not in (
+                    UpgradeState.UNKNOWN,
+                    UpgradeState.DONE,
+                ):
+                    continue  # classified upgrade-required earlier this pass
+                candidates.append((score, ns))
+        if not candidates:
+            return
+        candidates.sort(key=lambda item: (item[0], item[1].node.name))
+        total = self.get_total_managed_nodes(state)
+        max_unavailable = policy.resolved_max_unavailable(total)
+        unavailable = self.get_current_unavailable_nodes(state) + len(
+            state.nodes_in(UpgradeState.CORDON_REQUIRED)
+        )
+        slots = max(0, max_unavailable - unavailable)
+        for score, ns in candidates:
+            if slots <= 0:
+                qm.deny_budget(ns.node, score)
+                continue
+            qm.enter(ns.node, spec, score)
+            slots -= 1
 
     def process_pod_deletion_required_nodes(
         self,

@@ -206,6 +206,25 @@ class UpgradeKeys:
         its deadline; it never stalls the roll)."""
         return self._key("upgrade-restore-verify-start-time")
 
+    # -- the quarantine arc (quarantine_manager.py) ---------------------------
+    @property
+    def quarantine_start_annotation(self) -> str:
+        """Node key: epoch seconds the node entered quarantine, the clock
+        the hand-off deadline is measured against."""
+        return self._key("upgrade-quarantine-start-time")
+
+    @property
+    def quarantine_recheck_annotation(self) -> str:
+        """Node key: epoch seconds the next health re-evaluation is due (the
+        backoff clock; a restarted controller keeps its schedule)."""
+        return self._key("upgrade-quarantine-recheck-time")
+
+    @property
+    def quarantine_backoff_annotation(self) -> str:
+        """Node key: the backoff in seconds, doubled up to its cap on every
+        recheck that still finds the node unhealthy."""
+        return self._key("upgrade-quarantine-backoff-seconds")
+
     @property
     def upgrade_requested_annotation(self) -> str:
         return self._key("upgrade-requested")

@@ -1,14 +1,14 @@
 """ClusterUpgradeStateManager: the rolling-upgrade state machine.
 
 The JAX package's ``upgrade/state_manager.py`` for the in-place path,
-the requestor mode and the checkpoint arc. ``build_state`` takes a
-snapshot of the driver DaemonSets, their pods and the nodes (and, in the
-requestor mode, each node's NodeMaintenance object); ``apply_state``
-runs one stateless pass that moves each node at most one step, from
-``upgrade-required`` through cordon, the wait for jobs, pod deletion,
-drain, the driver pod's restart and validation to ``upgrade-done`` (or
-``upgrade-failed``, from which a node recovers once its driver pod is
-back in sync). In the requestor mode
+the requestor mode, the checkpoint arc and the quarantine arc.
+``build_state`` takes a snapshot of the driver DaemonSets, their pods and
+the nodes (and, in the requestor mode, each node's NodeMaintenance
+object); ``apply_state`` runs one stateless pass that moves each node at
+most one step, from ``upgrade-required`` through cordon, the wait for
+jobs, pod deletion, drain, the driver pod's restart and validation to
+``upgrade-done`` (or ``upgrade-failed``, from which a node recovers once
+its driver pod is back in sync). In the requestor mode
 (``requestor.enable_requestor_mode``) an external maintenance operator
 cordons and drains instead: the node goes from ``upgrade-required``
 through ``node-maintenance-required`` (and, with
@@ -18,20 +18,20 @@ done. Nodes the in-place flow began finish in place. With a policy's
 ``checkpoint`` enabled, a node passes through ``checkpoint-required``
 before its eviction, where its training pods checkpoint, and its
 uncordon waits until those checkpoints are verified restorable
-(``checkpoint_manager.py``). All state is on the nodes and the objects,
-as the JAX machine writes it, so either machine can carry on a roll the
-other began. An error aborts the pass; the next pass resumes from the
-node labels.
+(``checkpoint_manager.py``). With ``with_health_telemetry`` every
+snapshot carries the nodes' NodeHealthReports (``health_source.py``), and
+a policy's ``quarantine`` cordons an idle node whose score degrades into
+``quarantined``, within the disruption budget, until it recovers or is
+handed to the roll (``quarantine_manager.py``). All state is on the nodes
+and the objects, as the JAX machine writes it, so either machine can carry
+on a roll or an arc the other began. An error aborts the pass; the next
+pass resumes from the node labels.
 
 What the JAX machine does beyond that is refused with
-``NotImplementedError`` naming its ROADMAP item, never skipped:
-
-* the quarantine arc and the health telemetry it reads (A13): a policy
-  with an enabled ``quarantine``, a node labelled ``quarantined``,
-  ``with_health_telemetry``;
-* the informer and incremental snapshot sources and write batching (A14):
-  ``with_snapshot_from_informers``, ``enable_write_batching`` and
-  ``StateOptions.batch_writes``.
+``NotImplementedError`` naming its ROADMAP item, never skipped: the
+informer and incremental snapshot sources and write batching (A14):
+``with_snapshot_from_informers``, ``enable_write_batching`` and
+``StateOptions.batch_writes``.
 
 The JAX machine's tracing spans (A15) have no counterpart; the API calls
 of the last pass are counted in :class:`PassStats`.
@@ -59,11 +59,6 @@ from .task_runner import TaskRunner
 from .validation_manager import ValidationHook, ValidationManager
 
 log = get_logger("upgrade.state_manager")
-
-#: Node states whose arcs the port's machine does not run, by ROADMAP item.
-_UNPORTED_STATES = {
-    UpgradeState.QUARANTINED: "A13",
-}
 
 
 def not_ported(what: str, item: str) -> NotImplementedError:
@@ -165,6 +160,10 @@ class ClusterUpgradeStateManager:
         #: The requestor strategy (``requestor.enable_requestor_mode``); it
         #: runs while ``options.use_maintenance_operator`` is on.
         self.requestor: Optional[ProcessNodeStateManager] = requestor
+        #: The NodeHealthReports' source, once ``with_health_telemetry``
+        #: wired one: every snapshot then carries its map. None: no
+        #: telemetry, and the quarantine arc admits no node.
+        self.health_source = None
         #: Set once a pass saw the checkpoint arc (a policy enabling it or
         #: a node in its bucket); from then on every pass counts the arc
         #: in its PassStats.
@@ -177,19 +176,22 @@ class ClusterUpgradeStateManager:
     def with_snapshot_from_informers(self, *args, **kwargs):
         raise not_ported("the informer and incremental snapshot sources", "A14")
 
-    def with_health_telemetry(self, *args, **kwargs):
-        raise not_ported("the health telemetry and the quarantine arc", "A13")
+    # -- the health telemetry -------------------------------------------------
+    def with_health_telemetry(self, health_source=None, sync_timeout: float = 30.0):
+        """Read the NodeHealthReports through an informer
+        (``health_source.HealthSource``, built over this manager's client
+        when none is given) and attach its map to every snapshot
+        (``ClusterUpgradeState.node_health``), which the planner's
+        degraded-first order and the quarantine arc read. Starts the
+        source and returns it; the caller stops it."""
+        from .health_source import HealthSource
 
-    @staticmethod
-    def _refuse_node(node: Node, bucket: UpgradeState) -> None:
-        item = _UNPORTED_STATES.get(bucket)
-        if item is not None:
-            raise not_ported(f"node {node.name} is in state {bucket}", item)
-
-    @staticmethod
-    def _refuse_policy(policy: DriverUpgradePolicySpec) -> None:
-        if policy.quarantine is not None and policy.quarantine.enable:
-            raise not_ported("a policy with quarantine enabled", "A13")
+        if health_source is None:
+            health_source = HealthSource(self.client)
+        if not health_source.started:
+            health_source.start(sync_timeout=sync_timeout)
+        self.health_source = health_source
+        return health_source
 
     # -- optional states -----------------------------------------------------
     def with_pod_deletion_enabled(
@@ -311,8 +313,10 @@ class ClusterUpgradeStateManager:
                 owner = daemonsets.get(refs[0].get("uid")) if refs else None
             ns = self._build_node_upgrade_state(pod, owner, node=nodes.get(pod.node_name))
             bucket = self.provider.get_upgrade_state(ns.node)
-            self._refuse_node(ns.node, bucket)
             state.node_states[bucket].append(ns)
+        if self.health_source is not None:
+            # Memoized: a settled pool attaches the same mapping again.
+            state.node_health = self.health_source.snapshot()
         return state
 
     def _build_node_upgrade_state(
@@ -339,8 +343,6 @@ class ClusterUpgradeStateManager:
     ) -> None:
         if state is None:
             raise ValueError("currentState should not be empty")
-        if policy is not None:
-            self._refuse_policy(policy)
         if policy is None or not policy.auto_upgrade:
             log.info("driver auto upgrade is disabled, skipping")
             return
@@ -363,6 +365,10 @@ class ClusterUpgradeStateManager:
         try:
             common.process_done_or_unknown_nodes(state, UpgradeState.UNKNOWN)
             common.process_done_or_unknown_nodes(state, UpgradeState.DONE)
+            # After the classification (a node made upgrade-required this
+            # pass is the roll's) and before the start of upgrades (a node
+            # handed off is already cordoned when the planner counts).
+            common.process_quarantined_nodes(state, policy)
             self._process_upgrade_required_nodes(state, policy)
             common.process_cordon_required_nodes(state)
             common.process_wait_for_jobs_required_nodes(

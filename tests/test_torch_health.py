@@ -464,6 +464,8 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.kube.sim\n"
         "import k8s_operator_libs_tpu_torch.upgrade.requestor\n"
         "import k8s_operator_libs_tpu_torch.upgrade.checkpoint_manager\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.health_source\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.quarantine_manager\n"
         "from k8s_operator_libs_tpu_torch.kube.sim import CheckpointingWorkloadSimulator\n"
         "import k8s_operator_libs_tpu_torch.utils.intstr\n"
         "import k8s_operator_libs_tpu_torch.utils.sync\n"

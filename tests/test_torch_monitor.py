@@ -205,6 +205,31 @@ def test_restarted_monitor_starts_from_the_published_condition():
     assert cond == "True"
 
 
+def test_c17_a_floor_failure_publishes_a_degraded_report():
+    """C17: a battery failed only by a floor (its ``mxu`` rate below
+    ``min_mxu_tflops``) flips the condition on both monitors; the JAX
+    report's checks still pass, so its publisher sees the passing cycle's
+    score again and writes nothing, while the port's report fails the
+    ``mxu`` check and publishes the lower score the quarantine arc reads."""
+    (passing,) = scripted_reports(6, 1)
+    passing.update(ok=True, failures=[], links=[])
+    passing["collectives"][0]["ok"] = True
+    floored = json.loads(json.dumps(passing))
+    floored.update(ok=False, failures=["mxu 240.00 TFLOP/s below floor 1000000000.00"])
+    sides = {w: Side(w, [passing, floored], threshold=1, success=1) for w in ("port", "jax")}
+    first = {w: side.cycle() for w, side in sides.items()}
+    assert first["port"] == first["jax"]
+    second = {w: side.cycle() for w, side in sides.items()}
+    assert second["port"]["condition"] == second["jax"]["condition"]
+    assert second["port"]["condition"]["status"] == "False"
+    assert second["jax"]["reports"] == first["jax"]["reports"]  # debounced
+    (status,) = [r["status"] for r in second["port"]["reports"]]
+    before = first["port"]["reports"][0]["status"]
+    assert status["checks"] == {**before["checks"], "mxu": False}
+    assert status["score"] == round(before["score"] - 60.0 / len(before["checks"]), 2)
+    assert status["metrics"] == before["metrics"]  # the rate was measured
+
+
 def test_skip_label_probes_nothing_as_jax():
     script = scripted_reports(4, 2)
     port, jax = _run_both(script, 2, threshold=1, success=1,
@@ -314,7 +339,8 @@ def test_monitor_process_writes_the_condition(tmp_path, extra, rc, condition):
         ]
         report = server.cluster.get("NodeHealthReport", NODE).raw
         assert report["spec"] == {"nodeName": NODE, "source": "monitor"}
-        assert report["status"]["checks"]["mxu"] is True
+        # The impossible floor fails the mxu check (C17); the rate stays.
+        assert report["status"]["checks"]["mxu"] is (rc == 0)
         assert report["status"]["metrics"]["mxu_tflops"] > 0
 
 

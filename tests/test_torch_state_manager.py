@@ -494,7 +494,6 @@ def test_unported_options_are_refused(pool, kwargs, item):
     [
         ("with_snapshot_from_informers", "A14"),
         ("enable_write_batching", "A14"),
-        ("with_health_telemetry", "A13"),
     ],
 )
 def test_unported_wirings_are_refused(pool, method, item):
@@ -502,34 +501,36 @@ def test_unported_wirings_are_refused(pool, method, item):
         getattr(_manager(pool), method)()
 
 
-@pytest.mark.parametrize(
-    "labels, annotations, item",
-    [
-        ({KEYS.state_label: "quarantined"}, {}, "A13"),
-    ],
-    ids=["quarantined"],
-)
-def test_nodes_on_unported_arcs_are_refused(pool, labels, annotations, item):
-    pool.patch("Node", node_name(1), patch={"metadata": {"labels": labels, "annotations": annotations}})
-    before = {n.name: n.resource_version for n in pool.list("Node")}
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _manager(pool).build_state(NS, LABELS)
-    assert {n.name: n.resource_version for n in pool.list("Node")} == before
+QUARANTINE = {"quarantine": {"enable": True}}
 
 
 @pytest.mark.parametrize(
-    "extra, item",
+    "labels, extra, wanted, released",
     [
-        ({"quarantine": {"enable": True}}, "A13"),
+        ({KEYS.state_label: "quarantined"}, {}, "upgrade-done", 1),
+        ({KEYS.state_label: "quarantined"}, QUARANTINE, "quarantined", 0),
+        ({}, QUARANTINE, "upgrade-done", 0),
     ],
-    ids=["quarantine"],
+    ids=["quarantined-policy-withdrawn", "quarantined-held", "quarantine-policy"],
 )
-def test_policies_enabling_unported_arcs_are_refused(pool, extra, item):
+def test_the_quarantine_arc_runs_one_pass(pool, labels, extra, wanted, released):
+    """Each way into the quarantine arc runs (the whole arc is held to the
+    JAX machine in ``tests/test_torch_quarantine.py``): a quarantined node
+    under a policy without the arc is released and classified done on the
+    next pass; under the arc, without telemetry, it stays held (no report
+    is no recovery); a policy with the arc and no telemetry admits no
+    node."""
+    pool.patch("Node", node_name(1), patch={"metadata": {"labels": labels}})
     mgr = _manager(pool)
-    state = mgr.build_state(NS, LABELS)
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        mgr.apply_state(state, DriverUpgradePolicySpec.from_dict(policy(**extra)))
-    assert all(KEYS.state_label not in n.labels for n in pool.list("Node"))
+    pol = DriverUpgradePolicySpec.from_dict(policy(**extra))
+    for _ in range(2):
+        mgr.apply_state(mgr.build_state(NS, LABELS), pol)
+    states = {n.name: n.labels.get(KEYS.state_label) for n in pool.list("Node")}
+    assert states == {node_name(0): "upgrade-done", node_name(1): wanted}
+    totals = mgr.common.quarantine_manager.totals()
+    assert totals["entered"] == 0
+    assert totals["released"] == released
+    assert totals["in_quarantine"] == (1 if wanted == "quarantined" else 0)
 
 
 CHECKPOINT = {"checkpoint": {"enable": True, "podSelector": "app=trainer"}}

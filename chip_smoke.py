@@ -230,14 +230,51 @@ Phases, in order; any failure raises and the script exits non-zero:
     hand-off. ``{"quarantine": ...}`` gives both scores and thresholds
     (the healthy card's score among them), each pass's node states, the
     totals, the rendered counters, the probe pod's seconds to Ready and
-    launches, and the phase's wall seconds.
+    launches, and the phase's wall seconds;
+19. informer_roll phase (the CRD utility and the informer-fed reconcile),
+    after the quarantine phase: ``ApiStub`` in front of a ``DictClient``
+    whose CRDs' served versions turn discoverable ``CRD_DISCOVERY_DELAY_S``
+    after they are written. Three child processes run ``python -m
+    k8s_operator_libs_tpu_torch.crdutil --crds-path manifests/crds`` with a
+    kubeconfig at the stub: ``--operation apply`` (both CRDs,
+    ``nodemaintenances.maintenance.nvidia.com`` and
+    ``tpuupgradepolicies.tpu-operator.dev``, stored and discoverable after
+    it, the wait having polled discovery), the same again (the update
+    path: both ``resourceVersion``s move) and, at the phase's end,
+    ``--operation delete`` (both gone from storage and discovery). In the
+    same client, ``WATCH_POOL_NODES`` nodes of another pool (``pool_node``,
+    no driver pod) and ``INFORMER_NODES``, labelled from the card with a
+    workload pod each and the driver DaemonSet at 550: 258 nodes. The
+    port's machine with validation by probe pods (on the roll phase's
+    kernel caches, so no ``nvcc``),
+    ``with_snapshot_from_informers(..., incremental=True,
+    verify_every_n=VERIFY_EVERY_N)`` and ``enable_write_batching()`` rolls
+    the two to 560 under ``ROLL_POLICY``, each pass after the informers'
+    stores have caught up with the client. Then ``SETTLED_PASSES`` settled
+    passes, ``audit_incremental()``, and three ``build_state`` calls and
+    one pass of a second manager on the LIST source. Every rolled node
+    must end ``upgrade-done`` and uncordoned; the other 256 carry no
+    upgrade key and were never cordoned (the client's journal); every
+    settled pass reads and writes nothing (``PassStats`` and the client's
+    own call counts); the audit finds no divergence; the batcher flushed
+    every write the provider issued; the LIST pass reads 3 or more; the
+    controller launches no kernel, and each probe pod the gate's counts.
+    ``{"informer_roll": ...}`` gives the CRD utility's runs (seconds, last
+    line, discovery polls), the passes, wall seconds, trajectories and
+    each pass's ``PassStats``, the reads and writes of the roll and of
+    each settled pass, the batcher's ``stats()``, the provider's write
+    counts, each informer's ``full_relists``, ``build_state`` milliseconds
+    (settled incremental and LIST), the probe pods' seconds to Ready and
+    launches, and the phase's wall seconds (``phase_wall_s``; ``wall_s``
+    is the roll's).
 
 The last lines are the kernel table as one JSON object (each row with the
 launches of the gate, the burn-in forward, the flagship MoE flash
 forward, the probe pod, the roll's probe pods together, the requestor
 roll's hook calls together and its probe pods together, the checkpoint
 roll's probe pods together, the monitor's payload, the quarantine
-hand-off's probe pod and the gang's payload),
+hand-off's probe pod, the informer roll's probe pods together and the
+gang's payload),
 the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
 or run from a directory that holds only this file, it exits non-zero and
@@ -373,6 +410,15 @@ QUARANTINE_NODES = (MONITOR_NODE, "gpu-quar-1", "gpu-quar-2", "gpu-quar-3")
 QUARANTINE_BACKOFF_S = 60
 QUARANTINE_MAX_BACKOFF_S = 900
 QUARANTINE_HANDOFF_S = 600
+#: The informer roll: the driver's pool of two nodes in a cluster of
+#: ``WATCH_POOL_NODES`` more, the settled passes after it, the audit
+#: cadence, and the seconds a CRD's version waits to be discoverable.
+INFORMER_NODES = ("gpu-inf-0", "gpu-inf-1")
+INFORMER_OTHER_POOL = {"cloud.google.com/gke-nodepool": "cpu-pool"}
+SETTLED_PASSES = 10
+VERIFY_EVERY_N = 5
+CRD_DISCOVERY_DELAY_S = 0.2
+CRDS = ("nodemaintenances.maintenance.nvidia.com", "tpuupgradepolicies.tpu-operator.dev")
 
 
 def card_line() -> str:
@@ -1182,6 +1228,58 @@ class DictClient:
         self.compacted = 0
         #: Watch windows opened, by kind.
         self.windows: dict[str, int] = {}
+        self.calls: dict[str, int] = {}
+        #: Seconds after a CRD write before a newly served version is
+        #: discoverable, and when each (CRD, version) becomes so.
+        self.discovery_delay_s = 0.0
+        self.discoverable_at: dict[tuple, float] = {}
+
+    def _call(self, verb: str) -> None:
+        self.calls[verb] = self.calls.get(verb, 0) + 1
+
+    def discover(self, group: str, version: str) -> list:
+        """The resources served under ``group/version`` (the core group
+        when ``group`` is empty); NotFound while none is discoverable."""
+        from k8s_operator_libs_tpu_torch.kube.client import NotFoundError
+
+        with self.lock:
+            self._call("discover")
+            if not group:
+                if version != "v1":
+                    raise NotFoundError(f"no resources discoverable for {version}")
+                return [{"name": n, "kind": k, "namespaced": ns} for n, k, ns in self.CORE]
+            now = time.monotonic()
+            out = []
+            for (kind, _, name), raw in sorted(self.objects.items()):
+                spec = raw.get("spec") or {}
+                if kind != "CustomResourceDefinition" or spec.get("group") != group:
+                    continue
+                at = self.discoverable_at.get((name, version))
+                if at is not None and now >= at:
+                    names = spec.get("names") or {}
+                    out.append({"name": names.get("plural", ""), "kind": names.get("kind", ""),
+                                "namespaced": spec.get("scope") == "Namespaced"})
+            if not out:
+                raise NotFoundError(f"no resources discoverable for {group}/{version}")
+            return out
+
+    def _served(self, key: tuple, raw: Optional[dict]) -> None:
+        """Keep a CRD's discoverable versions (lock held): a version it
+        newly serves becomes discoverable after the delay; a deleted CRD
+        leaves discovery."""
+        if key[0] != "CustomResourceDefinition":
+            return
+        name = key[2]
+        served = set() if raw is None else {
+            v.get("name") for v in (raw.get("spec") or {}).get("versions") or []
+            if v.get("served")
+        }
+        for entry in [e for e in self.discoverable_at if e[0] == name and e[1] not in served]:
+            del self.discoverable_at[entry]
+        for version in served:
+            self.discoverable_at.setdefault(
+                (name, version), time.monotonic() + self.discovery_delay_s
+            )
 
     def _key(self, kind: str, name: str, namespace: str) -> tuple:
         return (kind, "" if kind in self.CLUSTER_SCOPED else namespace or "default", name)
@@ -1207,9 +1305,11 @@ class DictClient:
         raw["metadata"]["resourceVersion"] = str(self.version)
         if raw["metadata"].get("deletionTimestamp") and not raw["metadata"].get("finalizers"):
             self.objects.pop(key, None)  # the last finalizer is gone
+            self._served(key, None)
             self._record("DELETED", key, raw, old)
         else:
             self.objects[key] = raw
+            self._served(key, raw)
             self._record("ADDED" if old is None else "MODIFIED", key, raw, old)
         return wrap(json.loads(json.dumps(raw)))
 
@@ -1217,6 +1317,7 @@ class DictClient:
         from k8s_operator_libs_tpu_torch.kube.objects import wrap
 
         with self.lock:
+            self._call("get")
             return wrap(json.loads(json.dumps(self._stored(self._key(kind, name, namespace)))))
 
     @staticmethod
@@ -1258,6 +1359,8 @@ class DictClient:
             return out, str(self.version)
 
     def list(self, kind: str, namespace: str = "", label_selector=None, field_selector=None):
+        with self.lock:
+            self._call("list")
         return self.list_with_revision(kind, namespace, label_selector, field_selector)[0]
 
     def watch(self, kind: str, namespace: str = "", label_selector=None, field_selector=None,
@@ -1323,6 +1426,7 @@ class DictClient:
         raw = json.loads(json.dumps(obj.raw))
         key = self._key(raw["kind"], raw["metadata"]["name"], raw["metadata"].get("namespace", ""))
         with self.lock:
+            self._call("create")
             if key in self.objects:
                 raise AlreadyExistsError(f"{key[0]} {key[2]} already exists")
             raw["metadata"]["uid"] = f"uid-{self.version + 1}"
@@ -1334,6 +1438,7 @@ class DictClient:
         raw = json.loads(json.dumps(obj.raw))
         key = self._key(raw["kind"], raw["metadata"]["name"], raw["metadata"].get("namespace", ""))
         with self.lock:
+            self._call("update")
             stored = self._stored(key)
             rv = raw["metadata"].get("resourceVersion")
             if rv and rv != stored["metadata"]["resourceVersion"]:
@@ -1369,6 +1474,7 @@ class DictClient:
 
         key = self._key(kind, name, namespace)
         with self.lock:
+            self._call("patch")
             raw = json.loads(json.dumps(self._stored(key)))
             merge(raw, patch or {})
             return self._put(key, raw)
@@ -1378,9 +1484,11 @@ class DictClient:
 
         key = self._key(kind, name, namespace)
         with self.lock:
+            self._call("delete")
             meta = self._stored(key)["metadata"]
             if not meta.get("finalizers"):
                 old = self.objects.pop(key)
+                self._served(key, None)
                 self.version += 1
                 gone = json.loads(json.dumps(old))
                 gone["metadata"]["resourceVersion"] = str(self.version)
@@ -1396,9 +1504,14 @@ class DictClient:
 class ApiStub(ThreadingHTTPServer):
     """A ``DictClient`` behind the API's REST paths on 127.0.0.1, for the
     port's ``RestClient`` in a child process (the payload's
-    ``--publish-report``)."""
+    ``--publish-report``, the CRD utility's command line): GET, POST, PUT
+    and DELETE of an object, and the discovery documents ``/api/v1`` and
+    ``/apis/<group>/<version>``."""
 
     daemon_threads = True
+    DISCOVERY = re.compile(
+        r"^/(?:api/(?P<core>[^/?]+)|apis/(?P<group>[^/?]+)/(?P<version>[^/?]+))$"
+    )
     PATH = re.compile(
         r"^/(?:api/v1|apis/[^/]+/[^/]+)(?:/namespaces/(?P<ns>[^/]+))?"
         r"/(?P<plural>[^/?]+)(?:/(?P<name>[^/?]+))?(?:/(?P<sub>status))?"
@@ -1412,24 +1525,19 @@ class ApiStub(ThreadingHTTPServer):
 
         class Handler(BaseHTTPRequestHandler):
             def _serve(self) -> None:
-                from k8s_operator_libs_tpu_torch.kube.objects import wrap
-
                 m = stub.PATH.match(self.path)
+                d = stub.DISCOVERY.match(self.path)
                 length = int(self.headers.get("Content-Length") or 0)
                 body = json.loads(self.rfile.read(length)) if length else None
                 try:
-                    kind = kinds[m.group("plural")]
-                    ns, name = m.group("ns") or "", m.group("name") or ""
-                    if self.command == "GET" and name:
-                        out = client.get(kind, name, ns).raw
-                    elif self.command == "GET":
-                        out = {"items": [o.raw for o in client.list(kind, ns)]}
-                    elif self.command == "POST":
-                        out = client.create(wrap(body)).raw
-                    elif self.command == "PUT":
-                        out = client._replace(wrap(body), m.group("sub") == "status").raw
+                    if d is not None and self.command == "GET":
+                        group = d.group("group") or ""
+                        version = d.group("core") or d.group("version")
+                        out = {"kind": "APIResourceList",
+                               "groupVersion": f"{group}/{version}" if group else version,
+                               "resources": client.discover(group, version)}
                     else:
-                        raise ValueError(f"{self.command} is not served here")
+                        out = self._object(m, body)
                     code = 200
                 except Exception as e:  # noqa: BLE001 - answered as the API does
                     reason = getattr(e, "reason", "BadRequest")
@@ -1442,7 +1550,25 @@ class ApiStub(ThreadingHTTPServer):
                 self.end_headers()
                 self.wfile.write(data)
 
-            do_GET = do_POST = do_PUT = _serve
+            def _object(self, m, body) -> dict:
+                from k8s_operator_libs_tpu_torch.kube.objects import wrap
+
+                kind = kinds[m.group("plural")]
+                ns, name = m.group("ns") or "", m.group("name") or ""
+                if self.command == "GET" and name:
+                    return client.get(kind, name, ns).raw
+                if self.command == "GET":
+                    return {"items": [o.raw for o in client.list(kind, ns)]}
+                if self.command == "POST":
+                    return client.create(wrap(body)).raw
+                if self.command == "PUT":
+                    return client._replace(wrap(body), m.group("sub") == "status").raw
+                if self.command == "DELETE":
+                    client.delete(kind, name, ns)
+                    return {"kind": "Status", "status": "Success"}
+                raise ValueError(f"{self.command} is not served here")
+
+            do_GET = do_POST = do_PUT = do_DELETE = _serve
 
             def log_message(self, fmt, *args):  # noqa: D102
                 pass
@@ -2145,8 +2271,9 @@ def drive_roll(label: str, client, mgr, installer, kubelet, before_apply=None,
                after_apply=None, policy: dict = ROLL_POLICY) -> dict:
     """Bump the driver to the new version, set every launch count to 0,
     then passes (the kubelet's tick, ``before_apply()``, one pass of
-    ``mgr`` under ``policy``, ``after_apply()``) until every node reads ``upgrade-done``
-    uncordoned and ``after_apply()`` (if given) returned True. A node in
+    ``mgr`` under ``policy``, ``after_apply()``) until every node of the
+    kubelet reads ``upgrade-done`` uncordoned and ``after_apply()`` (if
+    given) returned True. A node in
     ``upgrade-failed``, or none changing state for ``ROLL_STALL_S``, fails
     the phase. The passes, wall seconds, build_state retries and each
     node's states with the pass and second each began."""
@@ -2175,7 +2302,7 @@ def drive_roll(label: str, client, mgr, installer, kubelet, before_apply=None,
             retries += 1  # a pod the kubelet has still to deliver
         phase_done = after_apply() if after_apply is not None else True
         now = time.perf_counter()
-        nodes = {n.name: Node(n.raw) for n in client.list("Node")}
+        nodes = {name: Node(client.get("Node", name).raw) for name in kubelet.nodes}
         for name, node in nodes.items():
             state = node.labels.get(keys.state_label, "")
             if not trajectories[name] or trajectories[name][-1][1] != state:
@@ -2966,6 +3093,248 @@ def quarantine_phase(card: str, gate_launches: dict, cache_root: str, reports: d
     return result
 
 
+def crdutil_child(label: str, client, url: str, workdir: str, *args: str) -> dict:
+    """``python -m k8s_operator_libs_tpu_torch.crdutil`` on the repo's CRDs
+    with a kubeconfig at ``url``; its seconds, last line and the discovery
+    polls the stub served it. A non-zero exit fails the phase."""
+    kubeconfig = os.path.join(workdir, "kubeconfig")
+    with open(kubeconfig, "w") as f:
+        json.dump({
+            "current-context": "c",
+            "clusters": [{"name": "c", "cluster": {"server": url}}],
+            "users": [{"name": "u", "user": {}}],
+            "contexts": [{"name": "c", "context": {"cluster": "c", "user": "u"}}],
+        }, f)
+    env = child_env(KUBECONFIG=kubeconfig, HOME=workdir)
+    env.pop("KUBERNETES_SERVICE_HOST", None)
+    polls = client.calls.get("discover", 0)
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_operator_libs_tpu_torch.crdutil",
+         "--crds-path", os.path.join(REPO, "manifests", "crds"), *args],
+        cwd=workdir, env=env, capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+    )
+    seconds = time.perf_counter() - start
+    if proc.returncode != 0:
+        raise AssertionError(f"crdutil {label}: rc {proc.returncode}: {proc.stderr[-2000:]}")
+    last = proc.stdout.strip().splitlines()[-1]
+    return {"seconds": seconds, "last_line": last,
+            "discovery_polls": client.calls.get("discover", 0) - polls}
+
+
+def crd_state(client) -> dict:
+    """Each of ``CRDS``: its resourceVersion and whether discovery lists
+    its plural at each served version (None where it is not stored)."""
+    from k8s_operator_libs_tpu_torch.kube.client import NotFoundError, get_or_none
+    from k8s_operator_libs_tpu_torch.kube.objects import CustomResourceDefinition
+
+    out = {}
+    for name in CRDS:
+        obj = get_or_none(client, "CustomResourceDefinition", name)
+        if obj is None:
+            out[name] = None
+            continue
+        crd = CustomResourceDefinition(obj.raw)
+        served = {}
+        for version in crd.served_versions:
+            try:
+                served[version] = any(
+                    r["name"] == crd.plural for r in client.discover(crd.group, version)
+                )
+            except NotFoundError:
+                served[version] = False
+        out[name] = {"resource_version": crd.resource_version, "discoverable": served}
+    return out
+
+
+def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+    """The CRD utility's command line against ``ApiStub``, then a roll of
+    ``INFORMER_NODES`` among ``WATCH_POOL_NODES`` other nodes by the port's
+    machine reading from an incremental informer source with its writes
+    batched; settled passes, an audit and a pass from the LIST source
+    after it. The probe pods run on roll-phase kernel caches."""
+    from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import DriverUpgradePolicySpec
+    from k8s_operator_libs_tpu_torch.kube.client import get_or_none
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
+        ValidationPodManager,
+        ValidationPodSpec,
+    )
+    from k8s_operator_libs_tpu_torch.upgrade import (
+        ClusterUpgradeStateManager,
+        DeviceClass,
+        UpgradeKeys,
+    )
+
+    start = time.perf_counter()
+    keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
+    client = DictClient()
+    client.discovery_delay_s = CRD_DISCOVERY_DELAY_S
+    crd = {}
+    with ApiStub(client) as stub, tempfile.TemporaryDirectory(prefix="crdutil-") as workdir:
+        crd["apply"] = crdutil_child("apply", client, stub.url, workdir, "--operation", "apply")
+        crd["after_apply"] = crd_state(client)
+        crd["update"] = crdutil_child("update", client, stub.url, workdir, "--operation", "apply")
+        crd["after_update"] = crd_state(client)
+        for name in CRDS:
+            first, again = crd["after_apply"][name], crd["after_update"][name]
+            if first is None or not all(first["discoverable"].values()):
+                raise AssertionError(f"informer_roll: {name} not discoverable after apply: {crd}")
+            if again is None or again["resource_version"] == first["resource_version"]:
+                raise AssertionError(f"informer_roll: the second apply did not update {name}")
+        for step in ("apply", "update"):
+            if crd[step]["last_line"] != f"apply: processed {len(CRDS)} CRD(s)":
+                raise AssertionError(f"informer_roll: crdutil {step} printed {crd[step]}")
+        if crd["apply"]["discovery_polls"] < 2:
+            raise AssertionError(f"informer_roll: the wait did not poll discovery: {crd}")
+
+        for i in range(WATCH_POOL_NODES):
+            client.create(pool_node(f"cpu-pool-{i:03d}", INFORMER_OTHER_POOL))
+        installer = roll_pool(client, INFORMER_NODES)
+        mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
+        mgr.with_validation_enabled(
+            pod_provisioner=ValidationPodManager(client, ValidationPodSpec())
+        )
+        ns, labels = installer.spec.namespace, installer.match_labels
+        source = mgr.with_snapshot_from_informers(
+            ns, labels, incremental=True, verify_every_n=VERIFY_EVERY_N
+        )
+        batcher = mgr.enable_write_batching()
+        caches = {name: os.path.join(cache_root, ROLL_NODES[i % len(ROLL_NODES)])
+                  for i, name in enumerate(INFORMER_NODES)}
+        print(f"informer_roll: the probe pods take the kernel caches of {list(ROLL_NODES)} "
+              "from the roll phase, so their payloads skip nvcc", flush=True)
+        stats: list = []
+
+        def caught_up() -> None:
+            """Wait (at most 5 s) until the source's stores hold what the
+            client holds, so a pass reads what the kubelet just wrote."""
+            deadline = time.monotonic() + 5.0
+            while time.monotonic() < deadline:
+                if all(
+                    {o.name: o.resource_version for o in source.informer(kind).list(copy=False)}
+                    == {o.name: o.resource_version for o in client.list_with_revision(
+                        kind, ns if kind != "Node" else "",
+                        labels if kind in ("Pod", "DaemonSet") else None)[0]}
+                    for kind in ("Node", "Pod", "DaemonSet", "ControllerRevision")
+                ):
+                    return
+                time.sleep(0.01)
+            raise AssertionError("informer_roll: the informers did not catch up in 5 s")
+
+        def after_apply() -> bool:
+            stats.append(dataclasses.asdict(mgr.last_pass_stats))
+            return True
+
+        try:
+            with tempfile.TemporaryDirectory(prefix="informer-roll-") as podwork:
+                kubelet = RollKubelet(client, installer, INFORMER_NODES, podwork, gate_launches,
+                                      caches)
+                run = drive_roll("informer_roll", client, mgr, installer, kubelet,
+                                 before_apply=caught_up, after_apply=after_apply)
+                controller = counts()
+            policy = DriverUpgradePolicySpec.from_dict(ROLL_POLICY)
+            settled = []
+            calls_before = dict(client.calls)
+            for _ in range(SETTLED_PASSES):
+                t0 = time.perf_counter()
+                state = mgr.build_state(ns, labels)
+                build_ms = (time.perf_counter() - t0) * 1e3
+                mgr.apply_state(state, policy)
+                st = mgr.last_pass_stats
+                settled.append({"build_state_ms": build_ms, "reads_issued": st.reads_issued,
+                                "writes_issued": st.writes_issued,
+                                "snapshot_skipped": st.snapshot_skipped,
+                                "full_rebuild": st.full_rebuild,
+                                "dirty_node_count": st.dirty_node_count,
+                                "verify_divergences": st.verify_divergences,
+                                "delta_hit_rate": st.delta_hit_rate})
+            settled_calls = {k: v - calls_before.get(k, 0) for k, v in client.calls.items()
+                             if v != calls_before.get(k, 0)}
+            audit = mgr.audit_incremental(ns, labels)
+            listing = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
+            list_ms = []
+            for _ in range(3):
+                t0 = time.perf_counter()
+                list_state = listing.build_state(ns, labels)
+                list_ms.append((time.perf_counter() - t0) * 1e3)
+            listing.apply_state(list_state, policy)
+            list_pass = dataclasses.asdict(listing.last_pass_stats)
+            relists = {kind: source.informer(kind).full_relists
+                       for kind in ("Node", "Pod", "DaemonSet", "ControllerRevision")}
+        finally:
+            source.stop()
+            mgr.runner.shutdown()
+        crd["delete"] = crdutil_child("delete", client, stub.url, workdir, "--operation", "delete")
+        crd["after_delete"] = crd_state(client)
+
+    runs = kubelet.probe_runs
+    others = [f"cpu-pool-{i:03d}" for i in range(WATCH_POOL_NODES)]
+    touched = sorted({
+        key[2] for _, _, key, raw, _ in client.journal
+        if key[0] == "Node" and key[2] in set(others)
+        and ((raw.get("spec") or {}).get("unschedulable")
+             or any(k.startswith(f"{keys.device.domain}/{keys.device.driver}-driver-")
+                    for k in {**(raw["metadata"].get("labels") or {}),
+                              **(raw["metadata"].get("annotations") or {})}))
+    })
+    writes = mgr.provider.write_stats()
+    result = {
+        "cluster_nodes": len(client.list("Node")),
+        "driver_pool": list(INFORMER_NODES),
+        "crdutil": crd,
+        **run,
+        "pass_stats": stats,
+        "reads_issued_roll": sum(p["reads_issued"] for p in stats),
+        "writes_issued_roll": sum(p["writes_issued"] for p in stats),
+        "settled": settled,
+        "settled_client_calls": settled_calls,
+        "delta_hit_rate": settled[-1]["delta_hit_rate"],
+        "batcher": batcher.stats(),
+        "provider_writes": {"issued": writes["issued"], "skipped": writes["skipped"]},
+        "full_relists": relists,
+        "audit_divergences": audit,
+        "verify_divergences_total": source.verify_divergences_total,
+        "build_state_ms": {"incremental_settled": [p["build_state_ms"] for p in settled],
+                           "list": list_ms},
+        "list_pass": {k: list_pass[k] for k in ("reads_issued", "writes_issued")},
+        "probe_pods": runs,
+        "pod_launches": total_launches(runs.values()),
+        "controller_launches": {lib: controller[lib] for lib in ("matmul", "flash_attention")},
+        "other_nodes_touched": touched,
+        "phase_wall_s": time.perf_counter() - start,
+    }
+    print(json.dumps({"informer_roll": result, "card": card}), flush=True)
+    check_rolled_pods("informer_roll", client, installer, INFORMER_NODES, runs)
+    for name in CRDS:
+        if crd["after_delete"][name] is not None:
+            raise AssertionError(f"informer_roll: {name} left after the delete")
+        if get_or_none(client, "CustomResourceDefinition", name) is not None:
+            raise AssertionError(f"informer_roll: {name} still stored")
+    if crd["delete"]["last_line"] != f"delete: processed {len(CRDS)} CRD(s)":
+        raise AssertionError(f"informer_roll: crdutil delete printed {crd['delete']}")
+    if result["cluster_nodes"] != WATCH_POOL_NODES + len(INFORMER_NODES):
+        raise AssertionError(f"informer_roll: {result['cluster_nodes']} nodes in the cluster")
+    if touched:
+        raise AssertionError(f"informer_roll: the roll touched other nodes: {touched}")
+    bad = [p for p in settled if p["reads_issued"] or p["writes_issued"]]
+    if bad or settled_calls:
+        raise AssertionError(f"informer_roll: settled passes did work: {bad} {settled_calls}")
+    if audit or source.verify_divergences_total:
+        raise AssertionError(f"informer_roll: the audit found {audit} divergences "
+                             f"({source.verify_divergences_total} in all)")
+    if batcher.stats()["writes_flushed"] != writes["issued"]:
+        raise AssertionError(f"informer_roll: the batcher flushed {batcher.stats()}, "
+                             f"the provider issued {writes['issued']}")
+    if list_pass["reads_issued"] < 3:
+        raise AssertionError(f"informer_roll: the LIST pass read {list_pass['reads_issued']}")
+    if controller["matmul"] or controller["flash_attention"]:
+        raise AssertionError(f"informer_roll: the controller launched kernels: {controller}")
+    built = {name: r["build_s"] for name, r in runs.items() if any(r["build_s"].values())}
+    if built:
+        raise AssertionError(f"informer_roll: probe pods built their kernels again: {built}")
+    return result
+
+
 def main() -> int:
     import torch
 
@@ -3014,6 +3383,7 @@ def main() -> int:
             monitor = monitor_phase(card, launches, client, watch)
             watch.check_monitor(client)
             quarantine = quarantine_phase(card, launches, cache_root, monitor["reports"])
+            informer = informer_roll_phase(card, launches, cache_root)
     finally:
         watched = watch.stop()
     print(json.dumps({"watch": watched, "card": card}), flush=True)
@@ -3031,6 +3401,7 @@ def main() -> int:
         row["launches_checkpoint_roll"] = checkpoint["pod_launches"][kernel]
         row["launches_monitor"] = monitor["pass_launches"][kernel]
         row["launches_quarantine_pod"] = quarantine["pod_launches"][kernel]
+        row["launches_informer_roll"] = informer["pod_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         if kernel == "matmul":
             row["path_launches"] = launches["matmul_by_path"].get(row["path"], 0)

@@ -25,14 +25,17 @@ Layout:
   validation pod); the slice-aware planner, the health monitor and the
   slice probe gang.
 * ``policy`` — the upgrade policies the planner's budget and order use.
-* ``upgrade`` — the rolling-upgrade state machine's in-place path
+* ``upgrade`` — the rolling-upgrade state machine
   (``ClusterUpgradeStateManager`` and its cordon, drain, pod, validation
-  and safe-load managers), the upgrade keys and states, and a metrics
-  endpoint.
-* ``kube`` — object views, API errors, the drain helper, Events and a
-  minimal REST client.
+  and safe-load managers; the requestor mode, the checkpoint and
+  quarantine arcs), its snapshot sources (LIST, informer, incremental)
+  and write batcher, the upgrade keys and states, and a metrics endpoint.
+* ``crdutil`` — apply and delete CustomResourceDefinitions, waiting on
+  API discovery; ``python -m k8s_operator_libs_tpu_torch.crdutil``.
+* ``kube`` — object views, API errors, the drain helper, Events, label
+  and field selectors, a minimal REST client and the informer.
 * ``utils``  — logging, device resolution, int-or-percent values, per-node
-  locks and the wall clock of the durable deadlines.
+  locks, the wall clock of the durable deadlines and the fault points.
 * ``tools``  — ``kernel_ab``: this checkout's kernels timed beside another
   checkout's on one card.
 

@@ -1,15 +1,15 @@
 """The Kubernetes object views, API-error helpers, Event recorder, label
 and field selectors, minimal REST client with its watch, and the
-list-watch informer that the GPU device class, the monitor, the slice gang
-and the state machine need. The operator passes in its own client and
+list-watch informer that the GPU device class, the monitor, the slice gang,
+the state machine and the CRD utility need. The operator passes in its own client and
 objects; the port reads them by duck typing and imports none of the
 operator's code. The monitor, run as a pod, builds its own
 ``rest.RestClient``."""
 
-from .client import WatchExpiredError
+from .client import WatchExpiredError, patch_many
 from .events import EventRecorder
 from .informer import EventHandler, Informer
-from .objects import deep_copy_json
+from .objects import CustomResourceDefinition, deep_copy_json
 from .rest import DEFAULT_WATCH_TIMEOUT_SECONDS, RestClient, RestConfig, WatchHandle
 from .selectors import (
     FieldRequirement,
@@ -22,6 +22,7 @@ from .selectors import (
 )
 
 __all__ = [
+    "CustomResourceDefinition",
     "DEFAULT_WATCH_TIMEOUT_SECONDS",
     "EventHandler",
     "EventRecorder",
@@ -38,4 +39,5 @@ __all__ = [
     "deep_copy_json",
     "parse_field_selector",
     "parse_selector",
+    "patch_many",
 ]

@@ -14,7 +14,7 @@ in-memory cluster.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Iterator, Mapping, Optional, Protocol, TypeVar
+from typing import Any, Callable, Iterator, Mapping, Optional, Protocol, Sequence, TypeVar
 
 T = TypeVar("T")
 
@@ -122,6 +122,16 @@ class Client(Protocol):
         """Evict a pod through its eviction subresource."""
         ...
 
+    def discover(self, group: str, version: str) -> list[dict[str, Any]]:
+        """API discovery: the resources served under ``group/version``
+        (``group=""`` is the core group) as APIResourceList entries
+        (``{"name": plural, "kind": ..., "namespaced": ...}``); an error
+        of ``NotFoundError``'s reason while the group/version is not yet
+        discoverable. A client without it raises ``NotImplementedError``
+        or has no such method, and crdutil then waits on the CRD's
+        status instead."""
+        ...
+
 
 def has_reason(exc: BaseException, kind: type[ApiError]) -> bool:
     """Whether ``exc`` is an API error of ``kind``, whichever client's
@@ -148,6 +158,33 @@ def delete_if_exists(client, kind: str, name: str, namespace: str = "") -> bool:
         if has_reason(e, NotFoundError):
             return False
         raise
+
+
+def patch_many(
+    client,
+    kind: str,
+    patches: Sequence[tuple[str, Any, str]],
+    namespace: str = "",
+) -> list:
+    """Patch a batch of ``kind`` objects, ``(name, patch, patch_type)`` a
+    slot: through the client's own ``patch_many`` where it has one, else
+    one ``client.patch`` a slot in order (the JAX base
+    ``Client.patch_many``; the JAX client's pipelined batch on one
+    connection waits for ROADMAP A18). Each slot's result is the patched
+    object or the exception that slot raised; a failed slot never fails
+    the others."""
+    own = getattr(client, "patch_many", None)
+    if callable(own):
+        return own(kind, list(patches), namespace=namespace)
+    results: list = []
+    for name, patch, patch_type in patches:
+        try:
+            results.append(
+                client.patch(kind, name, namespace=namespace, patch=patch, patch_type=patch_type)
+            )
+        except Exception as e:  # noqa: BLE001 - per-slot isolation
+            results.append(e)
+    return results
 
 
 def retry_on_conflict(fn: Callable[[], T], attempts: int = 5) -> T:

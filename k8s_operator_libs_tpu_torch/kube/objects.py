@@ -293,6 +293,11 @@ class ControllerRevision(KubeObject):
     def revision(self, value: int) -> None:
         self.raw["revision"] = int(value)
 
+    def hash_label(self) -> str:
+        """The ``controller-revision-hash`` label; the read inserts
+        nothing (snapshot sources serve revisions from their stores)."""
+        return (self.metadata.get("labels") or {}).get("controller-revision-hash", "")
+
 
 class Service(KubeObject):
     KIND = "Service"
@@ -378,9 +383,37 @@ class NodeMaintenance(KubeObject):
         return ""
 
 
+class CustomResourceDefinition(KubeObject):
+    """A CRD: its group, plural, the versions it serves and whether the
+    API server has established it. The reads insert nothing."""
+
+    KIND = "CustomResourceDefinition"
+    API_VERSION = "apiextensions.k8s.io/v1"
+
+    @property
+    def group(self) -> str:
+        return (self.raw.get("spec") or {}).get("group", "")
+
+    @property
+    def served_versions(self) -> list[str]:
+        return [
+            v.get("name", "")
+            for v in (self.raw.get("spec") or {}).get("versions") or []
+            if v.get("served", False)
+        ]
+
+    @property
+    def plural(self) -> str:
+        return ((self.raw.get("spec") or {}).get("names") or {}).get("plural", "")
+
+    def is_established(self) -> bool:
+        return condition_status(self.raw.get("status") or {}, "Established") == "True"
+
+
 KINDS: dict[str, type] = {
     cls.KIND: cls
-    for cls in (Node, Pod, DaemonSet, ControllerRevision, Service, Event, NodeMaintenance)
+    for cls in (Node, Pod, DaemonSet, ControllerRevision, Service, Event, NodeMaintenance,
+                CustomResourceDefinition)
 }
 
 

@@ -13,10 +13,12 @@ The operations are those of the operator's client: ``get``,
 selectors; the latter also returns the collection's resourceVersion),
 ``watch`` (a bounded stream of watch events, resumable from a revision
 and cancelled through a :class:`WatchHandle`), ``create``, ``update``,
-``update_status``, ``patch``, ``delete`` and ``evict`` (the pod's
-eviction subresource), on Node, Pod, Service, Event, DaemonSet,
-ControllerRevision, NodeHealthReport, NodeMaintenance and
-WorkloadCheckpoint. Objects come back as the views of
+``update_status``, ``patch`` (the JAX client's pipelined ``patch_many``
+on one connection waits for ROADMAP A18; until then the write batcher
+sends one ``patch`` a slot), ``delete`` and ``evict`` (the pod's eviction subresource), on Node,
+Pod, Service, Event, DaemonSet, ControllerRevision, NodeHealthReport,
+NodeMaintenance, WorkloadCheckpoint and CustomResourceDefinition; and
+``discover``, the API's discovery document of one group/version. Objects come back as the views of
 ``kube/objects.py``. An API error is raised with the API's
 ``Status.reason``, as the classes of ``kube/client.py`` where it is one of
 theirs, so ``has_reason`` and ``retry_on_conflict`` read it.
@@ -70,6 +72,9 @@ RESOURCES: dict[str, tuple[str, str, bool]] = {
     "NodeHealthReport": (NODE_HEALTH_REPORT_API_VERSION, "nodehealthreports", False),
     "NodeMaintenance": ("maintenance.nvidia.com/v1alpha1", "nodemaintenances", True),
     WORKLOAD_CHECKPOINT_KIND: (WORKLOAD_CHECKPOINT_API_VERSION, WORKLOAD_CHECKPOINT_PLURAL, True),
+    "CustomResourceDefinition": (
+        "apiextensions.k8s.io/v1", "customresourcedefinitions", False,
+    ),
 }
 
 _ERRORS = {
@@ -506,6 +511,15 @@ class RestClient:
             content_type=_PATCH_TYPES[patch_type],
         )
         return self._wrap(kind, body)
+
+    def discover(self, group: str, version: str) -> list[dict]:
+        """The resources the API serves under ``group/version`` (the core
+        group when ``group`` is empty): the discovery document's
+        ``resources``. A group/version not (yet) discoverable is a 404,
+        raised as ``NotFoundError``."""
+        path = f"/apis/{group}/{version}" if group else f"/api/{version}"
+        doc = self._request("GET", path) or {}
+        return list(doc.get("resources") or [])
 
     def delete(self, kind: str, name: str, namespace: str = "") -> None:
         self._request("DELETE", self._path(kind, self._namespace(kind, namespace), name))

@@ -1,5 +1,6 @@
 """The rolling-upgrade state machine's in-place path, requestor mode,
-checkpoint arc and quarantine arc, the health telemetry it reads, the
+checkpoint arc and quarantine arc, the health telemetry it reads, its
+snapshot sources (LIST, informer, incremental) and write batcher, the
 device class and its upgrade keys and states, and the metrics endpoint (a
 subset of the JAX package's ``upgrade`` package; what the port's machine
 does not run it refuses, naming the ROADMAP item: ``state_manager.py``)."""
@@ -22,11 +23,19 @@ from .requestor import (
     requestor_id_predicate,
 )
 from .safe_driver_load import SafeDriverLoadManager
-from .snapshot import ClientSnapshotSource, SnapshotSource
+from .snapshot import (
+    DEFAULT_RESYNC_PERIOD_S,
+    ClientSnapshotSource,
+    IncrementalSnapshotSource,
+    InformerSnapshotSource,
+    SnapshotDelta,
+    SnapshotSource,
+)
 from .state_manager import BuildStateError, ClusterUpgradeStateManager, PassStats, StateOptions
 from .state_provider import NodeUpgradeStateProvider, StateWriteError
 from .task_runner import TaskRunner
 from .validation_manager import VALIDATION_TIMEOUT_SECONDS, ValidationManager
+from .write_batch import WRITE_BATCH_FAULT_POINT, WriteBatchError, WriteBatcher
 
 __all__ = [
     "BuildStateError",
@@ -36,12 +45,15 @@ __all__ = [
     "ClusterUpgradeStateManager",
     "CommonUpgradeManager",
     "DEFAULT_NODE_MAINTENANCE_NAME_PREFIX",
+    "DEFAULT_RESYNC_PERIOD_S",
     "CordonManager",
     "DeviceClass",
     "DrainConfiguration",
     "DrainManager",
     "HealthMetrics",
     "HealthSource",
+    "IncrementalSnapshotSource",
+    "InformerSnapshotSource",
     "InplaceNodeStateManager",
     "LinkMetrics",
     "NodeUpgradeState",
@@ -57,6 +69,7 @@ __all__ = [
     "RequestorOptions",
     "RevisionHashError",
     "SafeDriverLoadManager",
+    "SnapshotDelta",
     "SnapshotSource",
     "StateOptions",
     "StateWriteError",
@@ -65,6 +78,9 @@ __all__ = [
     "UpgradeState",
     "VALIDATION_TIMEOUT_SECONDS",
     "ValidationManager",
+    "WRITE_BATCH_FAULT_POINT",
+    "WriteBatchError",
+    "WriteBatcher",
     "condition_changed_predicate",
     "enable_requestor_mode",
     "requestor_id_predicate",

@@ -84,6 +84,12 @@ class ClusterUpgradeState:
     node_states: dict[UpgradeState, list[NodeUpgradeState]] = field(
         default_factory=lambda: defaultdict(list)
     )
+    #: From an incremental snapshot source: the nodes whose world changed
+    #: since the last pass. None (a full rebuild, a LIST or plain informer
+    #: source): every bucket walks all its nodes. A set, even empty: the
+    #: buckets that only react to watched state walk just those nodes
+    #: (:meth:`reactive_nodes_in`), and a settled pass walks none.
+    dirty_nodes: Optional[frozenset[str]] = None
     #: node name -> :class:`NodeHealth` from the NodeHealthReports, attached
     #: by the state machine when a ``HealthSource`` is wired
     #: (``with_health_telemetry``). None without one: the planner orders by
@@ -100,6 +106,20 @@ class ClusterUpgradeState:
 
     def nodes_in(self, state: UpgradeState) -> list[NodeUpgradeState]:
         return self.node_states.get(state, [])
+
+    def reactive_nodes_in(self, state: UpgradeState) -> list[NodeUpgradeState]:
+        """The bucket's dirty nodes, for the steps that only react to
+        watched state (classify, the spec-less advance, the pod-restart
+        check, recovery, uncordon). A step whose progress hangs on objects
+        the snapshot source does not watch (workload pods, checkpoint
+        acks, evictions, validation) must walk :meth:`nodes_in`, or it
+        would never be woken."""
+        nodes = self.node_states.get(state, [])
+        if self.dirty_nodes is None:
+            return nodes
+        if not self.dirty_nodes or not nodes:
+            return []
+        return [ns for ns in nodes if ns.node.name in self.dirty_nodes]
 
     def health_of(self, node_name: str) -> Optional[NodeHealth]:
         """The node's parsed telemetry, where a health source is wired."""
@@ -324,7 +344,7 @@ class CommonUpgradeManager:
 
         self._for_each(
             f"classify[{bucket or 'unknown'}]",
-            state.nodes_in(bucket),
+            state.reactive_nodes_in(bucket),
             lambda ns: ns.node.name,
             classify,
         )
@@ -359,8 +379,12 @@ class CommonUpgradeManager:
         selected pods to finish, within the spec's timeout, and then goes
         on to pod deletion. With the checkpoint arc enabled, both paths
         lead to ``checkpoint-required`` instead."""
-        nodes = [ns.node for ns in state.nodes_in(UpgradeState.WAIT_FOR_JOBS_REQUIRED)]
         if wait_spec is None or not wait_spec.pod_selector:
+            # A node enters this bucket by a state write, which marks it
+            # dirty, so the advance runs on the next pass.
+            nodes = [
+                ns.node for ns in state.reactive_nodes_in(UpgradeState.WAIT_FOR_JOBS_REQUIRED)
+            ]
             next_state = (
                 UpgradeState.CHECKPOINT_REQUIRED
                 if checkpoint_enabled
@@ -368,6 +392,8 @@ class CommonUpgradeManager:
             )
             self._advance_all("wait-for-jobs", nodes, next_state)
             return
+        # The selector's pods are not watched: this bucket polls.
+        nodes = [ns.node for ns in state.nodes_in(UpgradeState.WAIT_FOR_JOBS_REQUIRED)]
         if not nodes:
             return
         self.pod_manager.schedule_check_on_pod_completion(
@@ -548,7 +574,7 @@ class CommonUpgradeManager:
 
         self._for_each(
             "pod-restart",
-            state.nodes_in(UpgradeState.POD_RESTART_REQUIRED),
+            state.reactive_nodes_in(UpgradeState.POD_RESTART_REQUIRED),
             lambda ns: ns.node.name,
             advance,
         )
@@ -584,7 +610,10 @@ class CommonUpgradeManager:
                 self.provider.change_node_upgrade_state(ns.node, UpgradeState.UNCORDON_REQUIRED)
 
         self._for_each(
-            "failed-recovery", state.nodes_in(UpgradeState.FAILED), lambda ns: ns.node.name, recover
+            "failed-recovery",
+            state.reactive_nodes_in(UpgradeState.FAILED),
+            lambda ns: ns.node.name,
+            recover,
         )
 
     def process_validation_required_nodes(self, state: ClusterUpgradeState) -> None:

@@ -14,11 +14,11 @@ counters) and ``LinkMetrics`` the ``tpu_operator_link_*`` family (each
 link of the folded topology, a histogram of the hop latency), both served
 by the ``MetricsServer``.
 
-Not here yet: :meth:`HealthSource.attach`, which feeds report deltas into
-an incremental snapshot source's dirty set, waits for that source
-(ROADMAP A14) and raises; a shared watch hub as the informer's stream
-waits for ROADMAP A18 and is refused; the informer's tracing spans wait
-for ROADMAP A15.
+:meth:`HealthSource.attach` feeds each report's change into an incremental
+snapshot source's dirty set: the node it names and its link peers, so a
+health-only change reclassifies those nodes and never everything. Not
+here yet: a shared watch hub as the informer's stream waits for ROADMAP
+A18 and is refused; the informer's tracing spans wait for ROADMAP A15.
 """
 
 from __future__ import annotations
@@ -145,10 +145,11 @@ class HealthSource:
 
     # -- wiring ----------------------------------------------------------------
     def attach(self, snapshot_source) -> None:
-        """Would feed each report's change into an incremental snapshot
-        source's dirty set (its node and its link peers); that source is
-        not in the port yet."""
-        raise not_ported("HealthSource.attach to an incremental snapshot source", "A14")
+        """Feed report deltas into an ``IncrementalSnapshotSource``'s dirty
+        set: each event marks the node the report names and every peer of
+        its link map (a link's health is both ends'), the old object's
+        too, since only it names a peer the update dropped."""
+        snapshot_source.mark_dirty_on(self._informer, report_concerned_nodes, include_old=True)
 
     def add_observer(self, fn: Callable[[NodeHealth], None]) -> None:
         """``fn`` is called with every parsed update on the informer's

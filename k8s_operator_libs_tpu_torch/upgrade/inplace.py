@@ -110,7 +110,7 @@ class InplaceNodeStateManager:
 
         common._for_each(
             "uncordon",
-            state.nodes_in(UpgradeState.UNCORDON_REQUIRED),
+            state.reactive_nodes_in(UpgradeState.UNCORDON_REQUIRED),
             lambda ns: ns.node.name,
             release,
         )

@@ -1,9 +1,10 @@
 """PodManager: the driver pod's revision, workload eviction, driver pod
 restarts and the wait for workload pods to complete.
 
-The JAX package's ``upgrade/pod_manager.py`` without its tracing spans and
-its informer-backed revision reads: the DaemonSet's revision comes from a
-LIST of its ControllerRevisions, kept for one snapshot.
+The JAX package's ``upgrade/pod_manager.py`` without its tracing spans.
+The DaemonSet's revision comes from its ControllerRevisions, kept for one
+full snapshot: from a LIST, or from the informer snapshot source's store
+where ``with_snapshot_from_informers`` set :attr:`PodManager.revision_source`.
 """
 
 from __future__ import annotations
@@ -67,8 +68,15 @@ class PodManager:
         # ControllerRevisions a DaemonSet per snapshot, not one per node.
         # Cleared by every build_state, so a rollout that adds a revision
         # without touching the DaemonSet is read by the next pass.
+        # An incremental source's delta passes keep it: a rollout is a
+        # DaemonSet or ControllerRevision delta, which makes the next pass
+        # a full rebuild, and that clears it.
         self._ds_hash_lock = threading.Lock()
         self._ds_hash_cache: dict[str, tuple[str, str]] = {}
+        #: The informer snapshot source the revisions are read from (None:
+        #: a LIST); a plain attribute, so a pod manager swapped in
+        #: (``with_pod_deletion_enabled``) carries it over.
+        self.revision_source = None
 
     def reset_pass_caches(self) -> None:
         with self._ds_hash_lock:
@@ -98,18 +106,20 @@ class PodManager:
                 hit = self._ds_hash_cache.get(uid)
             if hit is not None and hit[0] == rv:
                 return hit[1]
-        revisions = [
-            cr
-            for cr in (
+        if self.revision_source is not None:
+            candidates = self.revision_source.controller_revisions(
+                daemonset.namespace, daemonset.match_labels
+            )
+        else:
+            candidates = [
                 ControllerRevision(o.raw)
                 for o in self._client.list(
                     "ControllerRevision",
                     namespace=daemonset.namespace,
                     label_selector=daemonset.match_labels,
                 )
-            )
-            if cr.name.startswith(daemonset.name)
-        ]
+            ]
+        revisions = [cr for cr in candidates if cr.name.startswith(daemonset.name)]
         if not revisions:
             raise RevisionHashError(f"no revision found for daemonset {daemonset.name}")
         latest = max(revisions, key=lambda r: r.revision)

@@ -27,14 +27,19 @@ and the objects, as the JAX machine writes it, so either machine can carry
 on a roll or an arc the other began. An error aborts the pass; the next
 pass resumes from the node labels.
 
-What the JAX machine does beyond that is refused with
-``NotImplementedError`` naming its ROADMAP item, never skipped: the
-informer and incremental snapshot sources and write batching (A14):
-``with_snapshot_from_informers``, ``enable_write_batching`` and
-``StateOptions.batch_writes``.
+``build_state`` reads through a ``SnapshotSource`` (``snapshot.py``): three
+LISTs a pass by default, or with ``with_snapshot_from_informers`` the
+stores of informers, whose ``incremental`` form keeps the classified state
+and reclassifies only the nodes a delta touched (a settled pool's pass
+reads and writes nothing; every ``verify_every_n``-th pass audits the kept
+state against a full rebuild). ``enable_write_batching`` (or
+``StateOptions.batch_writes``) stages the provider's PATCHes through a
+``WriteBatcher`` (``write_batch.py``).
 
-The JAX machine's tracing spans (A15) have no counterpart; the API calls
-of the last pass are counted in :class:`PassStats`.
+The JAX machine's tracing spans and the pass's timings (A15) have no
+counterpart; the API calls and the incremental source's work of the last
+pass are counted in :class:`PassStats`. A shared watch hub for the
+informers waits for A18 and is refused.
 """
 
 from __future__ import annotations
@@ -53,10 +58,17 @@ from .drain_manager import DrainManager
 from .inplace import InplaceNodeStateManager, ProcessNodeStateManager
 from .pod_manager import PodDeletionFilter, PodManager
 from .safe_driver_load import SafeDriverLoadManager
-from .snapshot import ClientSnapshotSource, SnapshotSource
+from .snapshot import (
+    ClientSnapshotSource,
+    IncrementalSnapshotSource,
+    InformerSnapshotSource,
+    SnapshotDelta,
+    SnapshotSource,
+)
 from .state_provider import NodeUpgradeStateProvider
 from .task_runner import TaskRunner
 from .validation_manager import ValidationHook, ValidationManager
+from .write_batch import WriteBatcher
 
 log = get_logger("upgrade.state_manager")
 
@@ -71,10 +83,27 @@ class BuildStateError(Exception):
     pass
 
 
+def _assignment_shape(assignment: Mapping) -> dict[str, list[tuple]]:
+    """A classification to compare: node name -> sorted (bucket, pod
+    namespace, pod name, owning DaemonSet's uid); which pass built the
+    entries does not matter."""
+    return {
+        name: sorted(
+            (
+                str(bucket),
+                ns.driver_pod.namespace,
+                ns.driver_pod.name,
+                ns.driver_daemonset.uid if ns.driver_daemonset else "",
+            )
+            for bucket, ns in entries
+        )
+        for name, entries in assignment.items()
+    }
+
+
 @dataclass
 class StateOptions:
-    """The JAX machine's options. The port's machine refuses
-    ``batch_writes`` (ROADMAP A14). The requestor's own settings are on
+    """The JAX machine's options. The requestor's own settings are on
     ``requestor.RequestorOptions``."""
 
     #: Run the requestor strategy (where the manager has one).
@@ -82,7 +111,12 @@ class StateOptions:
     #: Nodes of a bucket worked on at once (1: one at a time; an inline
     #: runner is serial whatever this says).
     apply_width: int = 8
+    #: Stage the provider's PATCHes through a ``WriteBatcher``: a bucket's
+    #: nodes then share flushes (where the runner fans out; a serial
+    #: caller makes batches of one).
     batch_writes: bool = False
+    #: The largest flush with ``batch_writes``.
+    write_batch_max: int = 64
 
 
 @dataclass
@@ -93,10 +127,37 @@ class PassStats:
     #: Client reads of the snapshot, each node's NodeMaintenance GET in
     #: the requestor mode included.
     reads_issued: int = 0
+    #: True when the snapshot came from informer stores.
+    snapshot_cached: bool = False
     #: State PATCHes sent, and those left out because the node already
-    #: held the value.
+    #: held the value (fire-and-forget drain tasks land theirs in the pass
+    #: open when they finish).
     writes_issued: int = 0
     writes_skipped: int = 0
+    #: Keys that rode another key's PATCH, and PATCHes staged through the
+    #: write batcher.
+    writes_coalesced: int = 0
+    writes_batched: int = 0
+    #: Node errors the buckets isolated this pass.
+    node_errors: int = 0
+    # The incremental source's pass, where there is one.
+    #: True when the snapshot came from an ``IncrementalSnapshotSource``.
+    snapshot_incremental: bool = False
+    #: Every node reclassified (the first build, a DaemonSet or
+    #: ControllerRevision delta, an invalidation, or an audit).
+    full_rebuild: bool = False
+    #: The kept state served untouched: no read, no node reclassified.
+    snapshot_skipped: bool = False
+    #: The dirty nodes this snapshot consumed.
+    dirty_node_count: int = 0
+    #: The nodes this snapshot reclassified.
+    nodes_reclassified: int = 0
+    #: Differences between the kept state and the audit's rebuild, found
+    #: and repaired this pass.
+    verify_divergences: int = 0
+    #: The share of the incremental source's builds served from deltas
+    #: without a full rebuild, in all.
+    delta_hit_rate: float = 0.0
     # The checkpoint arc, counted once a pass has seen it.
     #: Nodes still held in checkpoint-required after this pass.
     checkpoint_nodes_waiting: int = 0
@@ -125,10 +186,9 @@ class ClusterUpgradeStateManager:
         options: Optional[StateOptions] = None,
         runner: Optional[TaskRunner] = None,
         requestor: Optional[ProcessNodeStateManager] = None,
+        snapshot_source: Optional[SnapshotSource] = None,
     ) -> None:
         self.options = options or StateOptions()
-        if self.options.batch_writes:
-            raise not_ported("write batching", "A14")
         self.keys = UpgradeKeys(device)
         runner = runner or TaskRunner()
         provider = NodeUpgradeStateProvider(client, self.keys, recorder=recorder)
@@ -154,7 +214,12 @@ class ClusterUpgradeStateManager:
         self.client = client
         self.recorder = recorder
         self.runner = runner
-        self.snapshot_source: SnapshotSource = ClientSnapshotSource(client)
+        self._batcher: Optional[WriteBatcher] = None
+        if self.options.batch_writes:
+            self.enable_write_batching(self.options.write_batch_max)
+        self.snapshot_source: SnapshotSource = (
+            snapshot_source if snapshot_source is not None else ClientSnapshotSource(client)
+        )
         self.last_pass_stats = PassStats()
         self.inplace: ProcessNodeStateManager = InplaceNodeStateManager(self.common)
         #: The requestor strategy (``requestor.enable_requestor_mode``); it
@@ -168,13 +233,60 @@ class ClusterUpgradeStateManager:
         #: a node in its bucket); from then on every pass counts the arc
         #: in its PassStats.
         self._checkpoint_seen = False
+        # The incremental source's builds and those served from deltas.
+        self._incremental_builds = 0
+        self._incremental_hits = 0
+        #: NodeMaintenance GETs of the requestor mode since build_state
+        #: began.
+        self._maintenance_reads = 0
 
-    # -- what the port's machine refuses -------------------------------------
-    def enable_write_batching(self, max_batch: int = 64):
-        raise not_ported("write batching", "A14")
+    # -- the read and write paths ----------------------------------------------
+    def enable_write_batching(self, max_batch: int = 64) -> WriteBatcher:
+        """Stage the provider's PATCHes through a ``WriteBatcher``, outside
+        the per-node mutex, so a bucket's nodes share flushes. Once only;
+        the batcher (its ``stats()``) is returned each time."""
+        batcher = self._batcher
+        if batcher is None:
+            batcher = WriteBatcher(self.client, max_batch=max_batch)
+            self._batcher = batcher
+            self.provider.set_batcher(batcher)
+        return batcher
 
-    def with_snapshot_from_informers(self, *args, **kwargs):
-        raise not_ported("the informer and incremental snapshot sources", "A14")
+    def with_snapshot_from_informers(
+        self,
+        namespace: str,
+        driver_labels: Mapping[str, str],
+        resync_period_s: Optional[float] = None,
+        sync_timeout: float = 30.0,
+        incremental: bool = False,
+        verify_every_n: int = 0,
+        watch_hub=None,
+    ) -> InformerSnapshotSource:
+        """Read each snapshot from informer stores and give the provider's
+        writes to them (read-your-writes); with ``incremental`` keep the
+        classified state too, so ``build_state`` costs what changed, and
+        with ``verify_every_n`` audit it every n-th build. Starts the
+        informers and waits until they have listed; returns the source,
+        which the caller stops. A ``watch_hub`` is refused (ROADMAP A18)."""
+        if watch_hub is not None:
+            raise not_ported("a snapshot source on a shared watch hub", "A18")
+        kwargs = {}
+        if resync_period_s is not None:
+            kwargs["resync_period_s"] = resync_period_s
+        if incremental:
+            source: InformerSnapshotSource = IncrementalSnapshotSource(
+                self.client, namespace, driver_labels, verify_every_n=verify_every_n, **kwargs
+            )
+        else:
+            source = InformerSnapshotSource(self.client, namespace, driver_labels, **kwargs)
+        source.start(sync_timeout=sync_timeout)
+        self.snapshot_source = source
+        self.provider.set_write_through(source.record_write)
+        self.common.pod_manager.revision_source = source
+        # A health source wired first still feeds the dirty set.
+        if self.health_source is not None and incremental:
+            self.health_source.attach(source)
+        return source
 
     # -- the health telemetry -------------------------------------------------
     def with_health_telemetry(self, health_source=None, sync_timeout: float = 30.0):
@@ -191,6 +303,8 @@ class ClusterUpgradeStateManager:
         if not health_source.started:
             health_source.start(sync_timeout=sync_timeout)
         self.health_source = health_source
+        if getattr(self.snapshot_source, "incremental", False):
+            health_source.attach(self.snapshot_source)
         return health_source
 
     # -- optional states -----------------------------------------------------
@@ -200,6 +314,7 @@ class ClusterUpgradeStateManager:
         if pod_deletion_filter is None:
             log.warning("cannot enable pod deletion: filter is None")
             return self
+        revision_source = self.common.pod_manager.revision_source
         self.common.pod_manager = PodManager(
             self.client,
             self.provider,
@@ -209,6 +324,7 @@ class ClusterUpgradeStateManager:
             recorder=self.recorder,
             apply_width=self.options.apply_width,
         )
+        self.common.pod_manager.revision_source = revision_source
         self.common.pod_deletion_enabled = True
         return self
 
@@ -272,22 +388,41 @@ class ClusterUpgradeStateManager:
     def build_state(self, namespace: str, driver_labels: Mapping[str, str]) -> ClusterUpgradeState:
         source = self.snapshot_source
         source.consume_reads()  # drop reads made outside a pass
-        stats = PassStats()
+        incremental = bool(getattr(source, "incremental", False))
+        stats = PassStats(snapshot_cached=source.cached, snapshot_incremental=incremental)
         self.last_pass_stats = stats
-        # One revision memo a snapshot: a rollout between two passes must
-        # not be served from the last pass's memo.
+        self._maintenance_reads = 0
+        if incremental:
+            state = self._build_state_incremental(namespace, driver_labels, source, stats)
+        else:
+            self._reset_pass_caches()
+            state = self._build_state_full(namespace, driver_labels, source)
+            state.dirty_nodes = None
+        if self.health_source is not None:
+            # Memoized: a settled pool attaches the same mapping again.
+            state.node_health = self.health_source.snapshot()
+        # One NodeMaintenance GET a node built in the requestor mode.
+        stats.reads_issued = source.consume_reads() + self._maintenance_reads
+        return state
+
+    def _reset_pass_caches(self) -> None:
+        """One revision memo a full snapshot: a rollout between two passes
+        must not be served from the last one's. Delta passes keep it (a
+        rollout makes the next pass a full rebuild)."""
         reset = getattr(self.common.pod_manager, "reset_pass_caches", None)
         if callable(reset):
             reset()
-        state = self._build_state_full(namespace, driver_labels, source)
-        stats.reads_issued = source.consume_reads()
-        if self._requestor_active():  # one NodeMaintenance GET a node
-            stats.reads_issued += sum(len(b) for b in state.node_states.values())
-        return state
 
     def _build_state_full(
-        self, namespace: str, driver_labels: Mapping[str, str], source: SnapshotSource
+        self,
+        namespace: str,
+        driver_labels: Mapping[str, str],
+        source: SnapshotSource,
+        assignment: Optional[dict] = None,
     ) -> ClusterUpgradeState:
+        """Classify every driver pod's node. With ``assignment`` (priming
+        the incremental source) each entry is also recorded there as node
+        name -> [(bucket, entry)]."""
         state = ClusterUpgradeState()
         daemonsets = {ds.uid: ds for ds in source.daemonsets(namespace, dict(driver_labels))}
         pods = source.pods(namespace, dict(driver_labels))
@@ -314,21 +449,169 @@ class ClusterUpgradeStateManager:
             ns = self._build_node_upgrade_state(pod, owner, node=nodes.get(pod.node_name))
             bucket = self.provider.get_upgrade_state(ns.node)
             state.node_states[bucket].append(ns)
-        if self.health_source is not None:
-            # Memoized: a settled pool attaches the same mapping again.
-            state.node_health = self.health_source.snapshot()
+            if assignment is not None:
+                assignment.setdefault(ns.node.name, []).append((bucket, ns))
         return state
+
+    def _build_state_incremental(
+        self,
+        namespace: str,
+        driver_labels: Mapping[str, str],
+        source: IncrementalSnapshotSource,
+        stats: PassStats,
+    ) -> ClusterUpgradeState:
+        """The snapshot from the source's deltas, cheapest shape first:
+
+        * settled (no delta): the kept state, ``dirty_nodes`` empty; no
+          read and no node classified;
+        * delta: the dirty nodes reclassified from the stores, the
+          completeness check on the pod counts the deltas keep;
+        * full (the first build, a DaemonSet or ControllerRevision delta,
+          an invalidation, or the ``verify_every_n`` audit): every node,
+          kept as the new state. The audit first consumes the pending
+          delta, then counts each node the rebuild classifies otherwise
+          (``PassStats.verify_divergences``) and repairs it.
+
+        ``dirty_nodes`` scopes the pass's reactive buckets: None after a
+        full rebuild, the consumed nodes otherwise."""
+        delta = source.dirty()
+        self._incremental_builds += 1
+        audit = (
+            source.verify_every_n > 0
+            and self._incremental_builds % source.verify_every_n == 0
+        )
+        cached = source.cached_state()
+        if cached is None or delta.full or audit:
+            expected = None
+            if audit and cached is not None and not delta.full:
+                # Pending deltas first, so the diff measures tracking
+                # faults, not events not yet consumed.
+                self._apply_delta(namespace, driver_labels, source, delta)
+                expected = _assignment_shape(source.assignment())
+            self._reset_pass_caches()
+            assignment: dict = {}
+            state = self._build_state_full(namespace, driver_labels, source, assignment=assignment)
+            if expected is not None:
+                # A node that took an event while the rebuild read is the
+                # event's difference, not a fault; unattributable events in
+                # flight, or an invalidation meanwhile, skip the count.
+                racing = source.racing_nodes()
+                if racing is None or source.dirty().full:
+                    log.info(
+                        "audit: in-flight deliveries or a mid-audit "
+                        "invalidation; divergence count skipped this audit"
+                    )
+                else:
+                    stats.verify_divergences = source.count_divergences(
+                        expected, _assignment_shape(assignment), racing=racing
+                    )
+            source.prime(state, assignment)
+            source.clean(delta)
+            state.dirty_nodes = None
+            stats.full_rebuild = True
+            stats.dirty_node_count = len(delta.nodes)
+            stats.nodes_reclassified = len(assignment)
+        elif not delta.nodes:
+            self._incremental_hits += 1
+            stats.snapshot_skipped = True
+            state = cached
+            state.dirty_nodes = frozenset()
+        else:
+            self._incremental_hits += 1
+            stats.nodes_reclassified = self._apply_delta(namespace, driver_labels, source, delta)
+            stats.dirty_node_count = len(delta.nodes)
+            state = cached
+            state.dirty_nodes = frozenset(n for n in delta.nodes if n)
+        stats.delta_hit_rate = round(self._incremental_hits / self._incremental_builds, 6)
+        return state
+
+    def audit_incremental(self, namespace: str, driver_labels: Mapping[str, str]) -> int:
+        """The nodes the kept state classifies otherwise than a full walk
+        of the stores now: a pure read for settled moments, which neither
+        consumes deltas nor repairs. 0 for another source, before the
+        first build, or while a delta is pending (the kept state is never
+        served before that delta is consumed)."""
+        source = self.snapshot_source
+        if not isinstance(source, IncrementalSnapshotSource) or source.cached_state() is None:
+            return 0
+        pending = source.dirty()
+        if pending.full or pending.nodes:
+            return 0
+        expected = _assignment_shape(source.assignment())
+        assignment: dict = {}
+        self._build_state_full(namespace, dict(driver_labels), source, assignment=assignment)
+        actual = _assignment_shape(assignment)
+        return sum(
+            1 for name in set(expected) | set(actual) if expected.get(name) != actual.get(name)
+        )
+
+    def _apply_delta(
+        self,
+        namespace: str,
+        driver_labels: Mapping[str, str],
+        source: IncrementalSnapshotSource,
+        delta: SnapshotDelta,
+    ) -> int:
+        """Reclassify the delta's nodes into the kept state; how many. A
+        DaemonSet whose kept pod count is not its desired count raises
+        ``BuildStateError`` with the delta left pending, and invalidates,
+        so the retry is a full rebuild: a real gap fails there too, and a
+        drifted count is recounted by ``prime``."""
+        daemonsets = {ds.uid: ds for ds in source.daemonsets(namespace, dict(driver_labels))}
+        for ds in daemonsets.values():
+            found = source.ds_pod_count(ds.uid)
+            if ds.desired_number_scheduled != found:
+                source.invalidate()
+                raise BuildStateError(
+                    f"driver DaemonSet {ds.name} should not have unscheduled "
+                    f"pods (desired {ds.desired_number_scheduled}, found {found})"
+                )
+        reclassified = 0
+        for name in delta.nodes:
+            if not name:
+                continue  # a driver pod with no node yet
+            self._reclassify_node(source, name, daemonsets)
+            reclassified += 1
+        source.clean(delta)
+        return reclassified
+
+    def _reclassify_node(
+        self,
+        source: IncrementalSnapshotSource,
+        name: str,
+        daemonsets: Mapping[str, DaemonSet],
+    ) -> None:
+        """The full path for one node: each driver pod on it classified,
+        the result swapped into the kept state."""
+        node = source.node(name)
+        entries: list = []
+        for pod in source.pods_on_node(name):
+            owner = None
+            if not self.common.is_orphaned_pod(pod):
+                refs = pod.owner_references
+                owner = daemonsets.get(refs[0].get("uid")) if refs else None
+                if owner is None:
+                    # The full path selects DaemonSet-owned and orphaned
+                    # pods only; a pod of another owner is none of ours.
+                    continue
+            # A node gone before its pods is read by name, as the full
+            # path reads a node its LIST missed.
+            ns = self._build_node_upgrade_state(pod, owner, node=node)
+            bucket = self.provider.get_upgrade_state(ns.node)
+            entries.append((bucket, ns))
+        source.update_node(name, entries)
 
     def _build_node_upgrade_state(
         self, pod: Pod, ds: Optional[DaemonSet], node: Optional[Node] = None
     ) -> NodeUpgradeState:
-        """``node`` comes from the snapshot's node LIST; a node it missed
-        (made since) is read by name. In the requestor mode the node's
-        NodeMaintenance object is read by name too."""
+        """``node`` comes from the snapshot; a node it missed (made since)
+        is read by name. In the requestor mode the node's NodeMaintenance
+        object is read by name too."""
         if node is None:
             node = self.provider.get_node(pod.node_name)
         maintenance = None
         if self._requestor_active():
+            self._maintenance_reads += 1
             maintenance = self.requestor.get_node_maintenance_obj(node.name)
         return NodeUpgradeState(
             node=node, driver_pod=pod, driver_daemonset=ds, node_maintenance=maintenance
@@ -353,6 +636,7 @@ class ClusterUpgradeStateManager:
         common = self.common
         stats = self.last_pass_stats
         writes_before = self.provider.write_stats()
+        errors_before = self.runner.bucket_failures
         checkpoint_enabled = policy.checkpoint is not None and policy.checkpoint.enable
         checkpoint_bucket = len(state.nodes_in(UpgradeState.CHECKPOINT_REQUIRED))
         if checkpoint_enabled or checkpoint_bucket:
@@ -384,10 +668,17 @@ class ClusterUpgradeStateManager:
             common.process_upgrade_failed_nodes(state)
             common.process_validation_required_nodes(state)
             self._process_uncordon_required_nodes(state)
+        except BaseException:
+            # An aborted pass may have left nodes half moved that no delta
+            # will touch: the next pass reclassifies everything.
+            if getattr(self.snapshot_source, "incremental", False):
+                self.snapshot_source.invalidate()
+            raise
         finally:
             writes_after = self.provider.write_stats()
-            stats.writes_issued = writes_after["issued"] - writes_before["issued"]
-            stats.writes_skipped = writes_after["skipped"] - writes_before["skipped"]
+            for key in ("issued", "skipped", "coalesced", "batched"):
+                setattr(stats, f"writes_{key}", writes_after[key] - writes_before[key])
+            stats.node_errors = self.runner.bucket_failures - errors_before
             if checkpoint_before is not None:
                 self._count_checkpoints(
                     stats, checkpoint_before, checkpoint_bucket if checkpoint_enabled else None

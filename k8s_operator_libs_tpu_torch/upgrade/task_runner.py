@@ -12,12 +12,16 @@ Two shapes of work:
 
 ``inline=True`` runs everything on the caller's thread, in order: the
 deterministic mode of the tests and of a simulated roll.
+:attr:`TaskRunner.bucket_failures` counts the errors buckets isolated
+(the pass's ``node_errors``), and :meth:`TaskRunner.wait_idle` waits for
+the background tasks.
 """
 
 from __future__ import annotations
 
+import concurrent.futures as cf
 import threading
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
 from ..utils.log import get_logger
@@ -36,10 +40,20 @@ class TaskRunner:
             self._executor = ThreadPoolExecutor(
                 max_workers=max_workers, thread_name_prefix="upgrade-task"
             )
+        self._futures_lock = threading.Lock()
+        self._futures: set[Future] = set()
+        self._bucket_stats_lock = threading.Lock()
+        self._bucket_failures = 0
         # A pool of its own for buckets, made on first use, so queued
         # background tasks never starve a joined bucket.
         self._bucket_executor: Optional[ThreadPoolExecutor] = None
         self._bucket_executor_lock = threading.Lock()
+
+    @property
+    def bucket_failures(self) -> int:
+        """The task errors :meth:`run_bucket` has isolated, in all."""
+        with self._bucket_stats_lock:
+            return self._bucket_failures
 
     def run_bucket(
         self,
@@ -58,6 +72,8 @@ class TaskRunner:
                 fn()
             except Exception as e:  # isolation: collect, never bubble here
                 results[index] = e
+                with self._bucket_stats_lock:
+                    self._bucket_failures += 1
                 log.warning("bucket task %s failed: %s", key, e)
 
         effective = self._max_workers if width is None else width
@@ -104,8 +120,25 @@ class TaskRunner:
                 self._in_progress.remove(key)
 
         assert self._executor is not None
-        self._executor.submit(run)
+        future = self._executor.submit(run)
+        with self._futures_lock:
+            self._futures.add(future)
+        future.add_done_callback(self._discard_future)
         return True
+
+    def _discard_future(self, future: Future) -> None:
+        with self._futures_lock:
+            self._futures.discard(future)
+
+    def wait_idle(self, timeout: Optional[float] = None) -> bool:
+        """Wait until every submitted task has finished; False when
+        ``timeout`` passed first."""
+        with self._futures_lock:
+            pending = list(self._futures)
+        if not pending:
+            return True
+        _, not_done = cf.wait(pending, timeout=timeout)
+        return not not_done
 
     def shutdown(self) -> None:
         if self._executor is not None:

@@ -1,4 +1,5 @@
-"""The wall clock behind the state machine's durable clocks.
+"""The wall clock behind the state machine's durable clocks, and the
+named fault points.
 
 The part of the JAX package's ``utils/faultpoints.py`` that the upgrade
 managers read: :func:`wall_now` is ``time.time`` unless a clock is
@@ -6,14 +7,29 @@ installed, and the annotation-backed deadlines (the validation timeout,
 the wait for workload pods) read it. A test installs a virtual clock, an
 object with a ``wall()`` method, so a deadline passes when the test says
 time passed; the same clock object may be installed here and in the JAX
-package to drive both machines alike. The fault plans of the JAX module
-have no counterpart here.
+package to drive both machines alike.
+
+A fault plan (an object with ``consult(point, ctx) -> FaultAction or
+None``) answers :func:`fault_point` at the named points the port consults:
+the write batcher's ``upgrade.write_batch_partial``. With no plan
+installed a consult is one global read. The JAX module's other points
+and its monotonic clock serve its chaos harness, which waits for ROADMAP
+A19.
 """
 
 from __future__ import annotations
 
 import time
-from typing import Optional, Protocol
+from dataclasses import dataclass
+from typing import Any, Optional, Protocol
+
+@dataclass
+class FaultAction:
+    """One consult's verdict (``kind`` as the JAX module names them); the
+    port's point raises ``exc``, which the plan builds."""
+
+    kind: str
+    exc: Optional[BaseException] = None
 
 
 class WallClock(Protocol):
@@ -21,6 +37,29 @@ class WallClock(Protocol):
 
 
 _clock: Optional[WallClock] = None
+_plan: Optional[Any] = None
+
+
+def install_plan(plan: Any) -> None:
+    """Install the fault plan; one at a time."""
+    global _plan
+    if _plan is not None and plan is not None:
+        raise RuntimeError("a fault plan is already installed")
+    _plan = plan
+
+
+def clear_plan() -> None:
+    global _plan
+    _plan = None
+
+
+def fault_point(point: str, **ctx: Any) -> Optional[FaultAction]:
+    """The installed plan's answer at ``point`` (``ctx`` names the site:
+    the node, the kind); None without a plan."""
+    plan = _plan
+    if plan is None:
+        return None
+    return plan.consult(point, ctx)
 
 
 def install_clock(clock: Optional[WallClock]) -> None:

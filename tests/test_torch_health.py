@@ -466,6 +466,15 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.upgrade.checkpoint_manager\n"
         "import k8s_operator_libs_tpu_torch.upgrade.health_source\n"
         "import k8s_operator_libs_tpu_torch.upgrade.quarantine_manager\n"
+        "import k8s_operator_libs_tpu_torch.crdutil as c\n"
+        "[getattr(c, name) for name in c.__all__]\n"
+        "import k8s_operator_libs_tpu_torch.crdutil.__main__\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.write_batch\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.snapshot\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.state_provider\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.task_runner\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.common_manager\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.state_manager\n"
         "from k8s_operator_libs_tpu_torch.kube.sim import CheckpointingWorkloadSimulator\n"
         "import k8s_operator_libs_tpu_torch.utils.intstr\n"
         "import k8s_operator_libs_tpu_torch.utils.sync\n"

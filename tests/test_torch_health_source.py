@@ -279,9 +279,6 @@ def test_no_telemetry_pool_has_no_health(served):
 
 
 def test_unported_wirings_name_their_roadmap_items(served):
-    source = HealthSource(served(FakeCluster()))
-    with pytest.raises(NotImplementedError, match="ROADMAP A14"):
-        source.attach(object())
     with pytest.raises(NotImplementedError, match="ROADMAP A18"):
         HealthSource(served(FakeCluster()), watch_hub=object())
 

@@ -477,28 +477,56 @@ def _manager(cluster, **kwargs):
     )
 
 
+ONE_PASS_POLICY = {"autoUpgrade": True, "maxParallelUpgrades": 0, "maxUnavailable": "100%"}
+
+
 @pytest.mark.parametrize(
-    "kwargs, item",
-    [
-        ({"options": StateOptions(batch_writes=True)}, "A14"),
-    ],
-    ids=["batch_writes"],
+    "wiring",
+    ["batch_writes", "enable_write_batching", "with_snapshot_from_informers", "incremental"],
 )
-def test_unported_options_are_refused(pool, kwargs, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        _manager(pool, **kwargs)
+def test_each_wiring_runs_one_pass(pool, wiring):
+    """Each read or write path the machine once refused (ROADMAP A14)
+    runs a pass: the pool's unknown nodes are classified done, through
+    the write batcher or from the informers' stores (every case of those
+    paths is held to the JAX machine in ``tests/test_torch_{write_batching,
+    snapshot_source,incremental_state}.py``)."""
+    options = StateOptions(batch_writes=True) if wiring == "batch_writes" else None
+    mgr = _manager(pool, options=options)
+    source = None
+    if wiring == "enable_write_batching":
+        mgr.enable_write_batching()
+    elif wiring != "batch_writes":
+        source = mgr.with_snapshot_from_informers(
+            NS, LABELS, resync_period_s=0.0, incremental=wiring == "incremental"
+        )
+    try:
+        mgr.apply_state(
+            mgr.build_state(NS, LABELS), DriverUpgradePolicySpec.from_dict(ONE_PASS_POLICY)
+        )
+    finally:
+        if source is not None:
+            source.stop()
+    stats = mgr.last_pass_stats
+    assert stats.writes_issued == 2
+    assert stats.writes_batched == (2 if "batch" in wiring else 0)
+    assert stats.snapshot_cached == (source is not None)
+    assert stats.reads_issued == (0 if source is not None else 3)
+    assert stats.full_rebuild == (wiring == "incremental")
+    for i in range(2):
+        assert pool.get("Node", node_name(i)).labels[KEYS.state_label] == "upgrade-done"
 
 
 @pytest.mark.parametrize(
     "method, item",
     [
-        ("with_snapshot_from_informers", "A14"),
-        ("enable_write_batching", "A14"),
+        ("with_snapshot_from_informers", "A18"),
     ],
 )
 def test_unported_wirings_are_refused(pool, method, item):
+    """A snapshot source whose informers share a watch hub waits for the
+    hub (ROADMAP A18)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(_manager(pool), method)()
+        getattr(_manager(pool), method)(NS, LABELS, watch_hub=object())
 
 
 QUARANTINE = {"quarantine": {"enable": True}}

@@ -152,7 +152,19 @@ Phases, in order; any failure raises and the script exits non-zero:
     passes, the wall seconds, each node's states with the pass and second
     each began, each pass's checkpoint ``PassStats``, each probe pod's
     seconds to Ready and launches, the trainer's ms a step and save and
-    load seconds, each restore, and the lost, total and restarted steps;
+    load seconds, each restore, and the lost, total and restarted steps.
+    The phase is traced (``TracedPhase``: a port ``Tracer`` installed for
+    it alone, an ``UpgradeMetrics`` over its manager observed after every
+    pass and served by ``MetricsServer``): ``{"trace": ...}`` gives the
+    spans by name, the events by name, the port's ``tools/trace_view.py``
+    attribution of the window's seconds by category and each node's
+    journey (every ``state.transition`` with its cause, the bucket span it
+    lies in, its pass and the pass's wake links), and ``{"metrics": ...}``
+    the gauges of one scrape of ``/metrics`` over HTTP. Each journey must
+    run from ``upgrade-required`` to ``upgrade-done`` with every cause in
+    a bucket span, every bucket span must lie in a ``reconcile.pass``,
+    the scrape must count the passes observed, 2 checkpoints completed
+    and no escalation, and the trace must hold the arc's events;
 15. watch phase (the port's informer, ``kube/informer.py``, over
     ``DictClient``'s journal-backed watch, which selects through the port's
     ``kube/selectors.py``), around the requestor roll and the monitor
@@ -259,14 +271,30 @@ Phases, in order; any failure raises and the script exits non-zero:
     own call counts); the audit finds no divergence; the batcher flushed
     every write the provider issued; the LIST pass reads 3 or more; the
     controller launches no kernel, and each probe pod the gate's counts.
+    The phase is traced as the checkpoint phase is (``DictClient``'s
+    writes record their trace by revision, so each ``informer.deliver``
+    span joins the write it delivers and the next pass links to it); the
+    settled passes start once every delivery is handed to the handlers,
+    and each one served from the kept state must start no span and time
+    no bucket; the same passes run again with the tracer cleared (what
+    tracing costs a settled pass). Last, the stale view: a fault plan
+    holds the Pod stream at ``watch.deliver`` while ``JOIN_NODE`` joins
+    the pool (a Ready driver pod at the new version, the desired count
+    3); one pass must abort on the completeness check, counted in
+    ``aborted_completeness_races``, and after the release the passes
+    until the pool settles must begin with a full rebuild and leave the
+    joined node ``upgrade-done`` (259 nodes in all).
     ``{"informer_roll": ...}`` gives the CRD utility's runs (seconds, last
     line, discovery polls), the passes, wall seconds, trajectories and
     each pass's ``PassStats``, the reads and writes of the roll and of
     each settled pass, the batcher's ``stats()``, the provider's write
     counts, each informer's ``full_relists``, ``build_state`` milliseconds
     (settled incremental and LIST), the probe pods' seconds to Ready and
-    launches, and the phase's wall seconds (``phase_wall_s``; ``wall_s``
-    is the roll's).
+    launches, the settled passes again untraced and the traced and
+    untraced milliseconds of those served from the kept state
+    (``tracing_cost_ms``), the stale view's abort and heal
+    (``stale_view``), the passes observed, and the phase's wall seconds
+    (``phase_wall_s``; ``wall_s`` is the roll's).
 
 The last lines are the kernel table as one JSON object (each row with the
 launches of the gate, the burn-in forward, the flagship MoE flash
@@ -416,6 +444,8 @@ QUARANTINE_HANDOFF_S = 600
 INFORMER_NODES = ("gpu-inf-0", "gpu-inf-1")
 INFORMER_OTHER_POOL = {"cloud.google.com/gke-nodepool": "cpu-pool"}
 SETTLED_PASSES = 10
+#: The node that joins the driver pool while the Pod stream is held.
+JOIN_NODE = "gpu-inf-2"
 VERIFY_EVERY_N = 5
 CRD_DISCOVERY_DELAY_S = 0.2
 CRDS = ("nodemaintenances.maintenance.nvidia.com", "tpuupgradepolicies.tpu-operator.dev")
@@ -1293,7 +1323,11 @@ class DictClient:
 
     def _record(self, event: str, key: tuple, raw: dict, old: Optional[dict]) -> None:
         from k8s_operator_libs_tpu_torch.kube.objects import deep_copy_json
+        from k8s_operator_libs_tpu_torch.utils import tracing
 
+        # The write's trace, by revision, as an API server's choke point
+        # keeps it: the informer's delivery of it joins that trace.
+        tracing.record_write_origin(self.version)
         self.journal.append((self.version, event, key, deep_copy_json(raw), old))
         self.changed.notify_all()
 
@@ -2268,10 +2302,11 @@ def roll_pool(client, nodes):
 
 
 def drive_roll(label: str, client, mgr, installer, kubelet, before_apply=None,
-               after_apply=None, policy: dict = ROLL_POLICY) -> dict:
+               after_apply=None, policy: dict = ROLL_POLICY, observe=None) -> dict:
     """Bump the driver to the new version, set every launch count to 0,
     then passes (the kubelet's tick, ``before_apply()``, one pass of
-    ``mgr`` under ``policy``, ``after_apply()``) until every node of the
+    ``mgr`` under ``policy``, ``observe(state)`` where the pass built its
+    state, ``after_apply()``) until every node of the
     kubelet reads ``upgrade-done`` uncordoned and ``after_apply()`` (if
     given) returned True. A node in
     ``upgrade-failed``, or none changing state for ``ROLL_STALL_S``, fails
@@ -2296,8 +2331,10 @@ def drive_roll(label: str, client, mgr, installer, kubelet, before_apply=None,
             before_apply()
         passes += 1
         try:
-            mgr.apply_state(mgr.build_state(installer.spec.namespace, installer.match_labels),
-                            policy)
+            state = mgr.build_state(installer.spec.namespace, installer.match_labels)
+            mgr.apply_state(state, policy)
+            if observe is not None:
+                observe(state)
         except BuildStateError:
             retries += 1  # a pod the kubelet has still to deliver
         phase_done = after_apply() if after_apply is not None else True
@@ -2718,11 +2755,152 @@ class EventLog:
         self.events.append((obj.name, event_type, fmt % args if args else fmt))
 
 
-def checkpoint_roll(client, mgr, installer, kubelet, workload, trainer) -> dict:
+class TracedPhase:
+    """A port ``Tracer`` installed over one phase (process-wide, one at a
+    time), and an ``UpgradeMetrics`` over the phase's manager, observed
+    after every pass that built a state and served by ``MetricsServer`` on
+    a free port. :meth:`report` exports the ring to JSONL, reads it with
+    the port's ``tools/trace_view.py``, checks it, scrapes ``/metrics``
+    once over HTTP and prints ``{"trace": ...}`` and ``{"metrics": ...}``."""
+
+    def __init__(self, label: str) -> None:
+        from k8s_operator_libs_tpu_torch.utils import tracing
+
+        self.label = label
+        self.tracer = tracing.Tracer()
+        tracing.install_tracer(self.tracer)
+        self.metrics = None
+        self.server = None
+        self.observed = 0
+
+    def serve(self, mgr) -> None:
+        from k8s_operator_libs_tpu_torch.upgrade.metrics import MetricsServer, UpgradeMetrics
+
+        self.metrics = UpgradeMetrics(mgr)
+        self.server = MetricsServer(self.metrics, port=0).start()
+
+    def observe(self, state) -> None:
+        self.metrics.observe(state)
+        self.observed += 1
+
+    def pause(self) -> None:
+        from k8s_operator_libs_tpu_torch.utils import tracing
+
+        tracing.clear_tracer()
+
+    def resume(self) -> None:
+        from k8s_operator_libs_tpu_torch.utils import tracing
+
+        tracing.install_tracer(self.tracer)
+
+    def close(self) -> None:
+        from k8s_operator_libs_tpu_torch.utils import tracing
+
+        if tracing.tracer() is self.tracer:
+            tracing.clear_tracer()
+        if self.server is not None:
+            self.server.stop()
+            self.server = None
+
+    def scrape(self) -> dict:
+        """``/metrics`` once over HTTP: the pass and checkpoint gauges, the
+        bucket seconds and the passes counted."""
+        import urllib.request
+
+        body = urllib.request.urlopen(self.server.url, timeout=10).read().decode()
+        prefix = "tpu_operator_upgrade_"
+        gauges: dict = {}
+        buckets: dict = {}
+        for line in body.splitlines():
+            if line.startswith("#") or not line.startswith(prefix):
+                continue
+            name, value = line.rsplit(" ", 1)
+            suffix = name[len(prefix):].split("{", 1)[0]
+            number = float(value) if "." in value or "e" in value else int(value)
+            if suffix == "pass_bucket_seconds":
+                buckets[re.search(r'bucket="([^"]*)"', name).group(1)] = number
+            else:
+                gauges[suffix] = number
+        return {"url": self.server.url, "bytes": len(body), "gauges": gauges,
+                "pass_bucket_seconds": buckets}
+
+    def report(self, workdir: str, nodes, card: str) -> dict:
+        """Export, read and check the trace (each rolled node's journey
+        from ``upgrade-required`` to ``upgrade-done``, every transition's
+        cause inside a bucket span, every bucket span under a pass span),
+        scrape the metrics (the passes counted are the passes observed),
+        and print both. The trace's summary and the scrape."""
+        import contextlib
+        import io
+
+        from k8s_operator_libs_tpu_torch.tools import trace_view
+
+        label = self.label
+        path = os.path.join(workdir, f"{label}-trace.jsonl")
+        exported = self.tracer.export_jsonl(path)
+        spans = trace_view.load_spans(path)
+        by_id = {s["span"]: s for s in spans}
+        names: dict = {}
+        events: dict = {}
+        for s in spans:
+            names[s["name"]] = names.get(s["name"], 0) + 1
+            for event in s["events"]:
+                events[event["name"]] = events.get(event["name"], 0) + 1
+        orphans = [s["name"] for s in spans if s["name"].startswith("bucket.")
+                   and by_id.get(s["parent"], {}).get("name") != "reconcile.pass"]
+        if orphans:
+            raise AssertionError(f"{label}: bucket spans outside a pass: {orphans}")
+        start = min(s["start"] for s in spans)
+        journeys = {}
+        for node in nodes:
+            legs = trace_view.node_journey(spans, node)
+            for leg in legs:
+                cause = by_id.get(leg["span"])
+                while cause is not None and not cause["name"].startswith("bucket."):
+                    cause = by_id.get(cause["parent"])
+                leg["bucket"] = cause["name"] if cause is not None else None
+            tos = [leg["to"] for leg in legs]
+            if ("upgrade-required" not in tos or tos[-1] != "upgrade-done"
+                    or any(b["from"] != a["to"] for a, b in zip(legs, legs[1:]))
+                    or any(leg["bucket"] is None for leg in legs)):
+                raise AssertionError(f"{label}: {node}'s journey is not whole: {legs}")
+            journeys[node] = [
+                [round(leg["ts"] - start, 3), leg["from"], leg["to"], leg["cause"],
+                 leg["bucket"], leg["pass"], len(leg["woken_by"])]
+                for leg in legs
+            ]
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            rc = trace_view.main([path, "--node", nodes[0], "--json"])
+        if rc != 0 or json.loads(out.getvalue())["journey"] != trace_view.node_journey(
+                spans, nodes[0]):
+            raise AssertionError(f"{label}: trace_view's command line gave rc {rc}")
+        trace = {
+            "phase": label,
+            "exported": exported,
+            "started": self.tracer.started,
+            "finished": self.tracer.finished,
+            "spans_by_name": dict(sorted(names.items())),
+            "events_by_name": dict(sorted(events.items())),
+            "attribution": trace_view.attribution(spans),
+            "journeys": journeys,
+        }
+        print(json.dumps({"trace": trace, "card": card}), flush=True)
+        scraped = self.scrape()
+        print(json.dumps({"metrics": {"phase": label, **scraped}, "card": card}), flush=True)
+        if scraped["gauges"].get("reconcile_passes_total") != self.observed:
+            raise AssertionError(f"{label}: /metrics counts "
+                                 f"{scraped['gauges'].get('reconcile_passes_total')} passes, "
+                                 f"{self.observed} were observed")
+        return {"trace": trace, "metrics": scraped}
+
+
+def checkpoint_roll(client, mgr, installer, kubelet, workload, trainer, observe=None) -> dict:
     """Roll under ``CHECKPOINT_POLICY``, the simulator ticked and the
     trainer synced once a pass, each pass's checkpoint stats and whether
-    each node holds a manifest read after it; then tick until every
-    evicted job is back and past the step it stopped at."""
+    each node holds a manifest read after it (``observe(state)`` after
+    each pass that built one); then tick until every evicted job is back
+    and past the step it stopped at."""
     from k8s_operator_libs_tpu_torch.kube.objects import Node
 
     pass_stats: list[dict] = []
@@ -2743,7 +2921,7 @@ def checkpoint_roll(client, mgr, installer, kubelet, workload, trainer) -> dict:
 
     run = drive_roll("checkpoint_roll", client, mgr, installer, kubelet,
                      before_apply=before_apply, after_apply=after_apply,
-                     policy=CHECKPOINT_POLICY)
+                     policy=CHECKPOINT_POLICY, observe=observe)
     ticks = 0
     while not trainer.caught_up():
         if ticks == CATCH_UP_TICKS:
@@ -2829,16 +3007,24 @@ def checkpoint_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
     print(f"checkpoint_roll: each node's probe pod takes the kernel cache of "
           f"{json.dumps(dict(zip(CHECKPOINT_NODES, ROLL_NODES)))} from the roll phase, "
           "so its payload skips nvcc", flush=True)
+    traced = TracedPhase("checkpoint_roll")
     with tempfile.TemporaryDirectory(prefix="checkpoint-roll-") as workdir:
-        trainer = Trainer(client, workload, mgr.keys, ENTRY_CFG, "cuda", TRAINER_SEED,
-                          os.path.join(workdir, "checkpoints"), CHECKPOINT_NODES)
-        kubelet = RollKubelet(client, installer, CHECKPOINT_NODES, workdir, gate_launches, caches)
         try:
-            run = checkpoint_roll(client, mgr, installer, kubelet, workload, trainer)
+            traced.serve(mgr)
+            trainer = Trainer(client, workload, mgr.keys, ENTRY_CFG, "cuda", TRAINER_SEED,
+                              os.path.join(workdir, "checkpoints"), CHECKPOINT_NODES)
+            kubelet = RollKubelet(client, installer, CHECKPOINT_NODES, workdir, gate_launches,
+                                  caches)
+            try:
+                run = checkpoint_roll(client, mgr, installer, kubelet, workload, trainer,
+                                      observe=traced.observe)
+            finally:
+                mgr.runner.shutdown()
+            torch.cuda.synchronize()
+            controller = counts()
+            traced_report = traced.report(workdir, CHECKPOINT_NODES, card)
         finally:
-            mgr.runner.shutdown()
-        torch.cuda.synchronize()
-        controller = counts()
+            traced.close()
     runs = kubelet.probe_runs
     step_ms = sorted(trainer.step_ms)
     result = {
@@ -2868,8 +3054,23 @@ def checkpoint_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
         "retrained_steps": trainer.retrained(),
         "checkpoint_totals": mgr.common.checkpoint_manager.totals(),
         "pods_after": sorted(p.name for p in client.list("Pod")),
+        "observed_passes": traced.observed,
     }
     print(json.dumps({"checkpoint_roll": result, "card": card}), flush=True)
+    gauges = traced_report["metrics"]["gauges"]
+    if gauges.get("checkpoint_escalations_total") != 0 or gauges.get(
+            "checkpoint_completed_total") != len(CHECKPOINT_NODES):
+        raise AssertionError(f"checkpoint_roll: /metrics {gauges}")
+    if traced.observed != run["passes"] - run["build_state_retries"]:
+        raise AssertionError(f"checkpoint_roll: {traced.observed} passes observed of "
+                             f"{run['passes']} ({run['build_state_retries']} aborted)")
+    spans, events = (traced_report["trace"][k] for k in ("spans_by_name", "events_by_name"))
+    wanted = {"checkpoint.complete": len(CHECKPOINT_NODES),
+              "checkpoint.restore_verified": len(CHECKPOINT_NODES)}
+    if (not spans.get("bucket.checkpoint") or not spans.get("drain.node")
+            or any(events.get(k) != v for k, v in wanted.items())
+            or not events.get("checkpoint.request") or events.get("checkpoint.escalate")):
+        raise AssertionError(f"checkpoint_roll: the trace's arc: {spans} {events}")
     result["summary"] = check_checkpoint_roll(run, CHECKPOINT_NODES, mgr, workload, trainer,
                                               recorder.events)
     if controller["matmul"] or controller["flash_attention"]:
@@ -3147,6 +3348,172 @@ def crd_state(client) -> dict:
     return out
 
 
+class HoldPodStream:
+    """A fault plan: ``HOLD`` at the informers' ``watch.deliver`` point for
+    the Pod stream, every other consult answered with nothing."""
+
+    def __init__(self) -> None:
+        self.holds = 0
+
+    def consult(self, point: str, ctx: dict):
+        from k8s_operator_libs_tpu_torch.utils.faultpoints import HOLD, FaultAction
+
+        if point == "watch.deliver" and ctx.get("kind") == "Pod":
+            self.holds += 1
+            return FaultAction(HOLD)
+        return None
+
+
+def settled_passes(mgr, ns: str, labels: dict, policy, observe, tracer) -> list:
+    """``SETTLED_PASSES`` passes of a settled pool, each observed; each
+    pass's reads, writes, source counters, ``build_state`` and pass
+    milliseconds, bucket seconds, whether the manager's build counter
+    made it an audit, and the spans it started and the finished spans'
+    names and categories (None when ``tracer`` is None: the tracer is
+    cleared)."""
+    out = []
+    for _ in range(SETTLED_PASSES):
+        started = tracer.started if tracer is not None else 0
+        finished = tracer.finished if tracer is not None else 0
+        t0 = time.perf_counter()
+        state = mgr.build_state(ns, labels)
+        build_ms = (time.perf_counter() - t0) * 1e3
+        mgr.apply_state(state, policy)
+        pass_ms = (time.perf_counter() - t0) * 1e3
+        observe(state)
+        st = mgr.last_pass_stats
+        ended = None
+        if tracer is not None:
+            new = tracer.finished - finished
+            ended = [(r["name"], r["category"]) for r in tracer.records()[-new:]] if new else []
+        out.append({"audit": mgr._incremental_builds % VERIFY_EVERY_N == 0,
+                    "build_state_ms": build_ms, "pass_ms": pass_ms,
+                    "reads_issued": st.reads_issued, "writes_issued": st.writes_issued,
+                    "snapshot_skipped": st.snapshot_skipped, "full_rebuild": st.full_rebuild,
+                    "dirty_node_count": st.dirty_node_count,
+                    "verify_divergences": st.verify_divergences,
+                    "delta_hit_rate": st.delta_hit_rate,
+                    "bucket_seconds": dict(st.bucket_seconds),
+                    "spans": None if tracer is None else tracer.started - started,
+                    "ended": ended})
+    return out
+
+
+def check_settled_spans(settled: list) -> None:
+    """A settled pass served from the kept state opens no span and times
+    no bucket. The others are the audits, where the manager's build
+    counter is a multiple of ``VERIFY_EVERY_N`` (``SETTLED_PASSES //
+    VERIFY_EVERY_N`` of them), and at most one delta pass, the first,
+    which consumes the roll's last write (an audit in its place consumes
+    it instead). Each of those opens one ``reconcile.pass`` span, ends
+    every span it opens, and all of them are of the ``reconcile``
+    category: a classify bucket, no drain, probe, write or checkpoint."""
+    audits = [i for i, p in enumerate(settled) if p["audit"]]
+    deltas = [i for i, p in enumerate(settled)
+              if not p["audit"] and not p["snapshot_skipped"]]
+    if len(audits) != SETTLED_PASSES // VERIFY_EVERY_N or deltas not in ([], [0]):
+        raise AssertionError(f"informer_roll: settled passes {audits} audited, {deltas} "
+                             f"took deltas: {settled}")
+    if any(not settled[i]["full_rebuild"] or settled[i]["snapshot_skipped"] for i in audits):
+        raise AssertionError(f"informer_roll: an audit did not rebuild: {settled}")
+    for i, p in enumerate(settled):
+        names = [name for name, _ in p["ended"]]
+        if i in audits or i in deltas:
+            wrong = (names.count("reconcile.pass") != 1 or p["spans"] != len(names)
+                     or any(cat != "reconcile" for _, cat in p["ended"]))
+        else:
+            wrong = bool(p["spans"] or names or p["bucket_seconds"])
+        if wrong:
+            raise AssertionError(f"informer_roll: settled pass {i} traced {p}")
+
+
+def stale_view(client, mgr, source, kubelet, installer, policy, traced, caught_up) -> dict:
+    """One pass over a stale informer view, then its heal: with the Pod
+    stream held (``HoldPodStream``), ``JOIN_NODE`` joins the driver pool
+    (a Ready driver pod at the current version, the DaemonSet's desired
+    count one higher); the pass must abort on the completeness check,
+    counted in ``aborted_completeness_races``. The plan cleared and the
+    stores caught up, passes run until the pool settles; the first must
+    be a full rebuild, and the joined node ends ``upgrade-done``."""
+    from k8s_operator_libs_tpu_torch.kube.objects import DaemonSet, Node
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.upgrade import BuildStateError
+    from k8s_operator_libs_tpu_torch.utils import faultpoints
+
+    label = "informer_roll stale view"
+    ns, labels = installer.spec.namespace, installer.match_labels
+    plan = HoldPodStream()
+    faultpoints.install_plan(plan)
+    try:
+        node = Node.new(JOIN_NODE, labels=local_gpu_labels())
+        node.set_ready(True)
+        client.create(node)
+        kubelet.nodes = (*kubelet.nodes, JOIN_NODE)
+        ds = DaemonSet(client.get("DaemonSet", installer.name, ns).raw)
+        kubelet.ensure_driver_pod(ds, JOIN_NODE, ready=True)
+        kubelet.tick()  # the desired count follows the pool
+
+        def stale() -> bool:
+            desired = [(o.raw.get("status") or {}).get("desiredNumberScheduled")
+                       for o in source.informer("DaemonSet").list(copy=False)]
+            nodes = {o.name for o in source.informer("Node").list(copy=False)}
+            return plan.holds > 0 and desired == [len(kubelet.nodes)] and JOIN_NODE in nodes
+
+        deadline = time.monotonic() + 5.0
+        while not stale():
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{label}: the stores did not reach the stale view")
+            time.sleep(0.01)
+        pods_in_store = len(source.informer("Pod").list(copy=False))
+        try:
+            mgr.build_state(ns, labels)
+        except BuildStateError as e:
+            error = str(e)
+        else:
+            raise AssertionError(f"{label}: the pass over the held Pod stream did not abort")
+        abort = mgr.last_pass_stats
+    finally:
+        faultpoints.clear_plan()
+    heal = []
+    for _ in range(SETTLED_PASSES):
+        caught_up()
+        state = mgr.build_state(ns, labels)
+        mgr.apply_state(state, policy)
+        traced.observe(state)
+        st = mgr.last_pass_stats
+        heal.append({"full_rebuild": st.full_rebuild, "snapshot_skipped": st.snapshot_skipped,
+                     "dirty_node_count": st.dirty_node_count,
+                     "nodes_reclassified": st.nodes_reclassified,
+                     "reads_issued": st.reads_issued, "writes_issued": st.writes_issued,
+                     "snapshot_s": st.snapshot_s, "apply_s": st.apply_s,
+                     "bucket_seconds": dict(st.bucket_seconds),
+                     "aborted_completeness_races": st.aborted_completeness_races})
+        if st.snapshot_skipped:
+            break
+    joined = Node(client.get("Node", JOIN_NODE).raw)
+    result = {
+        "joined_node": JOIN_NODE,
+        "pod_stream_holds": plan.holds,
+        "pods_in_store_at_abort": pods_in_store,
+        "error": error,
+        "abort": {"aborted_completeness_races": abort.aborted_completeness_races,
+                  "snapshot_s": abort.snapshot_s},
+        "completeness_aborts_total": mgr.completeness_aborts_total,
+        "heal": heal,
+        "joined_state": joined.labels.get(mgr.keys.state_label, ""),
+        "probe_pod_for_joined": any(r["node"] == JOIN_NODE
+                                    for r in kubelet.probe_runs.values()),
+    }
+    if (abort.aborted_completeness_races != 1 or mgr.completeness_aborts_total != 1
+            or "desired" not in error):
+        raise AssertionError(f"{label}: the abort {result}")
+    if not heal[0]["full_rebuild"] or not heal[-1]["snapshot_skipped"]:
+        raise AssertionError(f"{label}: the heal {heal}")
+    if result["joined_state"] != "upgrade-done" or joined.unschedulable:
+        raise AssertionError(f"{label}: {JOIN_NODE} ended {result['joined_state']}")
+    return result
+
+
 def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
     """The CRD utility's command line against ``ApiStub``, then a roll of
     ``INFORMER_NODES`` among ``WATCH_POOL_NODES`` other nodes by the port's
@@ -3187,83 +3554,106 @@ def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict
         if crd["apply"]["discovery_polls"] < 2:
             raise AssertionError(f"informer_roll: the wait did not poll discovery: {crd}")
 
-        for i in range(WATCH_POOL_NODES):
-            client.create(pool_node(f"cpu-pool-{i:03d}", INFORMER_OTHER_POOL))
-        installer = roll_pool(client, INFORMER_NODES)
-        mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
-        mgr.with_validation_enabled(
-            pod_provisioner=ValidationPodManager(client, ValidationPodSpec())
-        )
-        ns, labels = installer.spec.namespace, installer.match_labels
-        source = mgr.with_snapshot_from_informers(
-            ns, labels, incremental=True, verify_every_n=VERIFY_EVERY_N
-        )
-        batcher = mgr.enable_write_batching()
-        caches = {name: os.path.join(cache_root, ROLL_NODES[i % len(ROLL_NODES)])
-                  for i, name in enumerate(INFORMER_NODES)}
-        print(f"informer_roll: the probe pods take the kernel caches of {list(ROLL_NODES)} "
-              "from the roll phase, so their payloads skip nvcc", flush=True)
-        stats: list = []
-
-        def caught_up() -> None:
-            """Wait (at most 5 s) until the source's stores hold what the
-            client holds, so a pass reads what the kubelet just wrote."""
-            deadline = time.monotonic() + 5.0
-            while time.monotonic() < deadline:
-                if all(
-                    {o.name: o.resource_version for o in source.informer(kind).list(copy=False)}
-                    == {o.name: o.resource_version for o in client.list_with_revision(
-                        kind, ns if kind != "Node" else "",
-                        labels if kind in ("Pod", "DaemonSet") else None)[0]}
-                    for kind in ("Node", "Pod", "DaemonSet", "ControllerRevision")
-                ):
-                    return
-                time.sleep(0.01)
-            raise AssertionError("informer_roll: the informers did not catch up in 5 s")
-
-        def after_apply() -> bool:
-            stats.append(dataclasses.asdict(mgr.last_pass_stats))
-            return True
-
+        traced = TracedPhase("informer_roll")
         try:
-            with tempfile.TemporaryDirectory(prefix="informer-roll-") as podwork:
-                kubelet = RollKubelet(client, installer, INFORMER_NODES, podwork, gate_launches,
-                                      caches)
-                run = drive_roll("informer_roll", client, mgr, installer, kubelet,
-                                 before_apply=caught_up, after_apply=after_apply)
-                controller = counts()
-            policy = DriverUpgradePolicySpec.from_dict(ROLL_POLICY)
-            settled = []
-            calls_before = dict(client.calls)
-            for _ in range(SETTLED_PASSES):
-                t0 = time.perf_counter()
-                state = mgr.build_state(ns, labels)
-                build_ms = (time.perf_counter() - t0) * 1e3
-                mgr.apply_state(state, policy)
-                st = mgr.last_pass_stats
-                settled.append({"build_state_ms": build_ms, "reads_issued": st.reads_issued,
-                                "writes_issued": st.writes_issued,
-                                "snapshot_skipped": st.snapshot_skipped,
-                                "full_rebuild": st.full_rebuild,
-                                "dirty_node_count": st.dirty_node_count,
-                                "verify_divergences": st.verify_divergences,
-                                "delta_hit_rate": st.delta_hit_rate})
-            settled_calls = {k: v - calls_before.get(k, 0) for k, v in client.calls.items()
-                             if v != calls_before.get(k, 0)}
-            audit = mgr.audit_incremental(ns, labels)
-            listing = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
-            list_ms = []
-            for _ in range(3):
-                t0 = time.perf_counter()
-                list_state = listing.build_state(ns, labels)
-                list_ms.append((time.perf_counter() - t0) * 1e3)
-            listing.apply_state(list_state, policy)
-            list_pass = dataclasses.asdict(listing.last_pass_stats)
-            relists = {kind: source.informer(kind).full_relists
-                       for kind in ("Node", "Pod", "DaemonSet", "ControllerRevision")}
+            for i in range(WATCH_POOL_NODES):
+                client.create(pool_node(f"cpu-pool-{i:03d}", INFORMER_OTHER_POOL))
+            installer = roll_pool(client, INFORMER_NODES)
+            mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
+            mgr.with_validation_enabled(
+                pod_provisioner=ValidationPodManager(client, ValidationPodSpec())
+            )
+            traced.serve(mgr)
+            ns, labels = installer.spec.namespace, installer.match_labels
+            source = mgr.with_snapshot_from_informers(
+                ns, labels, incremental=True, verify_every_n=VERIFY_EVERY_N
+            )
+            batcher = mgr.enable_write_batching()
+            caches = {name: os.path.join(cache_root, ROLL_NODES[i % len(ROLL_NODES)])
+                      for i, name in enumerate(INFORMER_NODES)}
+            print(f"informer_roll: the probe pods take the kernel caches of "
+                  f"{list(ROLL_NODES)} from the roll phase, so their payloads skip nvcc",
+                  flush=True)
+            stats: list = []
+
+            def caught_up() -> None:
+                """Wait (at most 5 s) until the source's stores hold what the
+                client holds, so a pass reads what the kubelet just wrote."""
+                deadline = time.monotonic() + 5.0
+                while time.monotonic() < deadline:
+                    if all(
+                        {o.name: o.resource_version
+                         for o in source.informer(kind).list(copy=False)}
+                        == {o.name: o.resource_version for o in client.list_with_revision(
+                            kind, ns if kind != "Node" else "",
+                            labels if kind in ("Pod", "DaemonSet") else None)[0]}
+                        for kind in ("Node", "Pod", "DaemonSet", "ControllerRevision")
+                    ):
+                        return
+                    time.sleep(0.01)
+                raise AssertionError("informer_roll: the informers did not catch up in 5 s")
+
+            def delivered() -> None:
+                """``caught_up()``, and every stored revision handed to the
+                handlers too (a write-through lands in the store before its
+                watch echo is delivered), so the settled passes start from
+                a quiet stream."""
+                caught_up()
+                deadline = time.monotonic() + 5.0
+                while any(source.informer(kind).pending_dispatch()[0]
+                          for kind in ("Node", "Pod", "DaemonSet", "ControllerRevision")):
+                    if time.monotonic() > deadline:
+                        raise AssertionError("informer_roll: deliveries still pending after 5 s")
+                    time.sleep(0.01)
+
+            def after_apply() -> bool:
+                stats.append(dataclasses.asdict(mgr.last_pass_stats))
+                return True
+
+            try:
+                with tempfile.TemporaryDirectory(prefix="informer-roll-") as podwork:
+                    kubelet = RollKubelet(client, installer, INFORMER_NODES, podwork,
+                                          gate_launches, caches)
+                    run = drive_roll("informer_roll", client, mgr, installer, kubelet,
+                                     before_apply=caught_up, after_apply=after_apply,
+                                     observe=traced.observe)
+                    controller = counts()
+                    policy = DriverUpgradePolicySpec.from_dict(ROLL_POLICY)
+                    delivered()
+                    calls_before = dict(client.calls)
+                    settled = settled_passes(mgr, ns, labels, policy, traced.observe,
+                                             traced.tracer)
+                    settled_calls = {k: v - calls_before.get(k, 0)
+                                     for k, v in client.calls.items()
+                                     if v != calls_before.get(k, 0)}
+                    # The same passes again with the tracer cleared: what
+                    # tracing costs a settled pass.
+                    traced.pause()
+                    try:
+                        untraced = settled_passes(mgr, ns, labels, policy, traced.observe,
+                                                  None)
+                    finally:
+                        traced.resume()
+                    audit = mgr.audit_incremental(ns, labels)
+                    listing = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
+                    list_ms = []
+                    for _ in range(3):
+                        t0 = time.perf_counter()
+                        list_state = listing.build_state(ns, labels)
+                        list_ms.append((time.perf_counter() - t0) * 1e3)
+                    listing.apply_state(list_state, policy)
+                    list_pass = dataclasses.asdict(listing.last_pass_stats)
+                    stale = stale_view(client, mgr, source, kubelet, installer, policy,
+                                       traced, caught_up)
+                    controller_after = counts()
+                    relists = {kind: source.informer(kind).full_relists
+                               for kind in ("Node", "Pod", "DaemonSet", "ControllerRevision")}
+            finally:
+                source.stop()
+                mgr.runner.shutdown()
+            traced_report = traced.report(workdir, INFORMER_NODES, card)
         finally:
-            source.stop()
-            mgr.runner.shutdown()
+            traced.close()
         crd["delete"] = crdutil_child("delete", client, stub.url, workdir, "--operation", "delete")
         crd["after_delete"] = crd_state(client)
 
@@ -3287,6 +3677,14 @@ def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict
         "reads_issued_roll": sum(p["reads_issued"] for p in stats),
         "writes_issued_roll": sum(p["writes_issued"] for p in stats),
         "settled": settled,
+        "settled_untraced": untraced,
+        "tracing_cost_ms": {
+            "traced_skipped_passes": [p["pass_ms"] for p in settled if p["snapshot_skipped"]],
+            "untraced_skipped_passes": [p["pass_ms"] for p in untraced
+                                        if p["snapshot_skipped"]],
+        },
+        "stale_view": stale,
+        "observed_passes": traced.observed,
         "settled_client_calls": settled_calls,
         "delta_hit_rate": settled[-1]["delta_hit_rate"],
         "batcher": batcher.stats(),
@@ -3304,7 +3702,8 @@ def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict
         "phase_wall_s": time.perf_counter() - start,
     }
     print(json.dumps({"informer_roll": result, "card": card}), flush=True)
-    check_rolled_pods("informer_roll", client, installer, INFORMER_NODES, runs)
+    check_rolled_pods("informer_roll", client, installer, INFORMER_NODES, runs,
+                      others=[kubelet.pod_name(JOIN_NODE)])
     for name in CRDS:
         if crd["after_delete"][name] is not None:
             raise AssertionError(f"informer_roll: {name} left after the delete")
@@ -3312,13 +3711,18 @@ def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict
             raise AssertionError(f"informer_roll: {name} still stored")
     if crd["delete"]["last_line"] != f"delete: processed {len(CRDS)} CRD(s)":
         raise AssertionError(f"informer_roll: crdutil delete printed {crd['delete']}")
-    if result["cluster_nodes"] != WATCH_POOL_NODES + len(INFORMER_NODES):
+    if result["cluster_nodes"] != WATCH_POOL_NODES + len(INFORMER_NODES) + 1:  # JOIN_NODE
         raise AssertionError(f"informer_roll: {result['cluster_nodes']} nodes in the cluster")
     if touched:
         raise AssertionError(f"informer_roll: the roll touched other nodes: {touched}")
     bad = [p for p in settled if p["reads_issued"] or p["writes_issued"]]
     if bad or settled_calls:
         raise AssertionError(f"informer_roll: settled passes did work: {bad} {settled_calls}")
+    check_settled_spans(settled)
+    expected = run["passes"] - run["build_state_retries"] + 2 * SETTLED_PASSES + len(
+        stale["heal"])
+    if traced.observed != expected:
+        raise AssertionError(f"informer_roll: {traced.observed} passes observed, not {expected}")
     if audit or source.verify_divergences_total:
         raise AssertionError(f"informer_roll: the audit found {audit} divergences "
                              f"({source.verify_divergences_total} in all)")
@@ -3327,11 +3731,14 @@ def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict
                              f"the provider issued {writes['issued']}")
     if list_pass["reads_issued"] < 3:
         raise AssertionError(f"informer_roll: the LIST pass read {list_pass['reads_issued']}")
-    if controller["matmul"] or controller["flash_attention"]:
-        raise AssertionError(f"informer_roll: the controller launched kernels: {controller}")
+    if any(c["matmul"] or c["flash_attention"] for c in (controller, controller_after)):
+        raise AssertionError(f"informer_roll: the controller launched kernels: "
+                             f"{controller} {controller_after}")
     built = {name: r["build_s"] for name, r in runs.items() if any(r["build_s"].values())}
     if built:
         raise AssertionError(f"informer_roll: probe pods built their kernels again: {built}")
+    result["trace_summary"] = {k: traced_report["trace"][k]
+                               for k in ("started", "finished", "spans_by_name")}
     return result
 
 

@@ -1,10 +1,14 @@
 """Informer — a list-watch cache with event handlers.
 
-The JAX package's ``kube/informer.py``, whole but for two things that wait
-for ROADMAP A15: its tracing spans (the delivery span that joins the
-originating write's trace) and its ``chaos_hold`` fault point. The
-``chaos_tag`` attribute stays, inert, so the two informers show the same
-surface.
+The JAX package's ``kube/informer.py``. With a tracer installed each
+delivery is an ``informer.deliver`` span (category ``wire``) that joins
+the trace of the write it delivers (``utils/tracing.py``'s write-origin
+book, keyed by resourceVersion) and starts at that write's wall time, so
+its length is the write-to-handler lag; the handlers run inside it. The
+watch loop consults the ``watch.deliver`` fault point
+(``utils/faultpoints.chaos_hold``): while a plan holds it, events wait
+upstream and the store goes stale. A watch hub's stream source, and the
+origins its resumed streams keep, wait for ROADMAP A18.
 
 The reference never touches the apiserver directly for reads:
 controller-runtime's manager gives it a cache fed by list+watch informers,
@@ -52,6 +56,8 @@ from .client import Client, WatchExpiredError, has_reason
 from .objects import KubeObject, deep_copy_json, wrap
 from .rest import WatchHandle
 from .selectors import parse_selector
+from ..utils import tracing
+from ..utils.faultpoints import chaos_hold
 from ..utils.lifecycle import lifecycle_resource
 from ..utils.log import get_logger
 
@@ -140,9 +146,9 @@ class Informer:
         #: test hook proving the delta path carried a repair.
         self.full_relists = 0
         self.delta_relists = 0
-        #: Chaos identity: the JAX package's chaos harness tags each
-        #: worker's informers to lag ONE consumer's stream. Inert here
-        #: until the port's fault points (ROADMAP A15) read it.
+        #: Consumer identity: a fault plan's ``watch.deliver`` consult gets
+        #: it as ``tag``, so a plan can hold ONE consumer's stream, and the
+        #: delivery span carries it as ``consumer``.
         self.chaos_tag = ""
         self._watch_handle = None
 
@@ -481,6 +487,34 @@ class Informer:
         return (meta.get("namespace", ""), meta.get("name", ""))
 
     def _dispatch(self, event: str, raw: dict, old: Optional[dict]) -> None:
+        tracer = tracing.tracer()
+        if tracer is None:
+            self._dispatch_inner(event, raw, old)
+            return
+        # The delivery joins the trace of the write that made this
+        # revision and starts at its wall time; a dirty mark made by a
+        # handler records this trace as a wake of the next pass.
+        meta = raw.get("metadata") or {}
+        rv = str(meta.get("resourceVersion", ""))
+        origin = tracer.write_origin(rv)
+        attrs = {"kind": self.kind, "name": meta.get("name", ""), "event": event, "rv": rv}
+        if self.chaos_tag:
+            attrs["consumer"] = self.chaos_tag
+        deliver_span = tracer.start_span(
+            "informer.deliver",
+            category="wire",
+            trace_id=origin[0] if origin else None,
+            parent_id=origin[1] if origin else "",
+            start=origin[2] if origin else None,
+            attrs=attrs,
+        )
+        try:
+            with tracing.use_span(deliver_span):
+                self._dispatch_inner(event, raw, old)
+        finally:
+            tracer.end_span(deliver_span)
+
+    def _dispatch_inner(self, event: str, raw: dict, old: Optional[dict]) -> None:
         obj = wrap(raw)
         old_obj = wrap(old) if old is not None else None
         with self._dispatch_lock:
@@ -687,6 +721,12 @@ class Informer:
                     self.kind, handle=self._watch_handle, **watch_kwargs
                 )
                 for event_type, obj in watch_iter:
+                    if stop.is_set():
+                        return
+                    # While a plan holds this stream, events wait upstream
+                    # (the watch is not pulled) and the store goes stale;
+                    # the release delivers them in order.
+                    chaos_hold("watch.deliver", stop.is_set, kind=self.kind, tag=self.chaos_tag)
                     if stop.is_set():
                         return
                     consecutive_failures = 0  # the stream delivered

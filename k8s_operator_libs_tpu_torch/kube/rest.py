@@ -22,6 +22,14 @@ NodeMaintenance, WorkloadCheckpoint and CustomResourceDefinition; and
 ``kube/objects.py``. An API error is raised with the API's
 ``Status.reason``, as the classes of ``kube/client.py`` where it is one of
 theirs, so ``has_reason`` and ``retry_on_conflict`` read it.
+
+With a tracer installed (``utils/tracing.py``) every request made under a
+span, a watch's included, carries its ``traceparent`` header, so the
+server's span joins the caller's trace, and each call of ``_request`` is
+one ``http.request`` span (category ``wire``, with ``method``, ``path``
+and the response's ``status``). The JAX transport's shed retries and
+their ``http.attempt`` and ``http.backoff`` spans, and its pipelined
+``http.request_many``, wait for ROADMAP A18.
 """
 
 from __future__ import annotations
@@ -57,6 +65,7 @@ from .client import (
     WatchExpiredError,
 )
 from .objects import KubeObject, wrap
+from ..utils import tracing
 
 #: Where a pod's service-account credentials are mounted.
 SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
@@ -329,6 +338,9 @@ class RestClient:
         headers = {"Accept": "application/json"}
         if self.config.token:
             headers["Authorization"] = f"Bearer {self.config.token}"
+        traceparent = tracing.traceparent()
+        if traceparent is not None:
+            headers["traceparent"] = traceparent
         return headers
 
     def _request(self, method: str, path: str, body: Any = None,
@@ -337,17 +349,26 @@ class RestClient:
         url = self.config.server.rstrip("/") + path
         if query:
             url += "?" + urllib.parse.urlencode(query)
-        headers = self._headers()
         data = None
         if body is not None:
             data = json.dumps(body).encode()
-            headers["Content-Type"] = content_type
-        request = urllib.request.Request(url, data=data, method=method, headers=headers)
-        try:
-            with urllib.request.urlopen(request, timeout=self.timeout, context=self._ssl) as resp:
-                payload = resp.read()
-        except urllib.error.HTTPError as e:
-            raise _api_error(e.code, e.read()) from None
+        with tracing.span("http.request", category="wire", method=method, path=path) as span:
+            # Headers inside the span: the traceparent names this request.
+            headers = self._headers()
+            if data is not None:
+                headers["Content-Type"] = content_type
+            request = urllib.request.Request(url, data=data, method=method, headers=headers)
+            try:
+                with urllib.request.urlopen(
+                    request, timeout=self.timeout, context=self._ssl
+                ) as resp:
+                    if span is not None:
+                        span.attrs["status"] = resp.status
+                    payload = resp.read()
+            except urllib.error.HTTPError as e:
+                if span is not None:
+                    span.attrs["status"] = e.code
+                raise _api_error(e.code, e.read()) from None
         return json.loads(payload) if payload else None
 
     def _connection(self, timeout: float) -> http.client.HTTPConnection:

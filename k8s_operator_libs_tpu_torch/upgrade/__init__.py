@@ -1,8 +1,8 @@
 """The rolling-upgrade state machine's in-place path, requestor mode,
 checkpoint arc and quarantine arc, the health telemetry it reads, its
 snapshot sources (LIST, informer, incremental) and write batcher, the
-device class and its upgrade keys and states, and the metrics endpoint (a
-subset of the JAX package's ``upgrade`` package; what the port's machine
+device class and its upgrade keys and states, the machine's metrics and
+their endpoint (a subset of the JAX package's ``upgrade`` package; what the port's machine
 does not run it refuses, naming the ROADMAP item: ``state_manager.py``)."""
 
 from .checkpoint_manager import RESTORE_VERIFY_TIMEOUT_SECONDS, CheckpointManager
@@ -12,6 +12,7 @@ from .cordon_manager import CordonManager
 from .drain_manager import DrainConfiguration, DrainManager
 from .health_source import HealthMetrics, HealthSource, LinkMetrics
 from .inplace import InplaceNodeStateManager, ProcessNodeStateManager
+from .metrics import MetricsServer, UpgradeMetrics
 from .pod_manager import PodDeletionFilter, PodManager, PodManagerConfig, RevisionHashError
 from .quarantine_manager import QuarantineManager
 from .requestor import (
@@ -56,6 +57,7 @@ __all__ = [
     "InformerSnapshotSource",
     "InplaceNodeStateManager",
     "LinkMetrics",
+    "MetricsServer",
     "NodeUpgradeState",
     "NodeUpgradeStateProvider",
     "PassStats",
@@ -75,6 +77,7 @@ __all__ = [
     "StateWriteError",
     "TaskRunner",
     "UpgradeKeys",
+    "UpgradeMetrics",
     "UpgradeState",
     "VALIDATION_TIMEOUT_SECONDS",
     "ValidationManager",

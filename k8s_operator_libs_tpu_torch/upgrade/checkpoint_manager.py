@@ -31,9 +31,11 @@ evicted. For a node in ``checkpoint-required``:
    durable deadline, then degrades (the workload starts cold).
 
 ``coordinate`` runs on the bucket's tasks, one a node; the counters are
-under a lock that nothing else is taken under. The JAX module's flight
-recorder events (``tracing.add_event``) have no counterpart here until the
-port has tracing (ROADMAP A15).
+under a lock that nothing else is taken under. Each leg of the arc is a
+flight-recorder event on the current span (the checkpoint bucket's, or the
+validation bucket's for the restore): ``checkpoint.request``,
+``checkpoint.complete``, ``checkpoint.escalate`` and
+``checkpoint.restore_verified``.
 """
 
 from __future__ import annotations
@@ -50,6 +52,7 @@ from ..api.upgrade_v1alpha1 import (
 )
 from ..kube.client import Client, get_or_none
 from ..kube.objects import Node, Pod
+from ..utils import tracing
 from ..utils.log import get_logger
 from .consts import NULL_STRING, TRUE_STRING, UpgradeKeys, UpgradeState
 from .state_provider import NodeUpgradeStateProvider
@@ -165,6 +168,12 @@ class CheckpointManager:
                     "Pod", pod.name, pod.namespace, patch={"metadata": {"annotations": request}}
                 )
                 self._count("requests")
+                tracing.add_event(
+                    "checkpoint.request",
+                    node=node.name,
+                    pod=f"{pod.namespace}/{pod.name}",
+                    epoch=epoch,
+                )
         acked = self._acked(pods, epoch)
         if len(acked) < len(pods):
             log.info(
@@ -189,6 +198,7 @@ class CheckpointManager:
         )
         self._advance(node, next_state)
         self._count("completions")
+        tracing.add_event("checkpoint.complete", node=node.name, acked=len(acked))
         self._event(node, "Normal", message)
 
     def _acked(self, pods: list[Pod], epoch: Optional[str]) -> list[Pod]:
@@ -226,6 +236,9 @@ class CheckpointManager:
         )
         self._advance(node, next_state)
         self._count("escalations")
+        tracing.add_event(
+            "checkpoint.escalate", node=node.name, acked=len(acked), pods=len(pods)
+        )
         log.warning(
             "checkpoint deadline expired on node %s (%d/%d acks); escalating to a plain drain",
             node.name, len(acked), len(pods),
@@ -296,6 +309,9 @@ class CheckpointManager:
         if not missing:
             self._clear_restore_state(node)
             self._count("restores_verified")
+            tracing.add_event(
+                "checkpoint.restore_verified", node=node.name, checkpoints=len(manifest)
+            )
             log.info(
                 "node %s: %d checkpoint(s) verified restorable; uncordon may proceed",
                 node.name, len(manifest),

@@ -7,11 +7,15 @@ node managers (cordon, drain, pod, validation, safe load, checkpoint,
 quarantine) and moves the nodes of each state's bucket one step. A bucket
 runs through the task runner with each node's error isolated; once the
 bucket is done its first error aborts the pass, and the next pass resumes
-from the node labels. The JAX module's tracing spans wait for ROADMAP A15.
+from the node labels. Each non-empty bucket is timed into
+``bucket_seconds`` and, with a tracer installed, is a ``bucket.<what>``
+span under the pass span (its category from :data:`_BUCKET_CATEGORIES`);
+an empty bucket records nothing, so a settled pass allocates nothing.
 """
 
 from __future__ import annotations
 
+import time
 from collections import defaultdict
 from dataclasses import dataclass, field
 from typing import Callable, Mapping, Optional, Sequence, TypeVar
@@ -32,6 +36,7 @@ from ..api.upgrade_v1alpha1 import (
 from ..kube.client import Client
 from ..kube.objects import DaemonSet, Node, NodeMaintenance, Pod
 from ..policy import BudgetView, UpgradePolicy, for_spec
+from ..utils import tracing
 from ..utils.faultpoints import wall_now
 from ..utils.log import get_logger
 from .consts import (
@@ -60,6 +65,16 @@ T = TypeVar("T")
 #: A driver pod container not ready after more restarts than this fails
 #: the node.
 FAILING_RESTART_COUNT = 10
+
+#: Bucket-label prefix -> the bucket span's attribution category; anything
+#: unlisted is ``reconcile`` (``classify[unknown]`` maps by its prefix).
+_BUCKET_CATEGORIES = {
+    "checkpoint": "checkpoint",
+    "validation": "probe",
+    "drain-sched": "drain",
+    "pod-deletion": "drain",
+    "wait-for-jobs-poll": "drain",
+}
 
 
 @dataclass
@@ -174,6 +189,16 @@ class CommonUpgradeManager:
         self.apply_width = apply_width
         self.pod_deletion_enabled = False
         self.validation_enabled = False
+        #: The current pass's seconds in each non-empty bucket (bucket label
+        #: -> s): reset by the state machine as ``apply_state`` begins and
+        #: copied into ``PassStats.bucket_seconds`` as it ends. Reconcile
+        #: thread only (a bucket joins before the next starts).
+        self.bucket_seconds: dict[str, float] = {}
+        #: The lazy pass-span trigger: set by the state machine when a
+        #: tracer is installed and the snapshot opened no pass span; the
+        #: first non-empty bucket calls it (it clears itself), so a pass
+        #: whose only work is a polling bucket still gets its span.
+        self.on_first_bucket = None
         #: Whether the budget counts the two maintenance states (managed
         #: and in progress). Off, as in the JAX machine's default: the base
         #: requestor mode reserves no budget for a node under external
@@ -286,6 +311,43 @@ class CommonUpgradeManager:
         )
 
     # -- buckets -------------------------------------------------------------
+    class _BucketScope:
+        """Times one non-empty bucket into ``bucket_seconds`` and, with a
+        tracer installed, opens its ``bucket.<what>`` span under the pass
+        span. Made only for non-empty buckets."""
+
+        __slots__ = ("_common", "_what", "_span_scope", "_t0")
+
+        def __init__(self, common: "CommonUpgradeManager", what: str, count: int) -> None:
+            self._common = common
+            self._what = what
+            self._span_scope = tracing.span(
+                f"bucket.{what}",
+                category=_BUCKET_CATEGORIES.get(what.split("[", 1)[0], "reconcile"),
+                bucket=what,
+                nodes=count,
+            )
+            self._t0 = 0.0
+
+        def __enter__(self) -> "CommonUpgradeManager._BucketScope":
+            trigger = self._common.on_first_bucket
+            if trigger is not None:
+                # The pass's first work: open its span so this bucket's
+                # span has a parent.
+                trigger()
+            self._span_scope.__enter__()
+            self._t0 = time.perf_counter()
+            return self
+
+        def __exit__(self, *exc) -> None:
+            elapsed = time.perf_counter() - self._t0
+            seconds = self._common.bucket_seconds
+            seconds[self._what] = seconds.get(self._what, 0.0) + elapsed
+            self._span_scope.__exit__(*exc)
+
+    def _bucket_scope(self, what: str, count: int) -> "CommonUpgradeManager._BucketScope":
+        return self._BucketScope(self, what, count)
+
     def _for_each(
         self, what: str, items: Sequence[T], key: Callable[[T], str], fn: Callable[[T], None]
     ) -> None:
@@ -295,7 +357,8 @@ class CommonUpgradeManager:
         tasks = [(key(item), (lambda item=item: fn(item))) for item in items]
         if not tasks:
             return
-        errors = self.runner.run_bucket(tasks, width=self.apply_width)
+        with self._bucket_scope(what, len(tasks)):
+            errors = self.runner.run_bucket(tasks, width=self.apply_width)
         failures = [(tasks[i][0], e) for i, e in enumerate(errors) if e is not None]
         if not failures:
             return
@@ -396,17 +459,18 @@ class CommonUpgradeManager:
         nodes = [ns.node for ns in state.nodes_in(UpgradeState.WAIT_FOR_JOBS_REQUIRED)]
         if not nodes:
             return
-        self.pod_manager.schedule_check_on_pod_completion(
-            PodManagerConfig(
-                nodes=nodes,
-                wait_for_completion_spec=wait_spec,
-                completion_next_state=(
-                    UpgradeState.CHECKPOINT_REQUIRED
-                    if checkpoint_enabled
-                    else UpgradeState.POD_DELETION_REQUIRED
-                ),
+        with self._bucket_scope("wait-for-jobs-poll", len(nodes)):
+            self.pod_manager.schedule_check_on_pod_completion(
+                PodManagerConfig(
+                    nodes=nodes,
+                    wait_for_completion_spec=wait_spec,
+                    completion_next_state=(
+                        UpgradeState.CHECKPOINT_REQUIRED
+                        if checkpoint_enabled
+                        else UpgradeState.POD_DELETION_REQUIRED
+                    ),
+                )
             )
-        )
 
     def process_checkpoint_required_nodes(
         self, state: ClusterUpgradeState, checkpoint_spec: Optional[CheckpointSpec]
@@ -526,13 +590,14 @@ class CommonUpgradeManager:
             return
         if not nodes:
             return
-        self.pod_manager.schedule_pod_eviction(
-            PodManagerConfig(
-                nodes=nodes,
-                deletion_spec=deletion_spec or PodDeletionSpec(),
-                drain_enabled=drain_enabled,
+        with self._bucket_scope("pod-deletion", len(nodes)):
+            self.pod_manager.schedule_pod_eviction(
+                PodManagerConfig(
+                    nodes=nodes,
+                    deletion_spec=deletion_spec or PodDeletionSpec(),
+                    drain_enabled=drain_enabled,
+                )
             )
-        )
 
     def process_drain_nodes(
         self, state: ClusterUpgradeState, drain_spec: Optional[DrainSpec]
@@ -543,7 +608,10 @@ class CommonUpgradeManager:
             return
         if not nodes:
             return
-        self.drain_manager.schedule_nodes_drain(DrainConfiguration(spec=drain_spec, nodes=nodes))
+        with self._bucket_scope("drain-sched", len(nodes)):
+            self.drain_manager.schedule_nodes_drain(
+                DrainConfiguration(spec=drain_spec, nodes=nodes)
+            )
 
     def process_pod_restart_nodes(self, state: ClusterUpgradeState) -> None:
         """Restart out-of-sync driver pods; unblock the safe load; move an
@@ -621,14 +689,15 @@ class CommonUpgradeManager:
         node_states = state.nodes_in(UpgradeState.VALIDATION_REQUIRED)
         if not node_states:
             return
-        for ns in node_states:
-            # The driver may have restarted since and wait on its safe
-            # load again.
-            self.safe_load_manager.unblock_loading(ns.node)
-            if not self.validation_manager.validate(ns.node):
-                log.info("validation not complete on node %s", ns.node.name)
-                continue
-            self.update_node_to_uncordon_or_done_state(ns)
+        with self._bucket_scope("validation", len(node_states)):
+            for ns in node_states:
+                # The driver may have restarted since and wait on its safe
+                # load again.
+                self.safe_load_manager.unblock_loading(ns.node)
+                if not self.validation_manager.validate(ns.node):
+                    log.info("validation not complete on node %s", ns.node.name)
+                    continue
+                self.update_node_to_uncordon_or_done_state(ns)
 
     def update_node_to_uncordon_or_done_state(self, node_state: NodeUpgradeState) -> None:
         """Uncordon next, or done for a node that began its upgrade

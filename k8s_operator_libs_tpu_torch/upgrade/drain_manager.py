@@ -5,7 +5,8 @@ A node already being drained is not scheduled again. The outcome is the
 node's next state: ``pod-restart-required`` after a drain,
 ``upgrade-failed`` when it fails or times out. The event that schedules a
 drain names its kind: coordinated by the checkpoint arc, escalated past
-the checkpoint deadline, or plain.
+the checkpoint deadline, or plain. The drain's wait is a ``drain.node``
+span (category ``drain``), parented to the pass that scheduled it.
 """
 
 from __future__ import annotations
@@ -17,6 +18,7 @@ from ..api.upgrade_v1alpha1 import DrainSpec
 from ..kube.client import Client
 from ..kube.drain import DrainConfig, DrainError, DrainHelper
 from ..kube.objects import Node
+from ..utils import tracing
 from ..utils.log import get_logger
 from .consts import TRUE_STRING, UpgradeKeys, UpgradeState
 from .state_provider import NodeUpgradeStateProvider
@@ -78,16 +80,20 @@ class DrainManager:
 
     def _schedule_one(self, helper: DrainHelper, drain_cfg: DrainConfig, node: Node) -> None:
         def task() -> None:
-            try:
-                helper.drain(node.name, drain_cfg)
-            except DrainError as e:
-                log.error("drain of node %s failed: %s", node.name, e)
-                self._provider.change_node_upgrade_state(node, UpgradeState.FAILED)
-                self._event(node, "Warning", f"Failed to drain the node, {e}")
-                return
-            log.info("drained node %s", node.name)
-            self._event(node, "Normal", "Successfully drained the node")
-            self._provider.change_node_upgrade_state(node, UpgradeState.POD_RESTART_REQUIRED)
+            # The runner carried the scheduling pass's span here.
+            with tracing.span("drain.node", category="drain", node=node.name):
+                try:
+                    helper.drain(node.name, drain_cfg)
+                except DrainError as e:
+                    log.error("drain of node %s failed: %s", node.name, e)
+                    self._provider.change_node_upgrade_state(node, UpgradeState.FAILED)
+                    self._event(node, "Warning", f"Failed to drain the node, {e}")
+                    return
+                log.info("drained node %s", node.name)
+                self._event(node, "Normal", "Successfully drained the node")
+                self._provider.change_node_upgrade_state(
+                    node, UpgradeState.POD_RESTART_REQUIRED
+                )
 
         if self._runner.submit(node.name, task):
             self._event(node, "Normal", self._drain_flavor(node))

@@ -16,9 +16,10 @@ by the ``MetricsServer``.
 
 :meth:`HealthSource.attach` feeds each report's change into an incremental
 snapshot source's dirty set: the node it names and its link peers, so a
-health-only change reclassifies those nodes and never everything. Not
-here yet: a shared watch hub as the informer's stream waits for ROADMAP
-A18 and is refused; the informer's tracing spans wait for ROADMAP A15.
+health-only change reclassifies those nodes and never everything; a
+report delivered inside a traced write's delivery span records that trace
+as a wake of the next pass, as any dirty mark does. Not here yet: a shared
+watch hub as the informer's stream waits for ROADMAP A18 and is refused.
 """
 
 from __future__ import annotations

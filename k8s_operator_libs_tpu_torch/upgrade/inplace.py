@@ -58,37 +58,38 @@ class InplaceNodeStateManager:
             view.in_progress, policy.max_parallel_upgrades, available,
             common.get_current_unavailable_nodes(state), total, max_unavailable,
         )
-        for ns in candidates:
-            node = ns.node
-            if common.is_upgrade_requested(node):
-                # The request is one-shot.
-                common.provider.change_node_upgrade_annotation(
-                    node, common.keys.upgrade_requested_annotation, NULL_STRING
-                )
-            if common.skip_node_upgrade(node):
-                log.info("node %s is marked to skip upgrades", node.name)
-                continue
-            decision = plugin.admit(
-                CandidateView(
-                    name=node.name,
-                    disrupted=bool(node.unschedulable),
-                    tier=tier_of(node.name),
-                ),
-                view,
-            )
-            if not decision.allowed:
-                log.info(
-                    "node %s refused by policy %s: %s",
-                    node.name, plugin.name, decision.reason,
-                )
-                continue
-            if available <= 0:
-                # Spent: only a node already cordoned may start.
-                if not node.unschedulable:
+        with common._bucket_scope("upgrade-start", len(candidates)):
+            for ns in candidates:
+                node = ns.node
+                if common.is_upgrade_requested(node):
+                    # The request is one-shot.
+                    common.provider.change_node_upgrade_annotation(
+                        node, common.keys.upgrade_requested_annotation, NULL_STRING
+                    )
+                if common.skip_node_upgrade(node):
+                    log.info("node %s is marked to skip upgrades", node.name)
                     continue
-                log.info("node %s already cordoned, proceeding despite budget", node.name)
-            common.provider.change_node_upgrade_state(node, UpgradeState.CORDON_REQUIRED)
-            available -= 1
+                decision = plugin.admit(
+                    CandidateView(
+                        name=node.name,
+                        disrupted=bool(node.unschedulable),
+                        tier=tier_of(node.name),
+                    ),
+                    view,
+                )
+                if not decision.allowed:
+                    log.info(
+                        "node %s refused by policy %s: %s",
+                        node.name, plugin.name, decision.reason,
+                    )
+                    continue
+                if available <= 0:
+                    # Spent: only a node already cordoned may start.
+                    if not node.unschedulable:
+                        continue
+                    log.info("node %s already cordoned, proceeding despite budget", node.name)
+                common.provider.change_node_upgrade_state(node, UpgradeState.CORDON_REQUIRED)
+                available -= 1
 
     def process_node_maintenance_required_nodes(self, state: ClusterUpgradeState) -> None:
         """Nothing: the in-place mode asks no maintenance operator."""

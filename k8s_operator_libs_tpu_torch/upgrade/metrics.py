@@ -1,14 +1,20 @@
 """Prometheus text exposition, and a ``/metrics`` endpoint on the stdlib.
 
-A subset of the JAX package's ``upgrade/metrics.py``: the emitter the
-monitor's ``MonitorMetrics`` and the health source's ``HealthMetrics`` and
-``LinkMetrics`` render through, its histogram, and the server
-``--metrics-port`` starts. The state machine's own families
-(``UpgradeMetrics``, ``WireMetrics``) wait for ROADMAP A15.
+The JAX package's ``upgrade/metrics.py``: the emitter the monitor's
+``MonitorMetrics`` and the health source's ``HealthMetrics`` and
+``LinkMetrics`` render through, its histogram, the server
+``--metrics-port`` starts, and the state machine's own family,
+:class:`UpgradeMetrics` (the node counts of a snapshot, the last pass's
+``PassStats``, the checkpoint arc's gauges, each bucket's seconds and the
+passes observed), rendered byte for byte as the JAX collector renders
+them. ``WireMetrics``, which reads the watch hub, the relay, the API
+server's priority-and-fairness layer and the wire loop's watchdog, waits
+for ROADMAP A18.
 """
 
 from __future__ import annotations
 
+import itertools
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional, Protocol
@@ -172,3 +178,205 @@ class MetricsServer(ThreadingHTTPServer):
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+
+_PREFIX = "tpu_operator_upgrade"
+
+#: (metric suffix, help text, manager accessor name)
+_GAUGES = [
+    ("managed_nodes", "Nodes currently managed by the upgrade flow",
+     "get_total_managed_nodes"),
+    ("in_progress", "Nodes with an upgrade in progress",
+     "get_upgrades_in_progress"),
+    ("done", "Nodes that completed the upgrade",
+     "get_upgrades_done"),
+    ("failed", "Nodes in upgrade-failed",
+     "get_upgrades_failed"),
+    ("pending", "Nodes waiting in upgrade-required",
+     "get_upgrades_pending"),
+]
+
+#: The last pass's gauges, read off the manager's ``last_pass_stats``:
+#: (metric suffix, help text, ``PassStats`` attribute). The help texts
+#: are the JAX collector's, word for word, so the two render alike.
+_PASS_GAUGES = [
+    ("pass_snapshot_seconds",
+     "Wall-clock of the last build_state snapshot phase", "snapshot_s"),
+    ("pass_apply_seconds",
+     "Wall-clock of the last apply_state phase", "apply_s"),
+    ("pass_snapshot_cached",
+     "1 when the last snapshot came from informer-backed stores",
+     "snapshot_cached"),
+    ("pass_reads_issued",
+     "Client read calls issued by the last snapshot", "reads_issued"),
+    ("pass_writes_issued",
+     "State/annotation patches issued during the last apply",
+     "writes_issued"),
+    ("pass_writes_skipped",
+     "No-op patches coalesced away during the last apply",
+     "writes_skipped"),
+    ("pass_writes_coalesced",
+     "Extra keys that rode an issued patch instead of their own "
+     "during the last apply (same-node label+annotation coalescing)",
+     "writes_coalesced"),
+    ("pass_writes_batched",
+     "Patches routed through the write-batching tier during the last "
+     "apply (0 with batching off)",
+     "writes_batched"),
+    ("pass_node_errors",
+     "Per-node failures isolated inside buckets during the last apply",
+     "node_errors"),
+    # The incremental source's gauges: all 0 on the other sources.
+    ("pass_snapshot_incremental",
+     "1 when the snapshot was served by delta-driven incremental state",
+     "snapshot_incremental"),
+    ("pass_snapshot_skipped",
+     "1 when a settled pass served the cached state with zero work",
+     "snapshot_skipped"),
+    ("pass_full_rebuild",
+     "1 when the last pass reclassified every node (first build, "
+     "rollout delta, invalidation, or verify audit)",
+     "full_rebuild"),
+    ("pass_dirty_nodes",
+     "Dirty-node set size consumed by the last snapshot",
+     "dirty_node_count"),
+    ("pass_nodes_reclassified",
+     "Nodes reclassified by the last snapshot",
+     "nodes_reclassified"),
+    ("pass_verify_divergences",
+     "Incremental-vs-full divergences repaired by the last audit pass",
+     "verify_divergences"),
+    ("pass_delta_hit_rate",
+     "Lifetime fraction of passes served from deltas without a full "
+     "rebuild",
+     "delta_hit_rate"),
+    ("pass_aborted_completeness_races",
+     "Lifetime passes aborted by the snapshot completeness invariant "
+     "racing an in-flight pod delivery (bounded-race signal; a wedge "
+     "shows as this climbing every pass)",
+     "aborted_completeness_races"),
+]
+
+#: The checkpoint arc's gauges (``tpu_operator_upgrade_checkpoint_*``), read
+#: off ``PassStats`` like :data:`_PASS_GAUGES`. ``checkpoint_escalations_total``
+#: is the alert: nonzero means a workload met the deadline and started over.
+_CHECKPOINT_GAUGES = [
+    ("checkpoint_nodes_waiting",
+     "Nodes gated in checkpoint-required after the last pass",
+     "checkpoint_nodes_waiting"),
+    ("checkpoint_requests_issued",
+     "Checkpoint requests written to workload pods during the last pass",
+     "checkpoint_requests_issued"),
+    ("checkpoint_completions",
+     "Nodes whose checkpoint gate completed during the last pass",
+     "checkpoint_completions"),
+    ("checkpoint_escalations",
+     "Checkpoint deadline escalations to a plain drain during the last "
+     "pass",
+     "checkpoint_escalations"),
+    ("checkpoint_escalations_total",
+     "Lifetime checkpoint deadline escalations (alert on nonzero)",
+     "checkpoint_escalations_total"),
+    ("checkpoint_completed_total",
+     "Lifetime nodes that completed the checkpoint gate",
+     "checkpoints_completed_total"),
+    ("checkpoint_restores_verified_total",
+     "Lifetime nodes whose checkpoints were verified restorable before "
+     "uncordon",
+     "checkpoint_restores_verified_total"),
+    ("checkpoint_restore_escalations_total",
+     "Lifetime restore-verification deadline expiries (workloads "
+     "cold-started)",
+     "checkpoint_restore_escalations_total"),
+]
+
+#: Every ``PassStats`` gauge, iterated by ``observe`` and ``render`` alike.
+_ALL_PASS_GAUGES = _PASS_GAUGES + _CHECKPOINT_GAUGES
+
+
+class UpgradeMetrics:
+    """The state machine's gauges and its count of passes.
+
+    :meth:`observe` each ``build_state`` snapshot (after its
+    ``apply_state``, so the pass's ``PassStats`` is complete);
+    :meth:`render` gives the Prometheus text that :class:`MetricsServer`
+    serves."""
+
+    def __init__(self, manager, device_label: Optional[str] = None) -> None:
+        self._manager = manager
+        self._device = device_label or manager.keys.device.name
+        self._lock = threading.Lock()
+        self._values: dict[str, "int | float"] = {}
+        #: bucket label -> seconds of the last pass that ran a bucket,
+        #: replaced only by a non-empty one, so a settled pool keeps
+        #: exporting the last roll's timings under a stable label set.
+        self._bucket_seconds: dict[str, float] = {}
+        self._reconcile_passes = 0
+        #: observe()'s entry tickets: values are computed outside the lock,
+        #: so two observes may reach the commit in either order; a commit
+        #: that lost to a later-entering observe is dropped
+        #: (``itertools.count.__next__`` is atomic).
+        self._ticket = itertools.count(1)
+        self._committed = 0
+
+    def observe(self, state) -> None:
+        # The accessors walk the snapshot outside the lock, so a slow pass
+        # never stalls a scrape; the lock guards the swap alone.
+        ticket = next(self._ticket)
+        values = {
+            suffix: getattr(self._manager, accessor)(state)
+            for suffix, _, accessor in _GAUGES
+        }
+        pass_stats = getattr(self._manager, "last_pass_stats", None)
+        bucket_seconds: dict[str, float] = {}
+        if pass_stats is not None:
+            for suffix, _, attr in _ALL_PASS_GAUGES:
+                raw = getattr(pass_stats, attr, 0)
+                if isinstance(raw, bool):
+                    values[suffix] = int(raw)
+                elif isinstance(raw, float):
+                    values[suffix] = round(raw, 6)
+                else:
+                    values[suffix] = raw
+            bucket_seconds = {
+                bucket: round(float(seconds), 6)
+                for bucket, seconds in getattr(pass_stats, "bucket_seconds", {}).items()
+            }
+        with self._lock:
+            self._reconcile_passes += 1
+            if ticket > self._committed:
+                self._committed = ticket
+                self._values.update(values)
+                if bucket_seconds:
+                    self._bucket_seconds = bucket_seconds
+
+    def render(self) -> str:
+        label = prom_label("device", self._device)
+        with self._lock:
+            rows = [
+                (suffix, "gauge", help_text, [(label, self._values.get(suffix, 0))])
+                for suffix, help_text, _ in _GAUGES
+            ]
+            # The pass gauges once a pass recorded them: over a manager
+            # without PassStats the text stays the five gauges and the count.
+            rows.extend(
+                (suffix, "gauge", help_text, [(label, self._values[suffix])])
+                for suffix, help_text, _ in _ALL_PASS_GAUGES
+                if suffix in self._values
+            )
+            if self._bucket_seconds:
+                rows.append((
+                    "pass_bucket_seconds", "gauge",
+                    "Per-bucket apply wall seconds of the most recent "
+                    "pass that ran any bucket (the gauge twin of the "
+                    "pass span's bucket children; docs/tracing.md)",
+                    [
+                        (merge_label(label, "bucket", bucket), seconds)
+                        for bucket, seconds in sorted(self._bucket_seconds.items())
+                    ],
+                ))
+            rows.append((
+                "reconcile_passes_total", "counter", "Reconcile passes observed",
+                [(label, self._reconcile_passes)],
+            ))
+        return render_samples(_PREFIX, rows)

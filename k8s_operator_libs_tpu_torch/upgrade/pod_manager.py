@@ -1,10 +1,11 @@
 """PodManager: the driver pod's revision, workload eviction, driver pod
 restarts and the wait for workload pods to complete.
 
-The JAX package's ``upgrade/pod_manager.py`` without its tracing spans.
-The DaemonSet's revision comes from its ControllerRevisions, kept for one
-full snapshot: from a LIST, or from the informer snapshot source's store
-where ``with_snapshot_from_informers`` set :attr:`PodManager.revision_source`.
+The JAX package's ``upgrade/pod_manager.py``; an eviction and its wait
+are an ``evict.node`` span (category ``drain``). The DaemonSet's revision
+comes from its ControllerRevisions, kept for one full snapshot: from a
+LIST, or from the informer snapshot source's store where
+``with_snapshot_from_informers`` set :attr:`PodManager.revision_source`.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from ..api.upgrade_v1alpha1 import PodDeletionSpec, WaitForCompletionSpec
 from ..kube.client import Client, NotFoundError, get_or_none, has_reason
 from ..kube.drain import DrainConfig, DrainError, DrainHelper
 from ..kube.objects import ControllerRevision, DaemonSet, Node, Pod
+from ..utils import tracing
 from ..utils.faultpoints import wall_now
 from ..utils.log import get_logger
 from .consts import NULL_STRING, UpgradeKeys, UpgradeState
@@ -146,6 +148,13 @@ class PodManager:
                 log.info("node %s already getting pods deleted, skipping", node.name)
 
     def _evict_one(self, node: Node, spec: PodDeletionSpec, config: PodManagerConfig) -> None:
+        # The runner carried the scheduling pass's span here.
+        with tracing.span("evict.node", category="drain", node=node.name):
+            self._evict_one_inner(node, spec, config)
+
+    def _evict_one_inner(
+        self, node: Node, spec: PodDeletionSpec, config: PodManagerConfig
+    ) -> None:
         assert self._filter is not None
         if not any(self._filter(p) for p in self.list_pods(node_name=node.name)):
             log.info("no pods require deletion on node %s", node.name)

@@ -20,10 +20,10 @@ An informer snapshot is as stale as a controller-runtime cached client: at
 most one watch delivery behind. ``build_state``'s completeness check (the
 DaemonSet's desired count against its pods) is the guard: a stale view
 aborts the pass and the next one retries. A shared watch hub as the
-informers' stream waits for ROADMAP A18 and is refused. The links from a
-pass to the traces of the writes that woke it (``note_wake_trace``,
-``consume_wake_traces``) are kept empty until the port has tracing
-(ROADMAP A15).
+informers' stream waits for ROADMAP A18 and is refused. The incremental
+source keeps a **wake book**: a node dirtied inside an informer's delivery
+span (which joined the trace of the write it delivers) records that trace,
+and the next pass span links to it (``consume_wake_traces``).
 """
 
 from __future__ import annotations
@@ -35,6 +35,7 @@ from typing import TYPE_CHECKING, Callable, Mapping, Optional, Protocol, Sequenc
 from ..kube.client import Client
 from ..kube.informer import Informer
 from ..kube.objects import ControllerRevision, DaemonSet, KubeObject, Node, Pod
+from ..utils import tracing
 from ..utils.lifecycle import lifecycle_resource
 from ..utils.log import get_logger
 
@@ -342,6 +343,9 @@ class IncrementalSnapshotSource(InformerSnapshotSource):
         #: The first ownerReference's uid -> its pods, kept from the pod
         #: deltas: the completeness check of a delta pass in O(DaemonSets).
         self._ds_pod_counts: dict[str, int] = {}
+        #: The traces of the writes whose deltas dirtied this book since the
+        #: last pass consumed it: at most 64, and empty with no tracer.
+        self._wake_traces: list[str] = []
         # The cached classification (the reconcile thread's).
         self._state: Optional["ClusterUpgradeState"] = None
         self._assignment: dict[str, list[tuple["UpgradeState", "NodeUpgradeState"]]] = {}
@@ -365,22 +369,31 @@ class IncrementalSnapshotSource(InformerSnapshotSource):
     def _mark_node_locked(self, name: str) -> None:
         self._mark_seq += 1
         self._dirty[name] = self._mark_seq
+        self._note_wake_locked(tracing.current_trace_id())
 
-    def note_wake_trace(self, trace_id: Optional[str]) -> None:
-        """A wake cause for the next pass's span to link to; dropped until
-        the port has tracing (ROADMAP A15)."""
+    def _note_wake_locked(self, trace_id: Optional[str]) -> None:
+        if trace_id is not None and len(self._wake_traces) < 64 and (
+            trace_id not in self._wake_traces
+        ):
+            self._wake_traces.append(trace_id)
 
     def consume_wake_traces(self) -> list[str]:
-        """The traces that woke the next pass: none until ROADMAP A15."""
-        return []
+        """The traces that woke the next pass, taken out of the book."""
+        with self._delta_lock:
+            if not self._wake_traces:
+                return []
+            out, self._wake_traces = self._wake_traces, []
+            return out
 
     def invalidate(self) -> None:
         """Make the next pass reclassify everything: for a DaemonSet or
         ControllerRevision delta, and after an aborted pass, which may
-        have left nodes half moved that no delta will touch."""
+        have left nodes half moved that no delta will touch. A rollout's
+        delta wakes the rebuild, whose pass links to it."""
         with self._delta_lock:
             self._full_epoch += 1
             self._full_invalidations += 1
+            self._note_wake_locked(tracing.current_trace_id())
 
     def _on_node_event(self, event_type: str, obj, old) -> None:
         self._mark_node(obj.name)

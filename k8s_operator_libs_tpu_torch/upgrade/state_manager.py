@@ -36,20 +36,29 @@ state against a full rebuild). ``enable_write_batching`` (or
 ``StateOptions.batch_writes``) stages the provider's PATCHes through a
 ``WriteBatcher`` (``write_batch.py``).
 
-The JAX machine's tracing spans and the pass's timings (A15) have no
-counterpart; the API calls and the incremental source's work of the last
-pass are counted in :class:`PassStats`. A shared watch hub for the
-informers waits for A18 and is refused.
+The last pass is accounted in :class:`PassStats`: its snapshot and apply
+seconds, each bucket's seconds, its API calls, the incremental source's
+work, and the completeness aborts in all (``upgrade/metrics.py``'s
+``UpgradeMetrics`` exports them). With a tracer installed
+(``utils/tracing.py``) a pass with work is a ``reconcile.pass`` span,
+opened by ``build_state`` for a snapshot that is not settled, or by the
+first non-empty bucket, and closed as ``apply_state`` ends; it links to
+the traces of the writes whose deliveries woke it. A settled pass opens
+no span. A shared watch hub for the informers waits for A18 and is
+refused.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+import time
+from dataclasses import dataclass, field
 from typing import Mapping, Optional
 
 from ..api.upgrade_v1alpha1 import DriverUpgradePolicySpec
 from ..kube.client import Client
 from ..kube.objects import DaemonSet, Node, Pod
+from ..utils import tracing
+from ..utils.faultpoints import wall_now
 from ..utils.log import get_logger
 from .common_manager import ClusterUpgradeState, CommonUpgradeManager, NodeUpgradeState
 from .consts import DeviceClass, UpgradeKeys, UpgradeState
@@ -121,9 +130,13 @@ class StateOptions:
 
 @dataclass
 class PassStats:
-    """The API calls of one pass: ``build_state`` opens the record,
-    ``apply_state`` completes it."""
+    """Where one pass spent its time and its API calls: ``build_state``
+    opens the record, ``apply_state`` completes it. ``UpgradeMetrics``
+    exports it."""
 
+    #: Wall seconds of the snapshot (``build_state``) and of ``apply_state``.
+    snapshot_s: float = 0.0
+    apply_s: float = 0.0
     #: Client reads of the snapshot, each node's NodeMaintenance GET in
     #: the requestor mode included.
     reads_issued: int = 0
@@ -173,6 +186,15 @@ class PassStats:
     checkpoints_completed_total: int = 0
     checkpoint_restores_verified_total: int = 0
     checkpoint_restore_escalations_total: int = 0
+    #: Passes aborted by the snapshot's completeness check
+    #: (``BuildStateError``), in all: the race between the check and a
+    #: driver pod not yet delivered. The next pass's full rebuild resumes;
+    #: a wedged pool shows as every pass aborting.
+    aborted_completeness_races: int = 0
+    #: Apply wall seconds of each non-empty bucket this pass (bucket label
+    #: -> s), the gauge-side twin of the pass span's bucket children;
+    #: empty on a settled pass.
+    bucket_seconds: dict = field(default_factory=dict)
 
 
 class ClusterUpgradeStateManager:
@@ -239,6 +261,18 @@ class ClusterUpgradeStateManager:
         #: NodeMaintenance GETs of the requestor mode since build_state
         #: began.
         self._maintenance_reads = 0
+        #: Passes aborted by the completeness check, in all (see
+        #: ``PassStats.aborted_completeness_races``). Reconcile thread only.
+        self.completeness_aborts_total = 0
+        # The pass span, opened lazily: by build_state for a snapshot that
+        # is not settled, or by the first non-empty bucket. A settled pass
+        # opens none and allocates nothing but one tracer() read.
+        self._pass_span = None
+        self._pass_activation = None
+        self._pass_seq = 0
+        # One bound method for common.on_first_bucket, never a closure a
+        # pass.
+        self._lazy_open = self._lazy_open_pass_span
 
     # -- the read and write paths ----------------------------------------------
     def enable_write_batching(self, max_batch: int = 64) -> WriteBatcher:
@@ -384,25 +418,88 @@ class ClusterUpgradeStateManager:
     def is_validation_enabled(self) -> bool:
         return self.common.validation_enabled
 
+    # -- the pass span --------------------------------------------------------
+    def _open_pass_span(self, t: tracing.Tracer, start_wall: float) -> None:
+        if self._pass_span is not None:
+            self._close_pass_span(None)
+        self._pass_span = t.start_span(
+            "reconcile.pass", category="reconcile", start=start_wall,
+            attrs={"pass": self._pass_seq},
+        )
+        self._pass_activation = tracing.activate(self._pass_span)
+
+    def _lazy_open_pass_span(self) -> None:
+        """``common.on_first_bucket``: the snapshot was settled, but a
+        polling bucket is about to work, so its span needs the pass's."""
+        self.common.on_first_bucket = None
+        t = tracing.tracer()
+        if t is not None and self._pass_span is None:
+            self._open_pass_span(t, wall_now())
+
+    def _close_pass_span(self, stats: Optional[PassStats]) -> None:
+        span = self._pass_span
+        if span is None:
+            return
+        self._pass_span = None
+        activation, self._pass_activation = self._pass_activation, None
+        if activation is not None:
+            activation.close()
+        if stats is not None:
+            span.attrs.update(
+                full_rebuild=stats.full_rebuild,
+                dirty=stats.dirty_node_count,
+                reclassified=stats.nodes_reclassified,
+                writes=stats.writes_issued,
+            )
+        t = tracing.tracer()
+        if t is not None:
+            t.end_span(span)
+
     # -- the snapshot --------------------------------------------------------
     def build_state(self, namespace: str, driver_labels: Mapping[str, str]) -> ClusterUpgradeState:
+        start = time.perf_counter()
+        tracer = tracing.tracer()
+        if tracer is not None and self._pass_span is not None:
+            # A pass whose apply never ran must not leak its span into this.
+            self._close_pass_span(None)
+        trace_start = wall_now() if tracer is not None else 0.0
+        self._pass_seq += 1
         source = self.snapshot_source
         source.consume_reads()  # drop reads made outside a pass
         incremental = bool(getattr(source, "incremental", False))
         stats = PassStats(snapshot_cached=source.cached, snapshot_incremental=incremental)
         self.last_pass_stats = stats
+        stats.aborted_completeness_races = self.completeness_aborts_total
         self._maintenance_reads = 0
-        if incremental:
-            state = self._build_state_incremental(namespace, driver_labels, source, stats)
-        else:
-            self._reset_pass_caches()
-            state = self._build_state_full(namespace, driver_labels, source)
-            state.dirty_nodes = None
+        try:
+            if incremental:
+                state = self._build_state_incremental(namespace, driver_labels, source, stats)
+            else:
+                self._reset_pass_caches()
+                state = self._build_state_full(namespace, driver_labels, source)
+                state.dirty_nodes = None
+        except BuildStateError:
+            # The completeness race, counted before it propagates: the
+            # caller's loop tolerates the abort, the counter shows it stays
+            # bounded.
+            self.completeness_aborts_total += 1
+            stats.aborted_completeness_races = self.completeness_aborts_total
+            stats.snapshot_s = time.perf_counter() - start
+            raise
         if self.health_source is not None:
             # Memoized: a settled pool attaches the same mapping again.
             state.node_health = self.health_source.snapshot()
         # One NodeMaintenance GET a node built in the requestor mode.
         stats.reads_issued = source.consume_reads() + self._maintenance_reads
+        stats.snapshot_s = time.perf_counter() - start
+        if tracer is not None and not stats.snapshot_skipped:
+            # A snapshot with news: the pass span covers both phases and
+            # links to the traces of the writes whose deliveries woke it.
+            self._open_pass_span(tracer, trace_start)
+            consume_wakes = getattr(source, "consume_wake_traces", None)
+            if callable(consume_wakes):
+                for trace_id in consume_wakes():
+                    tracer.add_link(self._pass_span, trace_id)
         return state
 
     def _reset_pass_caches(self) -> None:
@@ -628,6 +725,7 @@ class ClusterUpgradeStateManager:
             raise ValueError("currentState should not be empty")
         if policy is None or not policy.auto_upgrade:
             log.info("driver auto upgrade is disabled, skipping")
+            self._close_pass_span(self.last_pass_stats)
             return
         log.info(
             "node states: %s",
@@ -635,6 +733,16 @@ class ClusterUpgradeStateManager:
         )
         common = self.common
         stats = self.last_pass_stats
+        start = time.perf_counter()
+        # A settled snapshot opened no span; the first non-empty bucket
+        # opens it. A settled pass runs no bucket and opens nothing.
+        common.on_first_bucket = (
+            self._lazy_open
+            if tracing.tracer() is not None and self._pass_span is None
+            else None
+        )
+        if common.bucket_seconds:
+            common.bucket_seconds = {}
         writes_before = self.provider.write_stats()
         errors_before = self.runner.bucket_failures
         checkpoint_enabled = policy.checkpoint is not None and policy.checkpoint.enable
@@ -679,6 +787,10 @@ class ClusterUpgradeStateManager:
             for key in ("issued", "skipped", "coalesced", "batched"):
                 setattr(stats, f"writes_{key}", writes_after[key] - writes_before[key])
             stats.node_errors = self.runner.bucket_failures - errors_before
+            stats.apply_s = time.perf_counter() - start
+            stats.bucket_seconds = dict(common.bucket_seconds)
+            common.on_first_bucket = None
+            self._close_pass_span(stats)
             if checkpoint_before is not None:
                 self._count_checkpoints(
                     stats, checkpoint_before, checkpoint_bucket if checkpoint_enabled else None

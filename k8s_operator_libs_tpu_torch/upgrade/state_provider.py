@@ -1,7 +1,7 @@
 """NodeUpgradeStateProvider: the one writer of a node's upgrade state.
 
 The JAX package's ``upgrade/state_provider.py`` without its cached reader
-and its tracing events. All upgrade state lives on the node (a state label
+(ROADMAP A17). All upgrade state lives on the node (a state label
 and a few annotations), which keeps the controller stateless and a pass
 resumable after any crash. Every write goes through here, so that:
 
@@ -26,7 +26,9 @@ then under it again the count, the write-through and the check. A failed
 stage rolls back each key that still holds the optimistic value.
 
 Deleting an annotation is asked for by the value ``"null"``, which becomes
-a JSON ``null`` in the merge patch.
+a JSON ``null`` in the merge patch. Each state label written is a
+``state.transition`` event (``node``, ``frm``, ``to``, ``cause``) on the
+current span: the bucket span that made it, whose parent is the pass.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ from typing import Callable, Mapping, Optional, Protocol, Union
 
 from ..kube.client import Client
 from ..kube.objects import KubeObject, Node
+from ..utils import tracing
 from ..utils.log import get_logger
 from ..utils.sync import KeyedMutex
 from .consts import NULL_STRING, UpgradeKeys, UpgradeState
@@ -201,7 +204,9 @@ class NodeUpgradeStateProvider:
                 patched = self._client.patch(
                     "Node", node.name, patch=patch, patch_type=patch_type
                 )
-                self._commit_write(node, patched, lab_changes, ann_changes, what, batched=False)
+                self._commit_write(
+                    node, patched, lab_changes, ann_changes, prev_labels, what, batched=False
+                )
                 return lab_changes, ann_changes
             # The values go into the node in hand now, so a concurrent
             # writer's no-op check sees them while the mutex is released.
@@ -215,7 +220,9 @@ class NodeUpgradeStateProvider:
                 )
             raise
         with self._mutex.locked(node.name):
-            self._commit_write(node, patched, lab_changes, ann_changes, what, batched=True)
+            self._commit_write(
+                node, patched, lab_changes, ann_changes, prev_labels, what, batched=True
+            )
         return lab_changes, ann_changes
 
     def _commit_write(
@@ -224,12 +231,13 @@ class NodeUpgradeStateProvider:
         patched: Optional[KubeObject],
         lab_changes: Mapping[str, Optional[str]],
         ann_changes: Mapping[str, Optional[str]],
+        prev_labels: Mapping[str, Optional[str]],
         what: str,
         batched: bool,
     ) -> None:
         """Under the node's mutex: count the write, hand it to the
-        write-through, check that it holds the values written, and fold
-        them into the node in hand."""
+        write-through, check that it holds the values written, fold them
+        into the node in hand, and report a state transition."""
         self._count_write(
             skipped=False,
             coalesced=len(lab_changes) + len(ann_changes) - 1,
@@ -249,6 +257,17 @@ class NodeUpgradeStateProvider:
                 f"write of {what} on node {node.name} did not produce the expected value"
             )
         self._apply_in_memory(node, lab_changes, ann_changes)
+        state_label = self._keys.state_label
+        if state_label in lab_changes:
+            cause = tracing.current_span()
+            if cause is not None:
+                tracing.add_event(
+                    "state.transition",
+                    node=node.name,
+                    frm=prev_labels.get(state_label) or "",
+                    to=lab_changes[state_label] or "",
+                    cause=cause.name,
+                )
 
     @staticmethod
     def _apply_in_memory(

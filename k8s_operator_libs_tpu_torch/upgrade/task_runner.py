@@ -1,7 +1,7 @@
 """Per-node tasks, with a node's operation never scheduled twice at once.
 
-The JAX package's ``upgrade/task_runner.py`` without its tracing spans.
-Two shapes of work:
+The JAX package's ``upgrade/task_runner.py``. Two shapes of work, each
+carrying the caller's current span into the threads it runs on:
 
 * :meth:`TaskRunner.submit` runs a keyed task in the background (a drain,
   an eviction and its wait); a key still in flight is refused, and the
@@ -24,6 +24,7 @@ import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from typing import Callable, Optional, Sequence
 
+from ..utils import tracing
 from ..utils.log import get_logger
 from ..utils.sync import StringSet
 
@@ -81,6 +82,9 @@ class TaskRunner:
             for i, (key, fn) in enumerate(tasks):
                 guarded(i, key, fn)
             return results
+        # The workers take the caller's current span (the bucket's), so a
+        # transition made on a worker lands its event on that bucket.
+        trace_ctx = tracing.current_span()
         with self._bucket_executor_lock:
             if self._bucket_executor is None:
                 self._bucket_executor = ThreadPoolExecutor(
@@ -91,7 +95,8 @@ class TaskRunner:
 
         def gated(index: int, key: str, fn: Callable[[], None]) -> None:
             with gate:
-                guarded(index, key, fn)
+                with tracing.use_span(trace_ctx):
+                    guarded(index, key, fn)
 
         futures = [executor.submit(gated, i, key, fn) for i, (key, fn) in enumerate(tasks)]
         for future in futures:
@@ -110,10 +115,14 @@ class TaskRunner:
             finally:
                 self._in_progress.remove(key)
             return True
+        # A fire-and-forget task (a drain, an eviction wait) parents its
+        # spans to the pass that scheduled it, even when it outlives it.
+        trace_ctx = tracing.current_span()
 
         def run() -> None:
             try:
-                fn()
+                with tracing.use_span(trace_ctx):
+                    fn()
             except Exception:  # tasks own their error handling; never bubble
                 log.exception("task %s raised unexpectedly", key)
             finally:

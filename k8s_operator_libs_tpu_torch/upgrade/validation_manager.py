@@ -1,7 +1,8 @@
 """ValidationManager: the gate a node passes before it is uncordoned.
 
-The JAX package's ``upgrade/validation_manager.py`` without its tracing
-spans. First the checkpoint arc's ``restore_gate``, where one is set: it
+The JAX package's ``upgrade/validation_manager.py``; each attempt is a
+``validate.node`` span (category ``probe``) with its verdict in
+``passed``. First the checkpoint arc's ``restore_gate``, where one is set: it
 runs even with validation otherwise off, outside the validation clock,
 since it keeps its own deadline. After the driver pod restarts at
 the new revision, every pod matching ``pod_selector`` on the node must be
@@ -21,6 +22,7 @@ from typing import Callable, Optional
 
 from ..kube.client import Client
 from ..kube.objects import Node, Pod
+from ..utils import tracing
 from ..utils.faultpoints import wall_now
 from ..utils.log import get_logger
 from .consts import NULL_STRING, TRUE_STRING, UpgradeKeys, UpgradeState
@@ -96,6 +98,13 @@ class ValidationManager:
         """True when the node passes validation. The restore gate comes
         first, with validation on or off: a node with a checkpoint
         manifest goes through the validation bucket for it alone."""
+        with tracing.span("validate.node", category="probe", node=node.name) as probe_span:
+            ok = self._validate(node)
+            if probe_span is not None:
+                probe_span.attrs["passed"] = ok
+            return ok
+
+    def _validate(self, node: Node) -> bool:
         if not self._restore_ok(node):
             # Deferred, not failed. The gates below are not running, so
             # their clock is retired: left to age through a long deferral,

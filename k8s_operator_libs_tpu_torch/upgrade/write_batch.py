@@ -19,9 +19,11 @@ write.
 * **One order.** Flushes run one at a time and slots flush in the order
   they were staged, so two writes of one node land in that order.
 
-``RestClient`` has no ``patch_many`` of its own, so its slots go one
-``patch`` at a time; the JAX client's pipelined batch on one connection
-waits for ROADMAP A18, and the JAX module's ``write.flush`` span for A15.
+Each flush is one ``write.flush`` span (category ``write``) with the
+slots it sent (``writes``) and took (``staged``), under the caller's
+current span. ``RestClient`` has no ``patch_many`` of its own, so its
+slots go one ``patch`` at a time; the JAX client's pipelined batch on one
+connection waits for ROADMAP A18.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import threading
 from typing import Any, Mapping
 
 from ..kube.client import Client, patch_many
+from ..utils import tracing
 from ..utils.faultpoints import fault_point
 from ..utils.log import get_logger
 
@@ -153,16 +156,17 @@ class WriteBatcher:
         groups: dict[tuple[str, str], list[_Entry]] = {}
         for entry in live:
             groups.setdefault((entry.kind, entry.namespace), []).append(entry)
-        for (kind, namespace), entries in groups.items():
-            results = patch_many(
-                self._client,
-                kind,
-                [(e.name, e.patch, e.patch_type) for e in entries],
-                namespace=namespace,
-            )
-            for entry, result in zip(entries, results):
-                entry.result = result
-                entry.event.set()
+        with tracing.span("write.flush", category="write", writes=len(live), staged=len(batch)):
+            for (kind, namespace), entries in groups.items():
+                results = patch_many(
+                    self._client,
+                    kind,
+                    [(e.name, e.patch, e.patch_type) for e in entries],
+                    namespace=namespace,
+                )
+                for entry, result in zip(entries, results):
+                    entry.result = result
+                    entry.event.set()
         with self._lock:
             self._batches_flushed += 1
             self._writes_flushed += len(live)

@@ -11,17 +11,30 @@ package to drive both machines alike.
 
 A fault plan (an object with ``consult(point, ctx) -> FaultAction or
 None``) answers :func:`fault_point` at the named points the port consults:
-the write batcher's ``upgrade.write_batch_partial``. With no plan
-installed a consult is one global read. The JAX module's other points
-and its monotonic clock serve its chaos harness, which waits for ROADMAP
-A19.
+the write batcher's ``upgrade.write_batch_partial`` (``RAISE``) and the
+informer's ``watch.deliver``, where :func:`chaos_hold` blocks a watch
+stream while the plan answers ``HOLD`` (a lagging stream: the consumer's
+view goes stale until the plan lets go). With no plan installed a
+consult is one global read. The JAX module's other points and its
+monotonic clock serve its chaos harness, which waits for ROADMAP A19.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
-from typing import Any, Optional, Protocol
+from typing import Any, Callable, Optional, Protocol
+
+#: The kinds a plan may answer with, as the JAX module names them:
+#: ``deny`` fails a protocol round benignly, ``raise`` raises
+#: ``FaultAction.exc`` at the site, ``hold`` blocks a delivery while the
+#: plan keeps answering it, ``overflow`` forces a watch hub's buffers over
+#: their bound. The port's sites read ``raise`` and ``hold``.
+DENY = "deny"
+RAISE = "raise"
+HOLD = "hold"
+OVERFLOW = "overflow"
+
 
 @dataclass
 class FaultAction:
@@ -79,3 +92,20 @@ def wall_now() -> float:
     """``time.time()``, or the installed clock's ``wall()``."""
     clock = _clock
     return time.time() if clock is None else clock.wall()
+
+
+def chaos_hold(
+    point: str,
+    should_abort: Callable[[], bool],
+    poll_s: float = 0.002,
+    **ctx: Any,
+) -> None:
+    """Block while the plan answers ``HOLD`` at ``point`` (a held watch
+    stream). Returns at once with no plan installed; ``should_abort``
+    (the caller's stop signal) always wins, so a held thread can still
+    shut down."""
+    while not should_abort():
+        act = fault_point(point, **ctx)
+        if act is None or act.kind != HOLD:
+            return
+        time.sleep(poll_s)

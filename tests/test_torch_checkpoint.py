@@ -18,8 +18,8 @@ the events' messages, the eight checkpoint fields of ``PassStats``, the
 checkpoint managers' ``totals()`` and whether the pass raised.
 
 The scenarios are the cases of ``tests/test_checkpoint_drain.py``, each
-named after its JAX counterpart (its gauge family, ``UpgradeMetrics``, is
-not in the port yet: ROADMAP A15), and: the wait for jobs with a selector,
+named after its JAX counterpart (its gauge family read through the
+port's ``UpgradeMetrics``), and: the wait for jobs with a selector,
 finished and timed out, pod deletion on, and one machine finishing the
 other's arc, both ways. The port's simulator is held to the JAX one tick
 by tick, and the contract's pure parts (the spec, the object's step) are
@@ -763,8 +763,36 @@ def test_manifest_routes_pod_restart_through_validation_bucket(twin_of):
 
 
 # ----------------------------------------------------------------------
-# TestObservability (the gauge family waits for UpgradeMetrics, A15)
+# TestObservability
 # ----------------------------------------------------------------------
+
+
+def test_checkpoint_gauge_family_exported(twin_of):
+    """The ``tpu_operator_upgrade_checkpoint_*`` family of the port's
+    ``UpgradeMetrics``, observed after every pass of the port's roll."""
+    from k8s_operator_libs_tpu_torch.upgrade import UpgradeMetrics
+
+    twin = twin_of()
+    mgr = twin.b.machines["port"]
+    metrics = UpgradeMetrics(mgr)
+    built = []
+
+    def build_state(ns, labels, build=mgr.build_state):
+        built.append(build(ns, labels))
+        return built[-1]
+
+    mgr.build_state = build_state  # the pass's own snapshot, kept to observe
+    rolled(twin, after=lambda p, side: side is twin.b and metrics.observe(built[-1]))
+    text = metrics.render()
+    for line in (
+        "tpu_operator_upgrade_checkpoint_escalations_total",
+        "tpu_operator_upgrade_checkpoint_completed_total",
+        "tpu_operator_upgrade_checkpoint_restores_verified_total",
+        "tpu_operator_upgrade_checkpoint_nodes_waiting",
+    ):
+        assert line in text, line
+    assert 'tpu_operator_upgrade_checkpoint_escalations_total{device="gpu"} 0' in text
+    assert 'tpu_operator_upgrade_checkpoint_completed_total{device="gpu"} 1' in text
 
 
 def test_pass_stats_count_the_arc(twin_of):

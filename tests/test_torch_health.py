@@ -422,7 +422,7 @@ def _imported_modules(path: Path) -> list[tuple[str, int]]:
 
 def _forbidden(name: str) -> bool:
     top = name.split(".")[0]
-    return top in ("jax", "jaxlib", "flax") or top == "k8s_operator_libs_tpu"
+    return top in ("jax", "jaxlib", "flax", "tools") or top == "k8s_operator_libs_tpu"
 
 
 @pytest.mark.parametrize(
@@ -440,6 +440,7 @@ def test_port_imports_with_jax_blocked():
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['k8s_operator_libs_tpu'] = None\n"
+        "sys.modules['tools'] = None\n"
         "import k8s_operator_libs_tpu_torch.tpu.health as h\n"
         "import k8s_operator_libs_tpu_torch.models.burnin\n"
         "import k8s_operator_libs_tpu_torch.models.pipeline\n"
@@ -479,6 +480,12 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.utils.intstr\n"
         "import k8s_operator_libs_tpu_torch.utils.sync\n"
         "import k8s_operator_libs_tpu_torch.utils.faultpoints\n"
+        "import k8s_operator_libs_tpu_torch.utils.tracing\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.drain_manager\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.pod_manager\n"
+        "import k8s_operator_libs_tpu_torch.upgrade.inplace\n"
+        "from k8s_operator_libs_tpu_torch.upgrade.metrics import UpgradeMetrics\n"
+        "import k8s_operator_libs_tpu_torch.tools.trace_view\n"
         "import k8s_operator_libs_tpu_torch.policy\n"
         "import k8s_operator_libs_tpu_torch.api.telemetry_v1alpha1\n"
         "import k8s_operator_libs_tpu_torch.tpu as t\n"

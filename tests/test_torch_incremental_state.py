@@ -843,7 +843,7 @@ def test_chip_smoke_informer_roll_phase_runs_on_the_cpu(monkeypatch, tmp_path):
 
     monkeypatch.setattr(smoke, "run_probe_pod", probe_pod)
     result = smoke.informer_roll_phase("cpu", launches, str(tmp_path))
-    assert result["cluster_nodes"] == 258
+    assert result["cluster_nodes"] == 259  # 258 and the node that joins at the stale view
     assert sorted(r["node"] for r in result["probe_pods"].values()) == list(
         smoke.INFORMER_NODES
     )

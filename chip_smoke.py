@@ -294,15 +294,51 @@ Phases, in order; any failure raises and the script exits non-zero:
     untraced milliseconds of those served from the kept state
     (``tracing_cost_ms``), the stale view's abort and heal
     (``stale_view``), the passes observed, and the phase's wall seconds
-    (``phase_wall_s``; ``wall_s`` is the roll's).
+    (``phase_wall_s``; ``wall_s`` is the roll's);
+20. controller_roll phase (the controller runtime), after the informer
+    roll: two more nodes, ``CONTROLLER_NODES``, labelled from the card with
+    a workload pod each, in a ``DictClient`` behind ``ApiStub``; the port's
+    ``DaemonSetSimulator`` makes the NVIDIA driver DaemonSet of
+    ``tpu/libtpu.py`` at 550 (its pods held by the safe-load key once
+    armed) and the port's ``ValidationPodSimulator`` with a
+    ``KubeletPayloadExecutor`` runs each probe pod's own command (its
+    output kept in files, its kernel cache a roll-phase node's, so no
+    ``nvcc``); both tick every ``KUBELET_TICK_S`` in a thread here. Two
+    replicas of ``python -m k8s_operator_libs_tpu_torch.upgrade_controller
+    --watch --interval 600 --validation-pod --policy <ROLL_POLICY>
+    --leader-elect`` run as children over a kubeconfig at the stub,
+    ``ctl-a`` first, ``ctl-b`` once ``ctl-a`` leads, each with
+    ``--metrics-port``, ``--trace-export`` and ``--stats-json``, their
+    output drained continuously. After ``ctl-a``'s first pass the driver is
+    bumped to 560: only watch-triggered passes can roll the pool. Both
+    nodes must end ``upgrade-done`` and uncordoned with every driver pod
+    Ready at 560 and no workload pod left; then the kubelet stops,
+    ``/metrics`` is scraped once (``reconcile_passes_total`` must equal the
+    passes ``ctl-a`` printed), ``ctl-a`` gets SIGTERM, ``ctl-b`` must lead
+    within ``LEASE_DURATION_S`` of the signal and run a pass, and ``ctl-b``
+    gets SIGTERM. Both must exit 0, the Lease must not be ``ctl-a``'s after
+    its stop nor anyone's after ``ctl-b``'s, ``ctl-b`` must print no pass
+    before ``ctl-a`` prints that it drains, each ``--stats-json`` must count the passes its
+    replica printed, each trace must hold a ``lease.round`` span, each probe
+    pod's payload must launch the gate's counts and this process none.
+    The stub drops a write that changes nothing (no revision, no event),
+    so the kubelet's ticks wake no pass: ``ctl-a``'s ``woken_by`` must
+    show the interval never ran out and more passes woken by node and pod
+    keys than by the world's key alone.
+    ``{"controller_roll": ...}`` gives the passes, the wall seconds, the
+    kubelet's ticks over the roll,
+    each node's states with the second each began, each probe pod's
+    seconds to Ready and kernels, the scrape, the takeover seconds, the
+    return codes, the Lease's holder after each stop and its transitions,
+    each trace's spans by name and each stats file.
 
 The last lines are the kernel table as one JSON object (each row with the
 launches of the gate, the burn-in forward, the flagship MoE flash
 forward, the probe pod, the roll's probe pods together, the requestor
 roll's hook calls together and its probe pods together, the checkpoint
 roll's probe pods together, the monitor's payload, the quarantine
-hand-off's probe pod, the informer roll's probe pods together and the
-gang's payload),
+hand-off's probe pod, the informer roll's probe pods together, the
+controller roll's probe pods together and the gang's payload),
 the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
 or run from a directory that holds only this file, it exits non-zero and
@@ -449,6 +485,18 @@ JOIN_NODE = "gpu-inf-2"
 VERIFY_EVERY_N = 5
 CRD_DISCOVERY_DELAY_S = 0.2
 CRDS = ("nodemaintenances.maintenance.nvidia.com", "tpuupgradepolicies.tpu-operator.dev")
+#: The controller roll: its two nodes, the replicas' identities, the
+#: command's interval (so long that only watch events drive the roll), the
+#: lease duration the command campaigns with (client-go's default, which a
+#: takeover must beat), the kubelet's tick, and the seconds a replica may
+#: take to start, to lead and to stop.
+CONTROLLER_NODES = ("gpu-ctl-0", "gpu-ctl-1")
+CONTROLLER_IDS = ("ctl-a", "ctl-b")
+CONTROLLER_INTERVAL_S = 600
+LEASE_DURATION_S = 15.0
+KUBELET_TICK_S = 0.2
+CONTROLLER_START_S = 120.0
+CONTROLLER_QUIET_S = 2.0
 
 
 def card_line() -> str:
@@ -1244,7 +1292,9 @@ class DictClient:
     object)`` to a journal that ``watch`` streams from: resumed after a
     revision, an object that leaves a watch's selectors arriving as
     DELETED; a revision older than ``compact`` left raises the port's
-    ``WatchExpiredError``. Watches serve no bookmarks."""
+    ``WatchExpiredError``. A write that changes nothing is no write, as on
+    the API server: no new revision, no event. Watches serve no
+    bookmarks."""
 
     CLUSTER_SCOPED = ("Node", "NodeHealthReport")
 
@@ -1335,6 +1385,10 @@ class DictClient:
         from k8s_operator_libs_tpu_torch.kube.objects import wrap
 
         old = self.objects.get(key)
+        if old is not None:
+            raw["metadata"]["resourceVersion"] = old["metadata"]["resourceVersion"]
+            if raw == old:
+                return wrap(json.loads(json.dumps(old)))
         self.version += 1
         raw["metadata"]["resourceVersion"] = str(self.version)
         if raw["metadata"].get("deletionTimestamp") and not raw["metadata"].get("finalizers"):
@@ -1538,20 +1592,32 @@ class DictClient:
 class ApiStub(ThreadingHTTPServer):
     """A ``DictClient`` behind the API's REST paths on 127.0.0.1, for the
     port's ``RestClient`` in a child process (the payload's
-    ``--publish-report``, the CRD utility's command line): GET, POST, PUT
-    and DELETE of an object, and the discovery documents ``/api/v1`` and
-    ``/apis/<group>/<version>``."""
+    ``--publish-report``, the CRD utility's command line, the
+    ``upgrade_controller`` command): GET (an object, or a list with its
+    label and field selectors and its resourceVersion), POST, PUT
+    (``/status`` too), PATCH (merge and strategic merge, which agree on
+    the maps the machine writes) and DELETE of an object, a pod's
+    ``eviction`` subresource, the discovery documents ``/api/v1`` and
+    ``/apis/<group>/<version>``, and ``?watch=true``: the client's journal
+    streamed as newline-delimited events after ``resourceVersion``, ended
+    after ``timeoutSeconds``; a revision compacted away is a 410
+    ``Status``."""
 
     daemon_threads = True
+    request_queue_size = 128
     DISCOVERY = re.compile(
         r"^/(?:api/(?P<core>[^/?]+)|apis/(?P<group>[^/?]+)/(?P<version>[^/?]+))$"
     )
     PATH = re.compile(
         r"^/(?:api/v1|apis/[^/]+/[^/]+)(?:/namespaces/(?P<ns>[^/]+))?"
-        r"/(?P<plural>[^/?]+)(?:/(?P<name>[^/?]+))?(?:/(?P<sub>status))?"
+        r"/(?P<plural>[^/?]+)(?:/(?P<name>[^/?]+))?(?:/(?P<sub>status|eviction))?$"
     )
+    CODES = {"NotFound": 404, "AlreadyExists": 409, "Conflict": 409, "Expired": 410,
+             "Invalid": 422, "UnsupportedMediaType": 415}
 
     def __init__(self, client: DictClient) -> None:
+        import urllib.parse
+
         from k8s_operator_libs_tpu_torch.kube.rest import RESOURCES
 
         kinds = {plural: kind for kind, (_, plural, _) in RESOURCES.items()}
@@ -1559,8 +1625,10 @@ class ApiStub(ThreadingHTTPServer):
 
         class Handler(BaseHTTPRequestHandler):
             def _serve(self) -> None:
-                m = stub.PATH.match(self.path)
-                d = stub.DISCOVERY.match(self.path)
+                url = urllib.parse.urlsplit(self.path)
+                query = dict(urllib.parse.parse_qsl(url.query))
+                m = stub.PATH.match(url.path)
+                d = stub.DISCOVERY.match(url.path)
                 length = int(self.headers.get("Content-Length") or 0)
                 body = json.loads(self.rfile.read(length)) if length else None
                 try:
@@ -1570,13 +1638,20 @@ class ApiStub(ThreadingHTTPServer):
                         out = {"kind": "APIResourceList",
                                "groupVersion": f"{group}/{version}" if group else version,
                                "resources": client.discover(group, version)}
+                    elif (self.command == "GET" and query.get("watch") == "true"
+                          and not m.group("name")):
+                        self._watch(kinds[m.group("plural")], m.group("ns") or "", query)
+                        return
                     else:
-                        out = self._object(m, body)
+                        out = self._object(m, body, query)
                     code = 200
                 except Exception as e:  # noqa: BLE001 - answered as the API does
                     reason = getattr(e, "reason", "BadRequest")
-                    code = {"NotFound": 404, "AlreadyExists": 409, "Conflict": 409}.get(reason, 400)
+                    code = stub.CODES.get(reason, 400)
                     out = {"kind": "Status", "reason": reason, "message": str(e), "code": code}
+                self._reply(code, out)
+
+            def _reply(self, code: int, out: dict) -> None:
                 data = json.dumps(out).encode()
                 self.send_response(code)
                 self.send_header("Content-Type", "application/json")
@@ -1584,25 +1659,72 @@ class ApiStub(ThreadingHTTPServer):
                 self.end_headers()
                 self.wfile.write(data)
 
-            def _object(self, m, body) -> dict:
+            def _watch(self, kind: str, ns: str, query: dict) -> None:
+                """The journal's events as a stream that ends with the
+                window (HTTP/1.0: the connection's close ends the body)."""
+                rv = query.get("resourceVersion") or None
+                if rv is not None and int(rv) < client.compacted:
+                    self._reply(410, {"kind": "Status", "reason": "Expired", "code": 410,
+                                      "message": f"resourceVersion {rv} is compacted"})
+                    return
+                events = client.watch(
+                    kind, ns, label_selector=query.get("labelSelector") or None,
+                    field_selector=query.get("fieldSelector") or None,
+                    timeout_seconds=int(query.get("timeoutSeconds") or 300),
+                    resource_version=rv,
+                )
+                self.send_response(200)
+                self.send_header("Content-Type", "application/json")
+                self.end_headers()
+                try:
+                    for event, obj in events:
+                        line = json.dumps({"type": event, "object": obj.raw}) + "\n"
+                        self.wfile.write(line.encode())
+                        self.wfile.flush()
+                except OSError:
+                    return  # the watcher went away
+                except Exception as e:  # noqa: BLE001 - an ERROR frame, as the API sends
+                    reason = getattr(e, "reason", "InternalError")
+                    status = {"kind": "Status", "reason": reason, "message": str(e),
+                              "code": stub.CODES.get(reason, 500)}
+                    self.wfile.write((json.dumps({"type": "ERROR", "object": status})
+                                      + "\n").encode())
+
+            def _object(self, m, body, query) -> dict:
+                from k8s_operator_libs_tpu_torch.kube.client import ApiError
                 from k8s_operator_libs_tpu_torch.kube.objects import wrap
 
                 kind = kinds[m.group("plural")]
-                ns, name = m.group("ns") or "", m.group("name") or ""
+                ns, name, sub = m.group("ns") or "", m.group("name") or "", m.group("sub")
                 if self.command == "GET" and name:
                     return client.get(kind, name, ns).raw
                 if self.command == "GET":
-                    return {"items": [o.raw for o in client.list(kind, ns)]}
+                    with client.lock:
+                        client._call("list")
+                    items, rv = client.list_with_revision(
+                        kind, ns, query.get("labelSelector") or None,
+                        query.get("fieldSelector") or None,
+                    )
+                    return {"items": [o.raw for o in items], "metadata": {"resourceVersion": rv}}
+                if self.command == "POST" and sub == "eviction":
+                    client.evict(name, ns)
+                    return {"kind": "Status", "status": "Success"}
                 if self.command == "POST":
                     return client.create(wrap(body)).raw
                 if self.command == "PUT":
-                    return client._replace(wrap(body), m.group("sub") == "status").raw
+                    return client._replace(wrap(body), sub == "status").raw
+                if self.command == "PATCH":
+                    if "json-patch" in (self.headers.get("Content-Type") or ""):
+                        error = ApiError("JSON patches are not served here")
+                        error.reason = "UnsupportedMediaType"
+                        raise error
+                    return client.patch(kind, name, ns, patch=body).raw
                 if self.command == "DELETE":
                     client.delete(kind, name, ns)
                     return {"kind": "Status", "status": "Success"}
                 raise ValueError(f"{self.command} is not served here")
 
-            do_GET = do_POST = do_PUT = do_DELETE = _serve
+            do_GET = do_POST = do_PUT = do_PATCH = do_DELETE = _serve
 
             def log_message(self, fmt, *args):  # noqa: D102
                 pass
@@ -2055,14 +2177,7 @@ def gang_phase(card: str, gate_launches: dict) -> dict:
         client.create(Node.new(name))
     info: dict = {}
     with ApiStub(client) as stub, tempfile.TemporaryDirectory(prefix="gang-") as work:
-        kubeconfig = os.path.join(work, "kubeconfig")
-        with open(kubeconfig, "w") as f:
-            json.dump({
-                "current-context": "c",
-                "clusters": [{"name": "c", "cluster": {"server": stub.url}}],
-                "users": [{"name": "u", "user": {}}],
-                "contexts": [{"name": "c", "context": {"cluster": "c", "user": "u"}}],
-            }, f)
+        kubeconfig = write_kubeconfig(work, stub.url)
 
         def run_gang(label: str, cards: list[list[int]]) -> list[dict]:
             coordinator = f"127.0.0.1:{free_port()}"
@@ -2280,9 +2395,19 @@ class RollKubelet:
 def roll_pool(client, nodes):
     """``nodes`` labelled from the card, each Ready with a controller-owned
     workload pod, and the NVIDIA driver DaemonSet at the old version."""
+    from k8s_operator_libs_tpu_torch.tpu.libtpu import LibtpuDaemonSetManager, LibtpuSpec
+
+    pool_nodes(client, nodes)
+    installer = LibtpuDaemonSetManager(client, LibtpuSpec(version=ROLL_VERSIONS[0]))
+    installer.apply()
+    return installer
+
+
+def pool_nodes(client, nodes) -> None:
+    """``nodes`` labelled from the card, each Ready with a controller-owned
+    workload pod."""
     from k8s_operator_libs_tpu_torch.kube.objects import Node, Pod
     from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
-    from k8s_operator_libs_tpu_torch.tpu.libtpu import LibtpuDaemonSetManager, LibtpuSpec
 
     for name in nodes:
         node = Node.new(name, labels=local_gpu_labels())
@@ -2296,9 +2421,6 @@ def roll_pool(client, nodes):
         ]
         workload.raw["status"] = {"phase": "Running"}
         client.create(workload)
-    installer = LibtpuDaemonSetManager(client, LibtpuSpec(version=ROLL_VERSIONS[0]))
-    installer.apply()
-    return installer
 
 
 def drive_roll(label: str, client, mgr, installer, kubelet, before_apply=None,
@@ -3294,21 +3416,28 @@ def quarantine_phase(card: str, gate_launches: dict, cache_root: str, reports: d
     return result
 
 
-def crdutil_child(label: str, client, url: str, workdir: str, *args: str) -> dict:
-    """``python -m k8s_operator_libs_tpu_torch.crdutil`` on the repo's CRDs
-    with a kubeconfig at ``url``; its seconds, last line and the discovery
-    polls the stub served it. A non-zero exit fails the phase."""
-    kubeconfig = os.path.join(workdir, "kubeconfig")
-    with open(kubeconfig, "w") as f:
+def write_kubeconfig(workdir: str, url: str) -> str:
+    """A JSON kubeconfig at ``url`` in ``workdir``; its path."""
+    path = os.path.join(workdir, "kubeconfig")
+    with open(path, "w") as f:
         json.dump({
             "current-context": "c",
             "clusters": [{"name": "c", "cluster": {"server": url}}],
             "users": [{"name": "u", "user": {}}],
             "contexts": [{"name": "c", "context": {"cluster": "c", "user": "u"}}],
         }, f)
-    env = child_env(KUBECONFIG=kubeconfig, HOME=workdir)
+    return path
+
+
+def crdutil_child(label: str, client, url: str, workdir: str, *args: str) -> dict:
+    """``python -m k8s_operator_libs_tpu_torch.crdutil`` on the repo's CRDs
+    with a kubeconfig at ``url``; its seconds, last line, and the discovery
+    polls and updates the stub served it. A non-zero exit fails the
+    phase."""
+    env = child_env(KUBECONFIG=write_kubeconfig(workdir, url), HOME=workdir)
     env.pop("KUBERNETES_SERVICE_HOST", None)
     polls = client.calls.get("discover", 0)
+    updates = client.calls.get("update", 0)
     start = time.perf_counter()
     proc = subprocess.run(
         [sys.executable, "-m", "k8s_operator_libs_tpu_torch.crdutil",
@@ -3320,7 +3449,8 @@ def crdutil_child(label: str, client, url: str, workdir: str, *args: str) -> dic
         raise AssertionError(f"crdutil {label}: rc {proc.returncode}: {proc.stderr[-2000:]}")
     last = proc.stdout.strip().splitlines()[-1]
     return {"seconds": seconds, "last_line": last,
-            "discovery_polls": client.calls.get("discover", 0) - polls}
+            "discovery_polls": client.calls.get("discover", 0) - polls,
+            "updates": client.calls.get("update", 0) - updates}
 
 
 def crd_state(client) -> dict:
@@ -3546,8 +3676,12 @@ def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict
             first, again = crd["after_apply"][name], crd["after_update"][name]
             if first is None or not all(first["discoverable"].values()):
                 raise AssertionError(f"informer_roll: {name} not discoverable after apply: {crd}")
-            if again is None or again["resource_version"] == first["resource_version"]:
-                raise AssertionError(f"informer_roll: the second apply did not update {name}")
+            if again is None or not all(again["discoverable"].values()):
+                raise AssertionError(f"informer_roll: {name} not discoverable after update: {crd}")
+        # The second apply updates each CRD in place; an update that changes
+        # nothing keeps its resourceVersion, as on the API server.
+        if crd["update"]["updates"] < len(CRDS):
+            raise AssertionError(f"informer_roll: the second apply did not update the CRDs: {crd}")
         for step in ("apply", "update"):
             if crd[step]["last_line"] != f"apply: processed {len(CRDS)} CRD(s)":
                 raise AssertionError(f"informer_roll: crdutil {step} printed {crd[step]}")
@@ -3741,6 +3875,363 @@ def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict
                                for k in ("started", "finished", "spans_by_name")}
     return result
 
+class ControllerReplica:
+    """One ``python -m k8s_operator_libs_tpu_torch.upgrade_controller`` child
+    over a kubeconfig, its merged stdout and stderr drained continuously
+    into ``lines`` (seconds on this process's clock, line)."""
+
+    def __init__(self, identity: str, kubeconfig: str, policy: str, workdir: str) -> None:
+        self.identity = identity
+        self.metrics_port = free_port()
+        self.trace = os.path.join(workdir, f"{identity}.trace.jsonl")
+        self.stats = os.path.join(workdir, f"{identity}.stats.json")
+        env = child_env(KUBECONFIG=kubeconfig, HOME=workdir)
+        env.pop("KUBERNETES_SERVICE_HOST", None)
+        self.started = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_operator_libs_tpu_torch.upgrade_controller",
+             "--watch", "--interval", str(CONTROLLER_INTERVAL_S), "--validation-pod",
+             "--policy", policy, "--leader-elect", "--leader-elect-id", identity,
+             "--metrics-port", str(self.metrics_port), "--trace-export", self.trace,
+             "--stats-json", self.stats],
+            cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            start_new_session=True,
+        )
+        self.lines: list[tuple[float, str]] = []
+        self.drainer = threading.Thread(target=self._drain, daemon=True)
+        self.drainer.start()
+
+    def _drain(self) -> None:
+        for line in self.proc.stdout:
+            self.lines.append((time.perf_counter(), line.rstrip("\n")))
+
+    def first(self, prefix: str) -> Optional[float]:
+        """When the first line starting with ``prefix`` was read."""
+        return next((t for t, line in list(self.lines) if line.startswith(prefix)), None)
+
+    def passes(self) -> list[float]:
+        """When each pass that completed printed its line."""
+        return [t for t, line in list(self.lines)
+                if re.match(r"pass \d+: ", line) and "reconcile failed" not in line]
+
+    def attempts(self) -> list[float]:
+        """When each pass printed its line, those that failed too."""
+        return [t for t, line in list(self.lines) if re.match(r"pass \d+: ", line)]
+
+    def wait_for(self, prefix: str, timeout: float) -> float:
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() < deadline:
+            at = self.first(prefix)
+            if at is not None:
+                return at
+            if self.proc.poll() is not None:
+                break
+            time.sleep(0.05)
+        raise AssertionError(f"controller_roll: {self.identity} printed no {prefix!r} "
+                             f"(rc {self.proc.poll()}): {self.tail()}")
+
+    def tail(self, n: int = 40) -> str:
+        return "\n".join(line for _, line in self.lines[-n:])
+
+    def wait_quiet(self, timeout: float) -> None:
+        """Until the replica has printed nothing for ``CONTROLLER_QUIET_S``."""
+        deadline = time.perf_counter() + timeout
+        while time.perf_counter() - max(t for t, _ in self.lines) < CONTROLLER_QUIET_S:
+            if time.perf_counter() > deadline:
+                raise AssertionError(f"controller_roll: {self.identity} did not go quiet "
+                                     f"within {timeout} s: {self.tail()}")
+            time.sleep(0.1)
+
+    def scrape(self) -> dict:
+        """``/metrics`` once over HTTP: the gauges by name."""
+        import urllib.request
+
+        url = f"http://127.0.0.1:{self.metrics_port}/metrics"
+        body = urllib.request.urlopen(url, timeout=10).read().decode()
+        prefix = "tpu_operator_upgrade_"
+        gauges = {}
+        for line in body.splitlines():
+            if line.startswith(prefix) and "{" in line and "bucket=" not in line:
+                name, value = line.rsplit(" ", 1)
+                gauges[name[len(prefix):].split("{", 1)[0]] = float(value)
+        return gauges
+
+    def terminate(self) -> tuple[int, float, float]:
+        """SIGTERM; the return code, when the signal was sent and when the
+        process ended."""
+        import signal
+
+        sent = time.perf_counter()
+        self.proc.send_signal(signal.SIGTERM)
+        rc = self.proc.wait(timeout=60)
+        ended = time.perf_counter()
+        self.drainer.join(timeout=10)
+        return rc, sent, ended
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait(timeout=30)
+
+
+def controller_pod_argv(workdir: str):
+    """The executor's ``argv_transform``: each probe pod's stdout and stderr
+    to ``<workdir>/<pod>.out`` and ``.err``."""
+
+    def transform(pod, argv: list) -> list:
+        out = os.path.join(workdir, pod.name)
+        return ["/bin/sh", "-c", 'exec "$@" >"$0.out" 2>"$0.err"', out, *argv]
+
+    return transform
+
+
+def read_pod_run(workdir: str, pod_name: str) -> dict:
+    """A probe pod's report and kernels line, from its output files."""
+    from k8s_operator_libs_tpu_torch.tpu.health import HealthReport
+
+    base = os.path.join(workdir, pod_name)
+    report = HealthReport.from_dict(_last_json(base + ".out"))
+    kernels = _last_json(base + ".err", "kernels")["kernels"]
+    if not (report.ok and report.mxu and report.mxu.ok and report.flash and report.flash.ok):
+        raise AssertionError(f"controller_roll: probe pod {pod_name}: {report.summary()}")
+    return {"elapsed_s": report.elapsed_s, "mxu_tflops": report.mxu.tflops,
+            "build_s": kernels["build_s"], "launches": kernels["launches"]}
+
+
+def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+    """Two GPU nodes rolled 550 -> 560 by the port's ``upgrade_controller``
+    command, run as two replicas (``ctl-a``, then ``ctl-b`` standing by)
+    over ``ApiStub``; the port's ``DaemonSetSimulator`` and
+    ``ValidationPodSimulator`` with a ``KubeletPayloadExecutor`` play the
+    kubelets here, each probe pod's payload on the card with a kernel
+    cache an earlier phase warmed. Then ``/metrics`` scraped once, ``ctl-a``
+    stopped by SIGTERM, ``ctl-b`` taking over, ``ctl-b`` stopped."""
+    from k8s_operator_libs_tpu_torch.kube.client import get_or_none
+    from k8s_operator_libs_tpu_torch.kube.objects import Node
+    from k8s_operator_libs_tpu_torch.kube.sim import (
+        DaemonSetSimulator,
+        KubeletPayloadExecutor,
+        ValidationPodSimulator,
+    )
+    from k8s_operator_libs_tpu_torch.ops._build import KERNEL_DIR_ENV
+    from k8s_operator_libs_tpu_torch.tools import trace_view
+    from k8s_operator_libs_tpu_torch.tpu.libtpu import LibtpuDaemonSetManager, LibtpuSpec
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import ValidationPodSpec
+    from k8s_operator_libs_tpu_torch.upgrade import DeviceClass, UpgradeKeys
+
+    start = time.perf_counter()
+    keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
+    client = DictClient()
+    pool_nodes(client, CONTROLLER_NODES)
+    installer = LibtpuDaemonSetManager(client, LibtpuSpec(version=ROLL_VERSIONS[0]))
+    lease_name, lease_ns = "upgrade-controller-nvidia", installer.spec.namespace
+    driver = DaemonSetSimulator(client, name=installer.name, namespace=installer.spec.namespace,
+                                match_labels=installer.match_labels,
+                                initial_hash=ROLL_VERSIONS[0])
+    driver.settle()
+    # The new driver's pods block on the safe-load key until the machine
+    # has drained their node.
+    driver.safe_load_annotation = keys.safe_driver_load_annotation
+    cache = os.path.join(cache_root, ROLL_NODES[0])
+    print(f"controller_roll: probe pods on the kernel cache of {ROLL_NODES[0]}", flush=True)
+    spec = ValidationPodSpec()
+    replicas: list = []
+    with ApiStub(client) as stub, tempfile.TemporaryDirectory(prefix="controller-") as workdir:
+        kubeconfig = write_kubeconfig(workdir, stub.url)
+        policy = os.path.join(workdir, "policy.json")
+        with open(policy, "w") as f:
+            json.dump(ROLL_POLICY, f)
+        executor = KubeletPayloadExecutor(
+            env=child_env(**{KERNEL_DIR_ENV: cache}), timeout_seconds=POD_READY_TIMEOUT_S,
+            argv_transform=controller_pod_argv(workdir),
+        )
+        pods = ValidationPodSimulator(client, namespace=spec.namespace,
+                                      label_selector=spec.pod_selector, executor=executor)
+        trajectories: dict[str, list] = {name: [] for name in CONTROLLER_NODES}
+        pod_seen: dict[str, float] = {}
+        pod_ready: dict[str, float] = {}
+        stop, failure = threading.Event(), []
+        ticks = [0]
+
+        def kubelet() -> None:
+            try:
+                while not stop.is_set():
+                    ticks[0] += 1
+                    driver.step()
+                    pods.step()
+                    now = time.perf_counter()
+                    for name in executor.tracked_pods():
+                        pod_seen.setdefault(name, now)
+                    for name, verdict in executor.history.items():
+                        if name not in pod_ready:
+                            pod_ready[name] = now
+                            if not verdict:
+                                raise AssertionError(f"probe pod {name} failed")
+                    stop.wait(KUBELET_TICK_S)
+            except Exception as e:  # noqa: BLE001 - raised in the phase's thread
+                failure.append(e)
+
+        ticker = threading.Thread(target=kubelet, daemon=True)
+        ticker.start()
+        try:
+            a = ControllerReplica(CONTROLLER_IDS[0], kubeconfig, policy, workdir)
+            replicas.append(a)
+            a.wait_for("leader election: leading", CONTROLLER_START_S)
+            b = ControllerReplica(CONTROLLER_IDS[1], kubeconfig, policy, workdir)
+            replicas.append(b)
+            a.wait_for("pass 1: ", CONTROLLER_START_S)
+            reset_counts()
+            bumped = last_change = time.perf_counter()
+            ticks_at_bump = ticks[0]
+            driver.set_template_hash(ROLL_VERSIONS[1])  # the update lands: watch events
+            while True:
+                if failure:
+                    raise failure[0]
+                if a.proc.poll() is not None:
+                    raise AssertionError(f"controller_roll: ctl-a exited {a.proc.returncode}: "
+                                         f"{a.tail()}")
+                nodes = {n: Node(client.get("Node", n).raw) for n in CONTROLLER_NODES}
+                states = {n: node.labels.get(keys.state_label, "") for n, node in nodes.items()}
+                now = time.perf_counter()
+                for name, state in states.items():
+                    if not trajectories[name] or trajectories[name][-1][0] != state:
+                        trajectories[name].append([state, round(now - bumped, 3)])
+                        last_change = now
+                if "upgrade-failed" in states.values():
+                    raise AssertionError(f"controller_roll: a node failed: {trajectories}")
+                if (set(states.values()) == {"upgrade-done"}
+                        and not any(n.unschedulable for n in nodes.values())
+                        and driver.all_pods_ready_and_current()
+                        and len(pod_ready) == len(CONTROLLER_NODES)):
+                    break
+                if time.perf_counter() - last_change > ROLL_STALL_S:
+                    raise AssertionError(f"controller_roll: no node changed state for "
+                                         f"{ROLL_STALL_S} s: {trajectories} {a.tail()}")
+                time.sleep(0.1)
+            wall_s = time.perf_counter() - bumped
+            roll_ticks = ticks[0] - ticks_at_bump
+            # The kubelet stops, so no event wakes a pass; once ctl-a prints
+            # nothing for a while, its count and its scrape must agree.
+            stop.set()
+            ticker.join(timeout=30)
+            a.wait_quiet(CONTROLLER_START_S)
+            a_passes = len(a.passes())
+            gauges = a.scrape()
+            b_before = len(b.attempts())
+            b.wait_for("leader election: campaigning", CONTROLLER_START_S)
+            rc_a, a_signalled, a_ended = a.terminate()
+            holder_after_a = lease_holder(client, lease_name, lease_ns)
+            a_stopped = a.first("shutdown requested; draining")
+            led_at = b.wait_for("leader election: leading", LEASE_DURATION_S + 30)
+            takeover_s = led_at - a_signalled
+            b.wait_for("pass 1: ", 60)
+            b.wait_quiet(CONTROLLER_START_S)
+            rc_b, _, _ = b.terminate()
+            holder_after_b = lease_holder(client, lease_name, lease_ns)
+            transitions = get_or_none(client, "Lease", lease_name, lease_ns).lease_transitions
+        finally:
+            stop.set()
+            ticker.join(timeout=30)
+            for replica in replicas:
+                replica.kill()
+            executor.close()
+        runs = {}
+        for name, seen_at in sorted(pod_seen.items()):
+            run = read_pod_run(workdir, name)
+            run["seconds_to_ready"] = pod_ready[name] - seen_at
+            check_launches(f"controller_roll probe pod {name}", run["launches"], gate_launches)
+            runs[name] = run
+        spans = {}
+        for replica in replicas:
+            by_name: dict = {}
+            for record in trace_view.load_spans(replica.trace):
+                by_name[record["name"]] = by_name.get(record["name"], 0) + 1
+            spans[replica.identity] = dict(sorted(by_name.items()))
+        stats = {}
+        for replica in replicas:
+            with open(replica.stats) as f:
+                stats[replica.identity] = json.load(f)
+        printed = {r.identity: len(r.passes()) for r in replicas}
+        attempted = {r.identity: len(r.attempts()) for r in replicas}
+        tails = {r.identity: r.tail(8) for r in replicas}
+    controller = counts()
+    result = {
+        "nodes": list(CONTROLLER_NODES),
+        "versions": list(ROLL_VERSIONS),
+        "policy": ROLL_POLICY,
+        "interval_s": CONTROLLER_INTERVAL_S,
+        "passes": printed,
+        "passes_failed": {r: attempted[r] - printed[r] for r in printed},
+        "wall_s": wall_s,
+        "kubelet_ticks": roll_ticks,
+        "trajectories": trajectories,
+        "probe_pods": runs,
+        "pod_launches": total_launches(runs.values()),
+        "reconcile_passes_total": gauges.get("reconcile_passes_total"),
+        "leader_passes_at_scrape": a_passes,
+        "standby_passes_while_leader_ran": b_before,
+        "seconds_to_campaign": {r.identity: r.first("leader election: campaigning") - r.started
+                                for r in replicas},
+        "takeover_s": takeover_s,
+        "ctl_a_exit_s": a_ended - a_signalled,
+        "return_codes": {"ctl-a": rc_a, "ctl-b": rc_b},
+        "lease_holder_after": {"ctl-a": holder_after_a, "ctl-b": holder_after_b},
+        "lease_transitions": transitions,
+        "spans_by_name": spans,
+        "stats_json": stats,
+        "controller_launches": {lib: controller[lib] for lib in ("matmul", "flash_attention")},
+        "phase_wall_s": time.perf_counter() - start,
+    }
+    print(json.dumps({"controller_roll": result, "card": card}), flush=True)
+    # ctl-a stops reconciling when it prints that it drains, and releases
+    # the Lease only after that: no pass of ctl-b may come before it.
+    b_first = min(replicas[1].attempts(), default=None)
+    if b_before or a_stopped is None or (b_first is not None and b_first < a_stopped):
+        raise AssertionError(f"controller_roll: the standby reconciled while ctl-a led: {tails}")
+    if rc_a != 0 or rc_b != 0:
+        raise AssertionError(f"controller_roll: return codes {rc_a}, {rc_b}: {tails}")
+    if holder_after_a == CONTROLLER_IDS[0] or holder_after_b:
+        raise AssertionError(f"controller_roll: the Lease was left held: {holder_after_a!r} "
+                             f"after ctl-a, {holder_after_b!r} after ctl-b")
+    if not takeover_s < LEASE_DURATION_S:
+        raise AssertionError(f"controller_roll: the takeover took {takeover_s} s")
+    if result["reconcile_passes_total"] != a_passes:
+        raise AssertionError(f"controller_roll: /metrics counted "
+                             f"{result['reconcile_passes_total']} passes, ctl-a printed {a_passes}")
+    if any(stats[r]["passes"] != attempted[r] for r in attempted):
+        raise AssertionError(f"controller_roll: stats {stats}, printed {attempted}")
+    # The kubelet's ticks write nothing that changes (a no-op write is no
+    # event): the interval never ran out, and node and pod events, not the
+    # world's key, woke most of ctl-a's passes.
+    woken = stats[CONTROLLER_IDS[0]]["woken_by"]
+    if woken["interval"] or woken["nodes"] <= woken["resync"]:
+        raise AssertionError(f"controller_roll: ctl-a's passes were not woken by node and "
+                             f"pod events: {woken}")
+    if not all(s.get("lease.round") for s in spans.values()):
+        raise AssertionError(f"controller_roll: no lease.round span: {spans}")
+    if sorted(run_node(name) for name in runs) != sorted(CONTROLLER_NODES):
+        raise AssertionError(f"controller_roll: probe pods ran for {sorted(runs)}")
+    if controller["matmul"] or controller["flash_attention"]:
+        raise AssertionError(f"controller_roll: the parent launched kernels: {controller}")
+    pods_left = sorted(p.name for p in client.list("Pod"))
+    if any(name.startswith("train-") for name in pods_left):
+        raise AssertionError(f"controller_roll: the drain left workload pods: {pods_left}")
+    return result
+
+
+def lease_holder(client, name: str, namespace: str) -> str:
+    from k8s_operator_libs_tpu_torch.kube.client import get_or_none
+
+    lease = get_or_none(client, "Lease", name, namespace)
+    return lease.holder_identity if lease is not None else ""
+
+
+def run_node(pod_name: str) -> str:
+    """The node of a probe pod, from its name (``ValidationPodManager``)."""
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import VALIDATION_APP
+
+    return pod_name[len(VALIDATION_APP) + 1:]
+
 
 def main() -> int:
     import torch
@@ -3791,6 +4282,7 @@ def main() -> int:
             watch.check_monitor(client)
             quarantine = quarantine_phase(card, launches, cache_root, monitor["reports"])
             informer = informer_roll_phase(card, launches, cache_root)
+            controller = controller_roll_phase(card, launches, cache_root)
     finally:
         watched = watch.stop()
     print(json.dumps({"watch": watched, "card": card}), flush=True)
@@ -3809,6 +4301,7 @@ def main() -> int:
         row["launches_monitor"] = monitor["pass_launches"][kernel]
         row["launches_quarantine_pod"] = quarantine["pod_launches"][kernel]
         row["launches_informer_roll"] = informer["pod_launches"][kernel]
+        row["launches_controller_roll"] = controller["pod_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         if kernel == "matmul":
             row["path_launches"] = launches["matmul_by_path"].get(row["path"], 0)

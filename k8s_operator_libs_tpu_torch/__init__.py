@@ -33,7 +33,14 @@ Layout:
 * ``crdutil`` — apply and delete CustomResourceDefinitions, waiting on
   API discovery; ``python -m k8s_operator_libs_tpu_torch.crdutil``.
 * ``kube`` — object views, API errors, the drain helper, Events, label
-  and field selectors, a minimal REST client and the informer.
+  and field selectors, a minimal REST client, the informer, the
+  rate-limited workqueue, the informer-fed controller, Lease-based leader
+  election, and the simulators of the state machine's other parties.
+* ``runtime`` — the supervised process: components started producers
+  first, drained consumers first within budgets, signals as an event.
+* ``testing`` — recording mocks of the state machine's managers.
+* ``upgrade_controller`` — the reconcile-loop command over the state
+  machine: ``python -m k8s_operator_libs_tpu_torch.upgrade_controller``.
 * ``utils``  — logging, device resolution, int-or-percent values, per-node
   locks, the wall clock of the durable deadlines and the fault points.
 * ``tools``  — ``kernel_ab``: this checkout's kernels timed beside another

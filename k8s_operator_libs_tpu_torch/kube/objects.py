@@ -2,8 +2,9 @@
 
 A subset of the JAX package's ``kube/objects.py``: ``deep_copy_json``
 (the informer's copy of a document), ``Node``, ``Pod``,
-``DaemonSet``, ``ControllerRevision``, ``Service``, ``Event`` and the
-external maintenance operator's ``NodeMaintenance`` with the accessors
+``DaemonSet``, ``ControllerRevision``, ``Service``, ``Event``, the leader
+election's ``Lease`` and the external maintenance operator's
+``NodeMaintenance`` with the accessors
 the GPU device class, the monitor, the slice gang and the upgrade state
 machine read, and the condition helpers the monitor writes with. Reads
 do not insert: a view of a document another component holds (a snapshot
@@ -383,6 +384,33 @@ class NodeMaintenance(KubeObject):
         return ""
 
 
+class Lease(KubeObject):
+    """coordination.k8s.io/v1 Lease: the lock object of leader election
+    (``kube/leader.py``). The reads insert nothing."""
+
+    KIND = "Lease"
+    API_VERSION = "coordination.k8s.io/v1"
+
+    def _spec_value(self, key: str) -> Any:
+        return (self.raw.get("spec") or {}).get(key)
+
+    @property
+    def holder_identity(self) -> str:
+        return self._spec_value("holderIdentity") or ""
+
+    @property
+    def lease_duration_seconds(self) -> int:
+        return int(self._spec_value("leaseDurationSeconds") or 0)
+
+    @property
+    def renew_time(self) -> str:
+        return self._spec_value("renewTime") or ""
+
+    @property
+    def lease_transitions(self) -> int:
+        return int(self._spec_value("leaseTransitions") or 0)
+
+
 class CustomResourceDefinition(KubeObject):
     """A CRD: its group, plural, the versions it serves and whether the
     API server has established it. The reads insert nothing."""
@@ -413,7 +441,7 @@ class CustomResourceDefinition(KubeObject):
 KINDS: dict[str, type] = {
     cls.KIND: cls
     for cls in (Node, Pod, DaemonSet, ControllerRevision, Service, Event, NodeMaintenance,
-                CustomResourceDefinition)
+                Lease, CustomResourceDefinition)
 }
 
 

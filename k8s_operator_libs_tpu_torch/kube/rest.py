@@ -17,7 +17,7 @@ and cancelled through a :class:`WatchHandle`), ``create``, ``update``,
 on one connection waits for ROADMAP A18; until then the write batcher
 sends one ``patch`` a slot), ``delete`` and ``evict`` (the pod's eviction subresource), on Node,
 Pod, Service, Event, DaemonSet, ControllerRevision, NodeHealthReport,
-NodeMaintenance, WorkloadCheckpoint and CustomResourceDefinition; and
+NodeMaintenance, Lease, WorkloadCheckpoint and CustomResourceDefinition; and
 ``discover``, the API's discovery document of one group/version. Objects come back as the views of
 ``kube/objects.py``. An API error is raised with the API's
 ``Status.reason``, as the classes of ``kube/client.py`` where it is one of
@@ -80,6 +80,7 @@ RESOURCES: dict[str, tuple[str, str, bool]] = {
     "ControllerRevision": ("apps/v1", "controllerrevisions", True),
     "NodeHealthReport": (NODE_HEALTH_REPORT_API_VERSION, "nodehealthreports", False),
     "NodeMaintenance": ("maintenance.nvidia.com/v1alpha1", "nodemaintenances", True),
+    "Lease": ("coordination.k8s.io/v1", "leases", True),
     WORKLOAD_CHECKPOINT_KIND: (WORKLOAD_CHECKPOINT_API_VERSION, WORKLOAD_CHECKPOINT_PLURAL, True),
     "CustomResourceDefinition": (
         "apiextensions.k8s.io/v1", "customresourcedefinitions", False,

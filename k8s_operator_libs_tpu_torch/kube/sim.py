@@ -1,8 +1,15 @@
 """Stand-ins for the other parties of the state machine's protocols.
 
-Two classes of the JAX package's ``kube/sim.py``, over any client of this
-package (``kube/client.py``):
+The JAX package's ``kube/sim.py``, over any client of this package
+(``kube/client.py``):
 
+* ``DaemonSetSimulator`` plays the DaemonSet controller and the kubelets
+  for the driver DaemonSet, the safe-load gate of its init container
+  included;
+* ``ValidationPodSimulator`` plays the kubelet for the probe pods of
+  ``tpu/validation_pod.py``, and with a ``KubeletPayloadExecutor`` runs
+  each pod's own command as a child process and turns the pod Ready from
+  its ready file, as the pod's readiness probe does;
 * ``CheckpointingWorkloadSimulator`` plays the training jobs of the
   checkpoint arc (``upgrade/checkpoint_manager.py``): it counts their
   steps, checkpoints and acks when asked, and counts the steps an
@@ -15,8 +22,14 @@ package (``kube/client.py``):
 
 from __future__ import annotations
 
+import os
+import signal
+import subprocess
+import sys
+import tempfile
+import time
 from dataclasses import dataclass
-from typing import Optional
+from typing import Callable, Optional
 
 from ..api.upgrade_v1alpha1 import (
     WORKLOAD_CHECKPOINT_KIND,
@@ -26,7 +39,409 @@ from ..api.upgrade_v1alpha1 import (
 )
 from .client import AlreadyExistsError, Client, NotFoundError, get_or_none, has_reason
 from .drain import DrainConfig, DrainHelper
-from .objects import KubeObject, NodeMaintenance, Pod
+from .objects import ControllerRevision, DaemonSet, KubeObject, NodeMaintenance, Pod
+
+
+class DaemonSetSimulator:
+    """The DaemonSet controller and the kubelets for a driver DaemonSet.
+
+    * ``set_template_hash`` is a driver image update: a new
+      ControllerRevision, and the existing pods become stale;
+    * ``step`` is one tick of the controller and the kubelets: every node
+      gets a pod at the newest revision if it has none, and a new pod turns
+      Ready after ``readiness_steps`` ticks (0: at once);
+    * ``safe_load_annotation`` arms the safe-load handshake: every new
+      pod's init container first SETS that annotation on its node and
+      blocks, the pod NotReady, until the state machine's
+      ``unblock_loading`` removes it; then the driver loads (at least one
+      tick) and the pod turns Ready.
+    """
+
+    def __init__(
+        self,
+        client: Client,
+        name: str = "driver",
+        namespace: str = "driver-ns",
+        match_labels: Optional[dict[str, str]] = None,
+        readiness_steps: int = 0,
+        initial_hash: str = "rev-1",
+        safe_load_annotation: str = "",
+    ) -> None:
+        self.client = client
+        self.namespace = namespace
+        self.readiness_steps = readiness_steps
+        self.safe_load_annotation = safe_load_annotation
+        #: pod name -> node name, the pods whose init container blocks.
+        self._safe_blocked: dict[str, str] = {}
+        self._pending_ready: dict[str, int] = {}
+        self._revision = 0
+        ds = DaemonSet.new(name, namespace=namespace)
+        ds.match_labels = dict(match_labels or {"app": name})
+        ds.labels.update(ds.match_labels)
+        self.ds = DaemonSet(client.create(ds).raw)
+        self.current_hash = ""
+        self.set_template_hash(initial_hash)
+
+    # -- the rollout ---------------------------------------------------------
+    def set_template_hash(self, hash_value: str) -> None:
+        """Publish a new driver template revision (an image update)."""
+        self._revision += 1
+        cr = ControllerRevision.new(f"{self.ds.name}-{hash_value}", namespace=self.namespace)
+        cr.revision = self._revision
+        cr.labels.update(self.ds.match_labels)
+        cr.labels["controller-revision-hash"] = hash_value
+        cr.add_owner_reference(self.ds)
+        self.client.create(cr)
+        self.current_hash = hash_value
+
+    # -- a tick of the controller and the kubelets ---------------------------
+    def pod_name(self, node_name: str) -> str:
+        return f"{self.ds.name}-{node_name}"
+
+    def _node_names(self) -> list[str]:
+        return [o.name for o in self.client.list("Node")]
+
+    def step(self) -> None:
+        nodes = self._node_names()
+        for node_name in nodes:
+            self._ensure_pod(node_name)
+        # Readiness before the safe-load gate: a pod unblocked below takes
+        # its load tick for real (its counter first counts down on the
+        # NEXT tick), so an observer sees the driver-loading window.
+        self._advance_readiness()
+        self._advance_safe_load()
+        self.client.patch(
+            "DaemonSet", self.ds.name, self.namespace,
+            patch={"status": {"desiredNumberScheduled": len(nodes)}},
+        )
+
+    def settle(self, max_steps: int = 10) -> None:
+        """Tick until every node has a Ready pod at the newest revision."""
+        for _ in range(max_steps):
+            self.step()
+            if self.all_pods_ready_and_current():
+                return
+
+    def _ensure_pod(self, node_name: str) -> None:
+        name = self.pod_name(node_name)
+        if get_or_none(self.client, "Pod", name, self.namespace) is not None:
+            return
+        pod = Pod.new(name, namespace=self.namespace)
+        pod.node_name = node_name
+        pod.labels.update(self.ds.match_labels)
+        pod.labels["controller-revision-hash"] = self.current_hash
+        pod.add_owner_reference(self.ds)
+        if self.safe_load_annotation:
+            # The init container's first step: annotate the node and block;
+            # the pod stays Pending and NotReady until unblocked.
+            self.client.patch(
+                "Node", node_name,
+                patch={"metadata": {"annotations": {self.safe_load_annotation: "true"}}},
+            )
+            pod.status["phase"] = "Pending"
+            pod.status["conditions"] = [{"type": "Ready", "status": "False"}]
+            pod.status["initContainerStatuses"] = [
+                {"name": "safe-load-gate", "ready": False, "restartCount": 0}
+            ]
+            pod.status["containerStatuses"] = [
+                {"name": "driver", "ready": False, "restartCount": 0}
+            ]
+            self._safe_blocked[name] = node_name
+        elif self.readiness_steps == 0:
+            self._make_ready(pod)
+        else:
+            pod.status["phase"] = "Pending"
+            self._pending_ready[name] = self.readiness_steps
+        self.client.create(pod)
+
+    @staticmethod
+    def _make_ready(pod: Pod) -> None:
+        pod.status["phase"] = "Running"
+        pod.status["conditions"] = [{"type": "Ready", "status": "True"}]
+        pod.status["containerStatuses"] = [{"name": "driver", "ready": True, "restartCount": 0}]
+
+    def _patch_pod(self, name: str, status: dict) -> bool:
+        """Patch a pod's status; False where the pod is gone."""
+        try:
+            self.client.patch("Pod", name, self.namespace, patch={"status": status})
+        except Exception as e:  # noqa: BLE001 - the client's own classes
+            if has_reason(e, NotFoundError):
+                return False
+            raise
+        return True
+
+    def _advance_safe_load(self) -> None:
+        """The handshake's second step: a blocked init container polls its
+        node's annotation; once the state machine removed it, the init
+        container completes and the driver loads over the next tick(s)."""
+        for pod_name in list(self._safe_blocked):
+            node = get_or_none(self.client, "Node", self._safe_blocked[pod_name])
+            if node is None:
+                del self._safe_blocked[pod_name]
+                continue
+            annotations = (node.raw.get("metadata") or {}).get("annotations") or {}
+            if self.safe_load_annotation in annotations:
+                continue  # still blocked
+            del self._safe_blocked[pod_name]
+            if not self._patch_pod(pod_name, {"initContainerStatuses": [
+                {"name": "safe-load-gate", "ready": True, "restartCount": 0}
+            ]}):
+                continue
+            # The driver's load takes at least one tick.
+            self._pending_ready[pod_name] = max(1, self.readiness_steps)
+
+    def _advance_readiness(self) -> None:
+        for name in list(self._pending_ready):
+            self._pending_ready[name] -= 1
+            if self._pending_ready[name] > 0:
+                continue
+            del self._pending_ready[name]
+            self._patch_pod(name, {
+                "phase": "Running",
+                "conditions": [{"type": "Ready", "status": "True"}],
+                "containerStatuses": [{"name": "driver", "ready": True, "restartCount": 0}],
+            })
+
+    # -- for the caller's checks ---------------------------------------------
+    def all_pods_ready_and_current(self) -> bool:
+        for node_name in self._node_names():
+            obj = get_or_none(self.client, "Pod", self.pod_name(node_name), self.namespace)
+            if obj is None:
+                return False
+            pod = Pod(obj.raw)
+            if pod.labels.get("controller-revision-hash") != self.current_hash:
+                return False
+            if not pod.is_ready():
+                return False
+        return True
+
+
+@dataclass
+class _PodExec:
+    """The kubelet's state for one probe pod's container."""
+
+    proc: subprocess.Popen
+    ready_file: str
+    started_at: float
+    verdict: Optional[bool] = None
+
+
+class KubeletPayloadExecutor:
+    """The kubelet's container and readiness probe, for real.
+
+    Runs a probe pod's container command as a child process (the
+    ``python -m k8s_operator_libs_tpu_torch.tpu.health --ready-file ...
+    --park`` argv the pod carries, ``tpu/validation_pod.py``) and reads its
+    readiness as the pod's exec readiness probe does: the ready file
+    existing. Plugged into :class:`ValidationPodSimulator`, the payload
+    writing its ready file is what turns the pod Ready, so the chain
+    payload, ready file, readiness probe, pod Ready, validation pass,
+    uncordon has no scripted verdict in it.
+
+    Each pod's ready file is moved to a private temporary directory (pods
+    share no filesystem). ``env`` is the children's environment (the
+    container's own ``env`` is not applied); ``extra_args`` appends
+    payload flags (``--device cpu`` in the tests); ``argv_transform``
+    rewrites a pod's argv before the spawn (to keep its output, say).
+    ``python`` in the argv is this interpreter.
+
+    Unlike a real kubelet, processes are keyed by pod NAME: a same-named
+    pod made between two ticks inherits the earlier verdict. ``release``
+    (the garbage collection of a pod seen deleted at a tick) covers the
+    rest.
+    """
+
+    def __init__(
+        self,
+        env: Optional[dict] = None,
+        extra_args: Optional[list[str]] = None,
+        timeout_seconds: float = 600.0,
+        argv_transform: Optional[Callable[[Pod, list[str]], list[str]]] = None,
+    ) -> None:
+        self.env = env
+        self.extra_args = list(extra_args or [])
+        self.timeout_seconds = timeout_seconds
+        self.argv_transform = argv_transform
+        #: One record a tracked pod, popped whole on release, so no stale
+        #: verdict or ready file outlives its pod.
+        self._pods: dict[str, _PodExec] = {}
+        self._tmpdir = tempfile.TemporaryDirectory(prefix="kubelet-exec-")
+        #: Every verdict recorded, kept after release: the audit trail.
+        self.history: dict[str, bool] = {}
+
+    def _start(self, pod: Pod) -> _PodExec:
+        (container,) = pod.spec["containers"]
+        argv = list(container["command"]) + self.extra_args
+        argv[0] = sys.executable  # "python" in the image is this interpreter
+        if self.argv_transform is not None:
+            argv = self.argv_transform(pod, argv)
+        ready_file = os.path.join(self._tmpdir.name, f"{pod.name}.ready")
+        if os.path.exists(ready_file):  # never trust a stale pass
+            os.unlink(ready_file)
+        if "--ready-file" in argv:
+            argv[argv.index("--ready-file") + 1] = ready_file
+        else:
+            argv += ["--ready-file", ready_file]
+        proc = subprocess.Popen(
+            argv, env=self.env, stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL,
+            start_new_session=True,
+        )
+        return _PodExec(proc=proc, ready_file=ready_file, started_at=time.monotonic())
+
+    def poll(self, pod: Pod) -> Optional[bool]:
+        """One kubelet tick of the pod's container: True once the readiness
+        probe passes (the payload wrote its ready file), False when the
+        container failed (a non-zero exit, or the deadline), None while the
+        battery runs."""
+        name = pod.name
+        rec = self._pods.get(name)
+        if rec is None:
+            self._pods[name] = self._start(pod)
+            return None
+        if rec.verdict is not None:
+            return rec.verdict
+        if os.path.exists(rec.ready_file):
+            # --park keeps the process, and the Ready condition, alive: the
+            # verdict is the probe's, not the exit code's.
+            return self._record(name, True)
+        rc = rec.proc.poll()
+        if rc is not None:
+            return self._record(name, rc == 0 and os.path.exists(rec.ready_file))
+        if time.monotonic() - rec.started_at > self.timeout_seconds:
+            self._kill(rec)
+            return self._record(name, False)
+        return None
+
+    def _record(self, name: str, verdict: bool) -> bool:
+        self._pods[name].verdict = verdict
+        self.history[name] = verdict
+        return verdict
+
+    def ready_file_content(self, pod_name: str) -> Optional[str]:
+        rec = self._pods.get(pod_name)
+        if rec is None or not os.path.exists(rec.ready_file):
+            return None
+        with open(rec.ready_file) as fh:
+            return fh.read()
+
+    @staticmethod
+    def _kill(rec: _PodExec) -> None:
+        if rec.proc.poll() is not None:
+            return
+        try:
+            os.killpg(rec.proc.pid, signal.SIGKILL)
+        except (ProcessLookupError, PermissionError):
+            rec.proc.kill()
+        try:
+            rec.proc.wait(timeout=10)
+        except subprocess.TimeoutExpired:  # pragma: no cover - kernel lag
+            pass
+
+    def tracked_pods(self) -> set[str]:
+        """Pods with a live payload process or a recorded verdict."""
+        return set(self._pods)
+
+    def release(self, pod_name: str) -> None:
+        """The pod was deleted: kill its (possibly parked) payload and drop
+        every trace, so a later same-named pod earns a fresh verdict."""
+        rec = self._pods.pop(pod_name, None)
+        if rec is None:
+            return
+        self._kill(rec)
+        if os.path.exists(rec.ready_file):
+            os.unlink(rec.ready_file)
+
+    def close(self) -> None:
+        for name in list(self._pods):
+            self.release(name)
+        self._tmpdir.cleanup()
+
+    def __enter__(self) -> "KubeletPayloadExecutor":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.close()
+
+
+class ValidationPodSimulator:
+    """The kubelet for the probe pods that ``ValidationPodManager.ensure``
+    pins to nodes (``tpu/validation_pod.py``). Each ``step`` advances the
+    pods not yet Ready nor finished: after ``readiness_steps`` ticks a pod
+    turns Ready when ``decide(pod)`` says its node is healthy, or Failed
+    (the payload exited non-zero; the pods do not restart) when it does
+    not. ``decide`` defaults to healthy. With ``executor`` (a
+    :class:`KubeletPayloadExecutor`) the pod's own command runs instead and
+    the verdict is its readiness probe's; a pod seen deleted has its
+    payload killed.
+    """
+
+    def __init__(
+        self,
+        client: Client,
+        namespace: str = "kube-system",
+        label_selector: Optional[str] = None,
+        readiness_steps: int = 1,
+        decide: Optional[Callable[[Pod], bool]] = None,
+        executor: Optional[KubeletPayloadExecutor] = None,
+    ) -> None:
+        if label_selector is None:
+            # The manager's probe-pod selector; imported here, as tpu/
+            # imports kube/.
+            from ..tpu.validation_pod import VALIDATION_APP, VALIDATION_APP_LABEL
+
+            label_selector = f"{VALIDATION_APP_LABEL}={VALIDATION_APP}"
+        self.client = client
+        self.namespace = namespace
+        self.label_selector = label_selector
+        self.readiness_steps = readiness_steps
+        self.decide = decide or (lambda pod: True)
+        self.executor = executor
+        self._pending: dict[str, int] = {}
+
+    def step(self) -> None:
+        pods = [
+            Pod(o.raw)
+            for o in self.client.list(
+                "Pod", namespace=self.namespace, label_selector=self.label_selector
+            )
+        ]
+        seen = set()
+        for pod in pods:
+            if pod.is_finished() or pod.is_ready():
+                continue
+            seen.add(pod.name)
+            if self.executor is not None:
+                verdict = self.executor.poll(pod)
+                if verdict is None:
+                    continue  # the battery still runs
+                healthy = verdict
+            else:
+                remaining = self._pending.get(pod.name, self.readiness_steps) - 1
+                if remaining > 0:
+                    self._pending[pod.name] = remaining
+                    continue
+                self._pending.pop(pod.name, None)
+                healthy = self.decide(pod)
+            status = {
+                "phase": "Running" if healthy else "Failed",
+                "conditions": [{"type": "Ready", "status": "True" if healthy else "False"}],
+                "containerStatuses": [{"name": "probe", "ready": healthy, "restartCount": 0}],
+            }
+            try:
+                self.client.patch("Pod", pod.name, self.namespace, patch={"status": status})
+            except Exception as e:  # noqa: BLE001 - the client's own classes
+                if not has_reason(e, NotFoundError):
+                    raise
+        # Drop the counters of pods that are gone.
+        for name in list(self._pending):
+            if name not in seen:
+                del self._pending[name]
+        if self.executor is not None:
+            # The kubelet's garbage collection: a deleted pod's payload,
+            # parked or still probing, is killed and its devices freed.
+            live = {pod.name for pod in pods}
+            for name in self.executor.tracked_pods() - live:
+                self.executor.release(name)
 
 
 @dataclass

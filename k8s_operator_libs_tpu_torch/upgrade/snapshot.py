@@ -74,14 +74,16 @@ class SnapshotSource(Protocol):
 
 
 class ClientSnapshotSource:
-    """Three LISTs a snapshot, through the writing client. (The JAX
-    source's ``node_reader``, the provider's cached reader, waits for the
-    slice that ports that reader.)"""
+    """Three LISTs a snapshot: pods, DaemonSets and ControllerRevisions
+    through the writing client, nodes through ``node_reader``, the
+    (possibly cached) reader the provider reads nodes with (the writing
+    client without one)."""
 
     cached = False
 
-    def __init__(self, client: Client) -> None:
+    def __init__(self, client: Client, node_reader: Optional[Client] = None) -> None:
         self._client = client
+        self._node_reader = node_reader if node_reader is not None else client
         self._reads_lock = threading.Lock()
         self._reads = 0
 
@@ -112,7 +114,7 @@ class ClientSnapshotSource:
 
     def nodes(self) -> dict[str, Node]:
         self._count()
-        return {o.name: Node(o.raw) for o in self._client.list("Node")}
+        return {o.name: Node(o.raw) for o in self._node_reader.list("Node")}
 
     def controller_revisions(
         self, namespace: str, labels: Mapping[str, str]

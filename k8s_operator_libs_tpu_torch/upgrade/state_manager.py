@@ -28,7 +28,9 @@ on a roll or an arc the other began. An error aborts the pass; the next
 pass resumes from the node labels.
 
 ``build_state`` reads through a ``SnapshotSource`` (``snapshot.py``): three
-LISTs a pass by default, or with ``with_snapshot_from_informers`` the
+LISTs a pass by default (the nodes through ``reader``, a cached reader the
+provider also reads nodes and checks its writes with, where one is given),
+or with ``with_snapshot_from_informers`` the
 stores of informers, whose ``incremental`` form keeps the classified state
 and reclassifies only the nodes a delta touched (a settled pool's pass
 reads and writes nothing; every ``verify_every_n``-th pass audits the kept
@@ -204,6 +206,7 @@ class ClusterUpgradeStateManager:
         self,
         client: Client,
         device: DeviceClass,
+        reader: Optional[Client] = None,
         recorder=None,
         options: Optional[StateOptions] = None,
         runner: Optional[TaskRunner] = None,
@@ -213,7 +216,7 @@ class ClusterUpgradeStateManager:
         self.options = options or StateOptions()
         self.keys = UpgradeKeys(device)
         runner = runner or TaskRunner()
-        provider = NodeUpgradeStateProvider(client, self.keys, recorder=recorder)
+        provider = NodeUpgradeStateProvider(client, self.keys, reader=reader, recorder=recorder)
         self.provider = provider
         width = self.options.apply_width
         self.common = CommonUpgradeManager(
@@ -240,7 +243,9 @@ class ClusterUpgradeStateManager:
         if self.options.batch_writes:
             self.enable_write_batching(self.options.write_batch_max)
         self.snapshot_source: SnapshotSource = (
-            snapshot_source if snapshot_source is not None else ClientSnapshotSource(client)
+            snapshot_source
+            if snapshot_source is not None
+            else ClientSnapshotSource(client, node_reader=reader)
         )
         self.last_pass_stats = PassStats()
         self.inplace: ProcessNodeStateManager = InplaceNodeStateManager(self.common)

@@ -1,15 +1,20 @@
 """NodeUpgradeStateProvider: the one writer of a node's upgrade state.
 
-The JAX package's ``upgrade/state_provider.py`` without its cached reader
-(ROADMAP A17). All upgrade state lives on the node (a state label
-and a few annotations), which keeps the controller stateless and a pass
-resumable after any crash. Every write goes through here, so that:
+The JAX package's ``upgrade/state_provider.py``. All upgrade state lives
+on the node (a state label and a few annotations), which keeps the
+controller stateless and a pass resumable after any crash. Every write
+goes through here, so that:
 
 1. the writes of one node are serialized by a mutex per node, whichever
    manager's task makes them;
-2. a write is checked before the caller goes on: the PATCH response (or,
-   from a client that returns none, the node read back) must hold the
-   values written;
+2. a write is checked before the caller goes on. Where the reader is the
+   writing client, or a write-through feeds the reader's store, the PATCH
+   response must hold the values written. A separate (cached) ``reader``
+   is read back instead: through its ``wait_until(predicate, timeout)``
+   where it has one, until the node it holds shows the write or
+   ``CACHE_SYNC_TIMEOUT_SECONDS`` pass (then :class:`StateWriteError`), else by
+   one read. Nodes are read through the reader too, and only their
+   ``.raw``;
 3. a key that already holds its target value is not written (the provider
    is its only writer, so the node in hand is authoritative), and a node's
    label and annotation changes of one step go in one PATCH.
@@ -36,7 +41,7 @@ from __future__ import annotations
 import threading
 from typing import Callable, Mapping, Optional, Protocol, Union
 
-from ..kube.client import Client
+from ..kube.client import Client, get_or_none
 from ..kube.objects import KubeObject, Node
 from ..utils import tracing
 from ..utils.log import get_logger
@@ -46,13 +51,17 @@ from .write_batch import WriteBatcher
 
 log = get_logger("upgrade.state_provider")
 
+#: Seconds a cached reader may take to show the provider's own write.
+CACHE_SYNC_TIMEOUT_SECONDS = 10.0
+
 
 class _Recorder(Protocol):
     def eventf(self, obj, event_type, reason, fmt, *args) -> None: ...
 
 
 class StateWriteError(Exception):
-    """A state write whose result disagrees with what was written."""
+    """A state write whose result disagrees with what was written, or
+    that the cached reader did not show within its timeout."""
 
 
 class NodeUpgradeStateProvider:
@@ -60,9 +69,11 @@ class NodeUpgradeStateProvider:
         self,
         client: Client,
         keys: UpgradeKeys,
+        reader: Optional[Client] = None,
         recorder: Optional[_Recorder] = None,
     ) -> None:
         self._client = client
+        self._reader = reader if reader is not None else client
         self._keys = keys
         self._recorder = recorder
         self._mutex = KeyedMutex()
@@ -110,9 +121,10 @@ class NodeUpgradeStateProvider:
 
     # -- reads -------------------------------------------------------------
     def get_node(self, name: str) -> Node:
-        """The node, read under its mutex like every write."""
+        """The node, read through the reader under its mutex like every
+        write."""
         with self._mutex.locked(name):
-            return Node(self._client.get("Node", name).raw)
+            return Node(self._reader.get("Node", name).raw)
 
     def get_upgrade_state(self, node: Node) -> UpgradeState:
         raw = (node.metadata.get("labels") or {}).get(self._keys.state_label, "")
@@ -245,17 +257,16 @@ class NodeUpgradeStateProvider:
         )
         if self._write_through is not None and patched is not None:
             self._write_through(patched)
-        if patched is None:
-            patched = self._client.get("Node", node.name)
-        written = patched.raw.get("metadata") or {}
-        labs = written.get("labels") or {}
-        anns = written.get("annotations") or {}
-        if any(labs.get(k) != v for k, v in lab_changes.items()) or any(
-            anns.get(k) != v for k, v in ann_changes.items()
-        ):
-            raise StateWriteError(
-                f"write of {what} on node {node.name} did not produce the expected value"
+
+        def check(obj) -> bool:
+            written = obj.raw.get("metadata") or {}
+            labs = written.get("labels") or {}
+            anns = written.get("annotations") or {}
+            return all(labs.get(k) == v for k, v in lab_changes.items()) and all(
+                anns.get(k) == v for k, v in ann_changes.items()
             )
+
+        self._await_visible(node.name, check, what, patched)
         self._apply_in_memory(node, lab_changes, ann_changes)
         state_label = self._keys.state_label
         if state_label in lab_changes:
@@ -268,6 +279,37 @@ class NodeUpgradeStateProvider:
                     to=lab_changes[state_label] or "",
                     cause=cause.name,
                 )
+
+    def _await_visible(self, node_name: str, check, what: str, patched) -> None:
+        """Raise :class:`StateWriteError` unless the write shows (see the
+        module doc): in the PATCH response where the reader cannot lag
+        behind it, else in the reader."""
+        if patched is not None and (
+            self._reader is self._client or self._write_through is not None
+        ):
+            if not check(patched):
+                raise StateWriteError(
+                    f"write of {what} on node {node_name} did not produce the expected value"
+                )
+            return
+        wait_until = getattr(self._reader, "wait_until", None)
+        if callable(wait_until):
+
+            def shown(reader) -> bool:
+                # A node the cache does not hold yet is lag, not an error.
+                obj = get_or_none(reader, "Node", node_name)
+                return obj is not None and check(obj)
+
+            ok = wait_until(shown, timeout=CACHE_SYNC_TIMEOUT_SECONDS)
+        else:
+            # A plain reader's failed read is a real API error: it aborts
+            # the pass as any other does.
+            ok = check(self._reader.get("Node", node_name))
+        if not ok:
+            raise StateWriteError(
+                f"write of {what} on node {node_name} not visible in the reader "
+                f"after {CACHE_SYNC_TIMEOUT_SECONDS}s"
+            )
 
     @staticmethod
     def _apply_in_memory(

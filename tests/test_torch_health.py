@@ -435,6 +435,37 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     assert not bad, f"{path} imports {bad}"
 
 
+@pytest.mark.parametrize("module", [
+    "k8s_operator_libs_tpu_torch.runtime",
+    "k8s_operator_libs_tpu_torch.runtime.component",
+    "k8s_operator_libs_tpu_torch.runtime.supervisor",
+    "k8s_operator_libs_tpu_torch.testing",
+    "k8s_operator_libs_tpu_torch.testing.mocks",
+    "k8s_operator_libs_tpu_torch.upgrade_controller",
+    "k8s_operator_libs_tpu_torch.kube.leader",
+    "k8s_operator_libs_tpu_torch.kube.controller",
+    "k8s_operator_libs_tpu_torch.kube.workqueue",
+])
+def test_controller_runtime_imports_with_jax_and_torch_blocked(module):
+    """The controller runtime, the test doubles and the command are
+    control-plane code: they import neither JAX, nor the JAX package, nor
+    torch."""
+    code = (
+        "import importlib, sys\n"
+        "for name in ('jax', 'k8s_operator_libs_tpu', 'tools', 'torch'):\n"
+        "    sys.modules[name] = None\n"
+        f"m = importlib.import_module({module!r})\n"
+        "[getattr(m, name) for name in getattr(m, '__all__', [])]\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    out = subprocess.run([sys.executable, "-c", code], cwd=str(REPO), env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr[-2000:]
+    assert out.stdout.strip() == "ok"
+
+
 def test_port_imports_with_jax_blocked():
     code = (
         "import sys\n"
@@ -454,6 +485,11 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.kube.selectors\n"
         "import k8s_operator_libs_tpu_torch.kube.jsonpath\n"
         "import k8s_operator_libs_tpu_torch.utils.lifecycle\n"
+        "import k8s_operator_libs_tpu_torch.runtime as rt\n"
+        "[getattr(rt, name) for name in rt.__all__]\n"
+        "import k8s_operator_libs_tpu_torch.testing as tt\n"
+        "[getattr(tt, name) for name in tt.__all__]\n"
+        "import k8s_operator_libs_tpu_torch.upgrade_controller\n"
         "import k8s_operator_libs_tpu_torch.kube as k\n"
         "[getattr(k, name) for name in k.__all__]\n"
         "import k8s_operator_libs_tpu_torch.upgrade.metrics\n"

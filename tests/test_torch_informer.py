@@ -1,17 +1,17 @@
 """The port's informer against the JAX package's, case by case.
 
-Every case of ``tests/test_informer.py`` but one runs here with a JAX
+Every case of ``tests/test_informer.py`` runs here with a JAX
 ``Informer`` and a port ``Informer`` side by side on the same writes: over
 one ``LocalApiServer`` (the JAX informer through the JAX ``RestClient``,
 the port's through the port's ``RestClient``) or over one ``FakeCluster``
 where the JAX case runs in process. After each step the two must agree
 exactly: the handlers' ``(type, name, resourceVersion, old
 resourceVersion)`` sequences, the stores (raw documents), ``full_relists``
-and ``delta_relists``, and ``by_index`` results.
-
-Left out: ``TestWatchDrivenController::test_roll_progresses_on_watch_triggers_alone``,
-which drives ``examples/upgrade_controller.py``, the controller runtime
-(ROADMAP A17) that the port does not have yet.
+and ``delta_relists``, and ``by_index`` results. The one case that drives
+a controller command,
+``TestWatchDrivenController::test_roll_progresses_on_watch_triggers_alone``,
+has its counterpart in ``tests/test_torch_upgrade_controller.py``, which
+drives the port's ``upgrade_controller``.
 
 Over HTTP the JAX client is shown with the port client's surface: its
 ``list_delta`` is hidden, because the port's ``RestClient`` has none

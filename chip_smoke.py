@@ -497,6 +497,17 @@ LEASE_DURATION_S = 15.0
 KUBELET_TICK_S = 0.2
 CONTROLLER_START_S = 120.0
 CONTROLLER_QUIET_S = 2.0
+#: The fleet roll: one node a pool, the FleetRollout over both pools with a
+#: global budget of one pool, the workers' shard count and identities (the
+#: first also the orchestrator), and their interval. The pool of a node is
+#: its name up to the last ``-``.
+FLEET_NODES = ("fleet-a-h0", "fleet-b-h0")
+FLEET_POOLS = ("fleet-a", "fleet-b")
+FLEET_ROLLOUT = "gpu-fleet"
+FLEET_SHARDS = 2
+FLEET_IDS = ("fleet-w0", "fleet-w1")
+FLEET_INTERVAL_S = 1
+FLEET_LEASES = ("fleet-orchestrator", "fleet-shard-00", "fleet-shard-01")
 
 
 def card_line() -> str:
@@ -1296,7 +1307,7 @@ class DictClient:
     the API server: no new revision, no event. Watches serve no
     bookmarks."""
 
-    CLUSTER_SCOPED = ("Node", "NodeHealthReport")
+    CLUSTER_SCOPED = ("Node", "NodeHealthReport", "FleetRollout")
 
     def __init__(self) -> None:
         self.objects: dict[tuple, dict] = {}
@@ -3878,22 +3889,28 @@ def informer_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict
 class ControllerReplica:
     """One ``python -m k8s_operator_libs_tpu_torch.upgrade_controller`` child
     over a kubeconfig, its merged stdout and stderr drained continuously
-    into ``lines`` (seconds on this process's clock, line)."""
+    into ``lines`` (seconds on this process's clock, line). ``flags``
+    replace the controller_roll's own (a leader-elected replica woken by
+    watch events); ``--trace-export`` and ``--stats-json`` are always
+    given."""
 
-    def __init__(self, identity: str, kubeconfig: str, policy: str, workdir: str) -> None:
+    def __init__(self, identity: str, kubeconfig: str, policy: str, workdir: str,
+                 flags: Optional[list] = None, label: str = "controller_roll") -> None:
         self.identity = identity
+        self.label = label
         self.metrics_port = free_port()
         self.trace = os.path.join(workdir, f"{identity}.trace.jsonl")
         self.stats = os.path.join(workdir, f"{identity}.stats.json")
         env = child_env(KUBECONFIG=kubeconfig, HOME=workdir)
         env.pop("KUBERNETES_SERVICE_HOST", None)
+        if flags is None:
+            flags = ["--watch", "--interval", str(CONTROLLER_INTERVAL_S), "--validation-pod",
+                     "--policy", policy, "--leader-elect", "--leader-elect-id", identity,
+                     "--metrics-port", str(self.metrics_port)]
         self.started = time.perf_counter()
         self.proc = subprocess.Popen(
             [sys.executable, "-m", "k8s_operator_libs_tpu_torch.upgrade_controller",
-             "--watch", "--interval", str(CONTROLLER_INTERVAL_S), "--validation-pod",
-             "--policy", policy, "--leader-elect", "--leader-elect-id", identity,
-             "--metrics-port", str(self.metrics_port), "--trace-export", self.trace,
-             "--stats-json", self.stats],
+             *flags, "--trace-export", self.trace, "--stats-json", self.stats],
             cwd=workdir, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             start_new_session=True,
         )
@@ -3927,7 +3944,7 @@ class ControllerReplica:
             if self.proc.poll() is not None:
                 break
             time.sleep(0.05)
-        raise AssertionError(f"controller_roll: {self.identity} printed no {prefix!r} "
+        raise AssertionError(f"{self.label}: {self.identity} printed no {prefix!r} "
                              f"(rc {self.proc.poll()}): {self.tail()}")
 
     def tail(self, n: int = 40) -> str:
@@ -3938,7 +3955,7 @@ class ControllerReplica:
         deadline = time.perf_counter() + timeout
         while time.perf_counter() - max(t for t, _ in self.lines) < CONTROLLER_QUIET_S:
             if time.perf_counter() > deadline:
-                raise AssertionError(f"controller_roll: {self.identity} did not go quiet "
+                raise AssertionError(f"{self.label}: {self.identity} did not go quiet "
                                      f"within {timeout} s: {self.tail()}")
             time.sleep(0.1)
 
@@ -3985,7 +4002,7 @@ def controller_pod_argv(workdir: str):
     return transform
 
 
-def read_pod_run(workdir: str, pod_name: str) -> dict:
+def read_pod_run(workdir: str, pod_name: str, label: str = "controller_roll") -> dict:
     """A probe pod's report and kernels line, from its output files."""
     from k8s_operator_libs_tpu_torch.tpu.health import HealthReport
 
@@ -3993,7 +4010,7 @@ def read_pod_run(workdir: str, pod_name: str) -> dict:
     report = HealthReport.from_dict(_last_json(base + ".out"))
     kernels = _last_json(base + ".err", "kernels")["kernels"]
     if not (report.ok and report.mxu and report.mxu.ok and report.flash and report.flash.ok):
-        raise AssertionError(f"controller_roll: probe pod {pod_name}: {report.summary()}")
+        raise AssertionError(f"{label}: probe pod {pod_name}: {report.summary()}")
     return {"elapsed_s": report.elapsed_s, "mxu_tflops": report.mxu.tflops,
             "build_s": kernels["build_s"], "launches": kernels["launches"]}
 
@@ -4219,6 +4236,228 @@ def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
     return result
 
 
+def cordoned_pools(journal, nodes) -> list[list[str]]:
+    """After each Node write of ``journal`` that touched ``nodes``, the
+    pools (``FLEET_POOLS``) with a cordoned node."""
+    cordoned: dict[str, bool] = {}
+    out = []
+    for _, _, (kind, _, name), raw, _ in journal:
+        if kind != "Node" or name not in nodes:
+            continue
+        cordoned[name] = bool((raw.get("spec") or {}).get("unschedulable"))
+        out.append(sorted({name.rsplit("-", 1)[0] for name, on in cordoned.items() if on}))
+    return out
+
+
+def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+    """Two GPU pools, ``fleet-a`` and ``fleet-b`` (a node each), rolled
+    550 -> 560 under one FleetRollout whose global budget is one pool, by
+    two fleet workers of the port's ``upgrade_controller`` command
+    (``--shards 2``, the first also ``--orchestrate``) over ``ApiStub``,
+    interval-driven; the port's simulators play the kubelets, each probe
+    pod's payload on the card with a kernel cache an earlier phase warmed.
+    Then both workers stopped by SIGTERM."""
+    from k8s_operator_libs_tpu_torch.api import make_fleet_rollout, pool_phase
+    from k8s_operator_libs_tpu_torch.kube.objects import Node, wrap
+    from k8s_operator_libs_tpu_torch.kube.sim import (
+        DaemonSetSimulator,
+        KubeletPayloadExecutor,
+        ValidationPodSimulator,
+    )
+    from k8s_operator_libs_tpu_torch.ops._build import KERNEL_DIR_ENV
+    from k8s_operator_libs_tpu_torch.tools import trace_view
+    from k8s_operator_libs_tpu_torch.tpu.libtpu import LibtpuDaemonSetManager, LibtpuSpec
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import ValidationPodSpec
+    from k8s_operator_libs_tpu_torch.upgrade import DeviceClass, UpgradeKeys
+
+    start = time.perf_counter()
+    keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
+    client = DictClient()
+    pool_nodes(client, FLEET_NODES)
+    installer = LibtpuDaemonSetManager(client, LibtpuSpec(version=ROLL_VERSIONS[0]))
+    lease_ns = installer.spec.namespace
+    driver = DaemonSetSimulator(client, name=installer.name, namespace=installer.spec.namespace,
+                                match_labels=installer.match_labels,
+                                initial_hash=ROLL_VERSIONS[0])
+    driver.settle()
+    driver.safe_load_annotation = keys.safe_driver_load_annotation
+    client.create(wrap(make_fleet_rollout(FLEET_ROLLOUT, list(FLEET_POOLS), 1)))
+    cache = os.path.join(cache_root, ROLL_NODES[0])
+    print(f"fleet_roll: probe pods on the kernel cache of {ROLL_NODES[0]}", flush=True)
+    spec = ValidationPodSpec()
+    policy_doc = dict(ROLL_POLICY, maxUnavailable="100%")  # the grant is the budget
+    workers: list = []
+    with ApiStub(client) as stub, tempfile.TemporaryDirectory(prefix="fleet-") as workdir:
+        kubeconfig = write_kubeconfig(workdir, stub.url)
+        policy = os.path.join(workdir, "policy.json")
+        with open(policy, "w") as f:
+            json.dump(policy_doc, f)
+        executor = KubeletPayloadExecutor(
+            env=child_env(**{KERNEL_DIR_ENV: cache}), timeout_seconds=POD_READY_TIMEOUT_S,
+            argv_transform=controller_pod_argv(workdir),
+        )
+        pods = ValidationPodSimulator(client, namespace=spec.namespace,
+                                      label_selector=spec.pod_selector, executor=executor)
+        pod_seen: dict[str, float] = {}
+        pod_ready: dict[str, float] = {}
+        granted_at: dict[str, float] = {}
+        done_at: dict[str, float] = {}
+        stop, failure = threading.Event(), []
+
+        def kubelet() -> None:
+            try:
+                while not stop.is_set():
+                    driver.step()
+                    pods.step()
+                    now = time.perf_counter()
+                    for name in executor.tracked_pods():
+                        pod_seen.setdefault(name, now)
+                    for name, verdict in executor.history.items():
+                        if name not in pod_ready:
+                            pod_ready[name] = now
+                            if not verdict:
+                                raise AssertionError(f"probe pod {name} failed")
+                    stop.wait(KUBELET_TICK_S)
+            except Exception as e:  # noqa: BLE001 - raised in the phase's thread
+                failure.append(e)
+
+        ticker = threading.Thread(target=kubelet, daemon=True)
+        ticker.start()
+        try:
+            for index, identity in enumerate(FLEET_IDS):
+                flags = ["--shards", str(FLEET_SHARDS), "--shard-index", str(index),
+                         "--fleet-rollout", FLEET_ROLLOUT, "--pool-prefix-sep=-",
+                         "--validation-pod", "--interval", str(FLEET_INTERVAL_S),
+                         "--policy", policy, "--leader-elect-id", identity]
+                if index == 0:
+                    flags.append("--orchestrate")
+                workers.append(ControllerReplica(identity, kubeconfig, policy, workdir,
+                                                 flags=flags, label="fleet_roll"))
+            for worker in workers:
+                worker.wait_for("pass 1: ", CONTROLLER_START_S)
+            workers[0].wait_for("fleet orchestrator: campaigning", CONTROLLER_START_S)
+            reset_counts()
+            journal_at = len(client.journal)
+            bumped = last_change = time.perf_counter()
+            driver.set_template_hash(ROLL_VERSIONS[1])
+            seen: dict = {}
+            while True:
+                if failure:
+                    raise failure[0]
+                for worker in workers:
+                    if worker.proc.poll() is not None:
+                        raise AssertionError(f"fleet_roll: {worker.identity} exited "
+                                             f"{worker.proc.returncode}: {worker.tail()}")
+                ledger = client.get("FleetRollout", FLEET_ROLLOUT).raw
+                nodes = {n: Node(client.get("Node", n).raw) for n in FLEET_NODES}
+                now = time.perf_counter()
+                for pool in FLEET_POOLS:
+                    phase = pool_phase(ledger, pool)
+                    if phase in ("granted", "done"):
+                        granted_at.setdefault(pool, now - bumped)
+                    if phase == "done":
+                        done_at.setdefault(pool, now - bumped)
+                view = ({n: (node.labels.get(keys.state_label, ""), node.unschedulable)
+                         for n, node in nodes.items()}, sorted(granted_at), sorted(done_at))
+                if view != seen:
+                    seen, last_change = view, now
+                if any(state == "upgrade-failed" for state, _ in view[0].values()):
+                    raise AssertionError(f"fleet_roll: a node failed: {view}")
+                if (len(done_at) == len(FLEET_POOLS)
+                        and all(state == "upgrade-done" and not cordoned
+                                for state, cordoned in view[0].values())
+                        and driver.all_pods_ready_and_current()):
+                    break
+                if now - last_change > ROLL_STALL_S:
+                    raise AssertionError(f"fleet_roll: nothing moved for {ROLL_STALL_S} s: "
+                                         f"{view} {workers[1].tail()}")
+                time.sleep(0.1)
+            wall_s = time.perf_counter() - bumped
+            stop.set()
+            ticker.join(timeout=30)
+            with client.lock:
+                journal = list(client.journal[journal_at:])
+            out_at_once = cordoned_pools(journal, FLEET_NODES)
+            ends = [worker.terminate() for worker in workers]
+            leases = {name: lease_holder(client, name, lease_ns) for name in FLEET_LEASES}
+        finally:
+            stop.set()
+            ticker.join(timeout=30)
+            for worker in workers:
+                worker.kill()
+            executor.close()
+        runs = {}
+        for name, seen_at in sorted(pod_seen.items()):
+            run = read_pod_run(workdir, name, "fleet_roll")
+            run["seconds_to_ready"] = pod_ready[name] - seen_at
+            check_launches(f"fleet_roll probe pod {name}", run["launches"], gate_launches)
+            runs[name] = run
+        stats, spans = {}, {}
+        for worker in workers:
+            with open(worker.stats) as f:
+                stats[worker.identity] = json.load(f)
+            by_name: dict = {}
+            for record in trace_view.load_spans(worker.trace):
+                if record["name"].startswith("fleet."):
+                    by_name[record["name"]] = by_name.get(record["name"], 0) + 1
+            spans[worker.identity] = dict(sorted(by_name.items()))
+        tails = {w.identity: w.tail(8) for w in workers}
+    parent = counts()
+    orchestrator = stats[FLEET_IDS[0]].get("orchestrator", {})
+    result = {
+        "nodes": list(FLEET_NODES),
+        "pools": list(FLEET_POOLS),
+        "versions": list(ROLL_VERSIONS),
+        "max_unavailable_pools": 1,
+        "interval_s": FLEET_INTERVAL_S,
+        "granted_s": granted_at,
+        "done_s": done_at,
+        "grant_order": orchestrator.get("grant_order"),
+        "most_pools_out_at_once": max((len(p) for p in out_at_once), default=0),
+        "node_writes": len(out_at_once),
+        "workers": {w: {"passes": stats[w]["passes"], "idle_ticks": stats[w]["idle_ticks"],
+                        "shards": stats[w]["shards"],
+                        "pools_reported_done": stats[w]["pools_reported_done"]}
+                    for w in FLEET_IDS},
+        "orchestrator": orchestrator,
+        "probe_pods": runs,
+        "pod_launches": total_launches(runs.values()),
+        "spans_by_name": spans,
+        "return_codes": {w.identity: rc for w, (rc, _, _) in zip(workers, ends)},
+        "exit_s": {w.identity: ended - sent for w, (_, sent, ended) in zip(workers, ends)},
+        "leases_after": leases,
+        "wall_s": wall_s,
+        "parent_launches": {lib: parent[lib] for lib in ("matmul", "flash_attention")},
+        "phase_wall_s": time.perf_counter() - start,
+    }
+    print(json.dumps({"fleet_roll": result, "card": card}), flush=True)
+    if any(len(p) > 1 for p in out_at_once):
+        raise AssertionError(f"fleet_roll: two pools were cordoned at once: {out_at_once}")
+    if {p[0] for p in out_at_once if p} != set(FLEET_POOLS):
+        raise AssertionError(f"fleet_roll: the pools cordoned were {out_at_once}")
+    if any(rc != 0 for rc in result["return_codes"].values()):
+        raise AssertionError(f"fleet_roll: return codes {result['return_codes']}: {tails}")
+    if any(leases.values()):
+        raise AssertionError(f"fleet_roll: Leases left held: {leases}")
+    if sorted(run_node(name) for name in runs) != sorted(FLEET_NODES):
+        raise AssertionError(f"fleet_roll: probe pods ran for {sorted(runs)}")
+    if parent["matmul"] or parent["flash_attention"]:
+        raise AssertionError(f"fleet_roll: the parent launched kernels: {parent}")
+    if orchestrator.get("grants_issued") != len(FLEET_POOLS):
+        raise AssertionError(f"fleet_roll: the orchestrator granted {orchestrator}")
+    if not spans[FLEET_IDS[0]].get("fleet.grant_round"):
+        raise AssertionError(f"fleet_roll: no fleet.grant_round span: {spans}")
+    if not any(s.get("fleet.report_done") for s in spans.values()):
+        raise AssertionError(f"fleet_roll: no fleet.report_done span: {spans}")
+    if sorted(shard for w in FLEET_IDS for shard in stats[w]["shards"]) != [
+            "shard-00", "shard-01"]:
+        raise AssertionError(f"fleet_roll: shards held {stats}")
+    pods_left = sorted(p.name for p in client.list("Pod"))
+    if any(name.startswith("train-") for name in pods_left):
+        raise AssertionError(f"fleet_roll: the drain left workload pods: {pods_left}")
+    return result
+
+
 def lease_holder(client, name: str, namespace: str) -> str:
     from k8s_operator_libs_tpu_torch.kube.client import get_or_none
 
@@ -4283,6 +4522,7 @@ def main() -> int:
             quarantine = quarantine_phase(card, launches, cache_root, monitor["reports"])
             informer = informer_roll_phase(card, launches, cache_root)
             controller = controller_roll_phase(card, launches, cache_root)
+            fleet = fleet_roll_phase(card, launches, cache_root)
     finally:
         watched = watch.stop()
     print(json.dumps({"watch": watched, "card": card}), flush=True)
@@ -4302,6 +4542,7 @@ def main() -> int:
         row["launches_quarantine_pod"] = quarantine["pod_launches"][kernel]
         row["launches_informer_roll"] = informer["pod_launches"][kernel]
         row["launches_controller_roll"] = controller["pod_launches"][kernel]
+        row["launches_fleet_roll"] = fleet["pod_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         if kernel == "matmul":
             row["path_launches"] = launches["matmul_by_path"].get(row["path"], 0)

@@ -139,6 +139,11 @@ def has_reason(exc: BaseException, kind: type[ApiError]) -> bool:
     return getattr(exc, "reason", None) == kind.reason
 
 
+def is_api_error(exc: BaseException) -> bool:
+    """An API error of any client: it carries the API's ``reason``."""
+    return isinstance(getattr(exc, "reason", None), str)
+
+
 def get_or_none(client, kind: str, name: str, namespace: str = "") -> Optional[Any]:
     """``client.get``, or ``None`` where the object does not exist."""
     try:

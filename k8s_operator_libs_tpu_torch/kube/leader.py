@@ -35,7 +35,7 @@ from dataclasses import dataclass
 from datetime import datetime, timezone
 from typing import Any, Callable, Optional
 
-from .client import Client, ConflictError, NotFoundError, has_reason
+from .client import Client, ConflictError, NotFoundError, has_reason, is_api_error
 from .objects import Lease
 from ..utils import tracing
 from ..utils.faultpoints import fault_point, wall_now
@@ -43,11 +43,6 @@ from ..utils.lifecycle import lifecycle_resource
 from ..utils.log import get_logger
 
 log = get_logger("kube.leader")
-
-
-def _is_api_error(exc: BaseException) -> bool:
-    """An API error of any client: it carries the API's ``reason``."""
-    return isinstance(getattr(exc, "reason", None), str)
 
 
 def _rfc3339_micro(now_wall: float) -> str:
@@ -207,7 +202,7 @@ class LeaderElector:
         except Exception as e:  # noqa: BLE001 - the client's own classes
             if has_reason(e, NotFoundError):
                 lease = None
-            elif _is_api_error(e):
+            elif is_api_error(e):
                 log.warning("leader election: get lease failed: %s", e)
                 return False
             else:
@@ -220,7 +215,7 @@ class LeaderElector:
             try:
                 created = Lease(self._client.create(fresh).raw)
             except Exception as e:  # noqa: BLE001 - the client's own classes
-                if not _is_api_error(e):
+                if not is_api_error(e):
                     raise
                 log.info("leader election: create lost the race: %s", e)
                 return False
@@ -253,7 +248,7 @@ class LeaderElector:
             if has_reason(e, ConflictError):
                 log.info("leader election: renew/steal lost an update race")
                 return False
-            if not _is_api_error(e):
+            if not is_api_error(e):
                 raise
             log.warning("leader election: update lease failed: %s", e)
             return False
@@ -274,7 +269,7 @@ class LeaderElector:
         except Exception as e:  # noqa: BLE001 - the client's own classes
             if has_reason(e, NotFoundError):
                 return  # never acquired: nothing to release
-            if not _is_api_error(e):
+            if not is_api_error(e):
                 raise
             log.warning("leader election: release failed: %s", e)
 

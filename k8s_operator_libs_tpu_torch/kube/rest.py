@@ -48,6 +48,11 @@ import urllib.request
 from dataclasses import dataclass, field
 from typing import Any, Iterator, Mapping, Optional
 
+from ..api.fleet_v1alpha1 import (
+    FLEET_ROLLOUT_API_VERSION,
+    FLEET_ROLLOUT_KIND,
+    FLEET_ROLLOUT_PLURAL,
+)
 from ..api.telemetry_v1alpha1 import NODE_HEALTH_REPORT_API_VERSION
 from ..api.upgrade_v1alpha1 import (
     WORKLOAD_CHECKPOINT_API_VERSION,
@@ -82,6 +87,7 @@ RESOURCES: dict[str, tuple[str, str, bool]] = {
     "NodeMaintenance": ("maintenance.nvidia.com/v1alpha1", "nodemaintenances", True),
     "Lease": ("coordination.k8s.io/v1", "leases", True),
     WORKLOAD_CHECKPOINT_KIND: (WORKLOAD_CHECKPOINT_API_VERSION, WORKLOAD_CHECKPOINT_PLURAL, True),
+    FLEET_ROLLOUT_KIND: (FLEET_ROLLOUT_API_VERSION, FLEET_ROLLOUT_PLURAL, False),
     "CustomResourceDefinition": (
         "apiextensions.k8s.io/v1", "customresourcedefinitions", False,
     ),

@@ -1,9 +1,9 @@
-"""The supervised process runtime: the :class:`Component` protocol and the
+"""The supervised process runtime: the :class:`Component` protocol, the
 :class:`Supervisor` that starts components producers first, stops them
 consumers first within per-component budgets, and turns SIGTERM and
-SIGINT into an event. The JAX package's ``runtime`` package but its
-``OrchestratorDaemon`` (``runtime/daemon.py``), which runs the fleet
-orchestrator and waits for ROADMAP A18.
+SIGINT into an event, and the :class:`OrchestratorDaemon` that runs the
+fleet orchestrator behind its own Lease. The JAX package's ``runtime``
+package.
 """
 
 from .component import (
@@ -13,11 +13,13 @@ from .component import (
     lifecycle_resource,
     registered_resources,
 )
+from .daemon import OrchestratorDaemon
 from .supervisor import StopReport, Supervisor, SupervisorError
 
 __all__ = [
     "Component",
     "FuncComponent",
+    "OrchestratorDaemon",
     "StopReport",
     "Supervisor",
     "SupervisorError",

@@ -379,6 +379,14 @@ class IncrementalSnapshotSource(InformerSnapshotSource):
         ):
             self._wake_traces.append(trace_id)
 
+    def note_wake_trace(self, trace_id: Optional[str]) -> None:
+        """Record a wake from outside this source for the next pass: a
+        fleet worker's tick loop hands in the trace of the delivery that
+        woke it (``fleet/wakeup.py``), so the pass links to the grant even
+        where the delivery dirtied nothing this source watches."""
+        with self._delta_lock:
+            self._note_wake_locked(trace_id)
+
     def consume_wake_traces(self) -> list[str]:
         """The traces that woke the next pass, taken out of the book."""
         with self._delta_lock:

@@ -275,6 +275,10 @@ class ClusterUpgradeStateManager:
         self._pass_span = None
         self._pass_activation = None
         self._pass_seq = 0
+        #: Attributes stamped on every pass span: a fleet shard worker sets
+        #: ``{"worker": identity}``, so the pass spans of workers in one
+        #: process stay apart in a trace.
+        self.trace_attrs: dict = {}
         # One bound method for common.on_first_bucket, never a closure a
         # pass.
         self._lazy_open = self._lazy_open_pass_span
@@ -427,9 +431,10 @@ class ClusterUpgradeStateManager:
     def _open_pass_span(self, t: tracing.Tracer, start_wall: float) -> None:
         if self._pass_span is not None:
             self._close_pass_span(None)
+        attrs: dict = {"pass": self._pass_seq}
+        attrs.update(self.trace_attrs)
         self._pass_span = t.start_span(
-            "reconcile.pass", category="reconcile", start=start_wall,
-            attrs={"pass": self._pass_seq},
+            "reconcile.pass", category="reconcile", start=start_wall, attrs=attrs,
         )
         self._pass_activation = tracing.activate(self._pass_span)
 

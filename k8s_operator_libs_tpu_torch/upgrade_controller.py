@@ -28,13 +28,27 @@ command, a wait for the next batch of events or the next interval looks
 at the stop event and the Lease every ``WAKE_S`` seconds: a watch-driven
 controller with a long interval still stops promptly.
 
+``--shards N --shard-index i`` makes the process one of N cooperating
+fleet workers (``fleet/worker.py``): it campaigns for a Lease a shard
+(``fleet-shard-NN``), prefers shard ``i``, and reconciles only the nodes
+whose pool hashes to the shards it holds; ``--pool-prefix-sep SEP`` maps a
+node to its pool by what precedes the last ``SEP`` of its name (none: the
+node is its pool). With ``--fleet-rollout NAME`` the worker starts a
+pool's nodes only while the FleetRollout ``NAME`` grants the pool, and
+reports it done there; ``--orchestrate`` also runs the grant issuer
+(``runtime/daemon.py``) behind the ``fleet-orchestrator`` Lease. A worker
+ticks at least every Lease retry period, since its ticks renew its shard
+Leases. Its shard Leases, like the controller's Lease, are released on
+the way out only after the manager's background tasks ended, and the
+orchestrator's only after its tick thread did; otherwise they are left to
+expire.
+
 ``--device`` is ``nvidia`` (``DeviceClass.nvidia("gpu")``: the default
 Lease is ``upgrade-controller-nvidia``, the default selector the port's
 driver DaemonSet's, ``tpu/libtpu.py``). What the port does not run yet it
 refuses, naming the ROADMAP item and taking no step: ``--demo`` (the
-in-memory cluster, A19); ``--shards``, ``--shard-index``,
-``--fleet-rollout``, ``--pool-prefix-sep``, ``--orchestrate`` and
-``--watch-relay`` (the fleet, A18).
+in-memory cluster, A19) and ``--watch-relay`` (the fleet's watch relay,
+A18).
 """
 
 from __future__ import annotations
@@ -75,11 +89,6 @@ COMPONENT_TIMEOUT_S = 10.0
 #: Flags of the JAX command this port refuses, and the item each waits for.
 REFUSED = {
     "demo": ("--demo (the in-memory cluster)", "A19"),
-    "shards": ("--shards (the fleet's shard workers)", "A18"),
-    "shard_index": ("--shard-index (the fleet's shard workers)", "A18"),
-    "fleet_rollout": ("--fleet-rollout (the fleet's rollout grants)", "A18"),
-    "pool_prefix_sep": ("--pool-prefix-sep (the fleet's pool keys)", "A18"),
-    "orchestrate": ("--orchestrate (the fleet orchestrator)", "A18"),
     "watch_relay": ("--watch-relay (the watch relay)", "A18"),
 }
 
@@ -170,13 +179,24 @@ def build_parser() -> argparse.ArgumentParser:
                         "k8s_operator_libs_tpu_torch.tools.trace_view PATH)")
     parser.add_argument("--stats-json", default="", metavar="PATH",
                         help="write the passes and wall seconds as JSON to PATH on exit")
+    parser.add_argument("--shards", type=int, default=0,
+                        help="fleet mode: the fleet's shard count; campaign for a Lease a "
+                        "shard and reconcile only the nodes of the shards held (0: off)")
+    parser.add_argument("--shard-index", type=int, default=0,
+                        help="with --shards: this worker's preferred shard; the others "
+                        "are probed at the failover cadence only")
+    parser.add_argument("--fleet-rollout", default="", metavar="NAME",
+                        help="with --shards: the FleetRollout whose grants gate each "
+                        "pool's start and which each pool is reported done in")
+    parser.add_argument("--pool-prefix-sep", default="", metavar="SEP",
+                        help="with --shards: a node's pool is its name up to the last "
+                        "SEP (written --pool-prefix-sep=-); none: the node is its pool")
+    parser.add_argument("--orchestrate", action="store_true",
+                        help="also issue the FleetRollout's grants under its global "
+                        "budget, behind the 'fleet-orchestrator' Lease; needs "
+                        "--fleet-rollout")
     # Refused: parsed so that the refusal can name its item.
     parser.add_argument("--demo", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--shards", type=int, default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--shard-index", type=int, default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--fleet-rollout", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--pool-prefix-sep", default=None, help=argparse.SUPPRESS)
-    parser.add_argument("--orchestrate", action="store_true", help=argparse.SUPPRESS)
     parser.add_argument("--watch-relay", default=None, help=argparse.SUPPRESS)
     return parser
 
@@ -188,6 +208,8 @@ def main(argv: list[str] | None = None) -> int:
         value = getattr(args, dest)
         if value is not None and value is not False:
             parser.error(str(not_ported(what, item)))
+    if args.orchestrate and not args.fleet_rollout:
+        parser.error("--orchestrate requires --fleet-rollout")
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
 
     # The Supervisor owns every background component this process starts
@@ -198,6 +220,8 @@ def main(argv: list[str] | None = None) -> int:
     sup.install_signal_handlers()
     elector = None
     queue = None
+    worker = None
+    orchestrator = None
     tracer = None
     if args.trace_export:
         from .utils import tracing
@@ -217,6 +241,8 @@ def main(argv: list[str] | None = None) -> int:
         except Exception as e:  # noqa: BLE001 - RestConfigError when unconfigured
             raise SystemExit(f"no cluster access configured ({e})")
 
+        # The holder identity of every Lease this process campaigns for.
+        identity = args.leader_elect_id or f"{socket.gethostname()}_{os.getpid()}"
         runner = TaskRunner()
         mgr = ClusterUpgradeStateManager(client, device, runner=runner)
         probe_selector = ""
@@ -236,8 +262,11 @@ def main(argv: list[str] | None = None) -> int:
                                                     and not elector.is_leader()):
                     return
 
+        # The tasks consume the leadership of the Leases they write under,
+        # so they drain before those Leases' holders.
         sup.adopt(FuncComponent("task-runner", stop=stop_tasks),
-                  depends_on=["leader-elector"] if args.leader_elect else [])
+                  depends_on=(["leader-elector"] if args.leader_elect else [])
+                  + (["shard-worker"] if args.shards else []))
         if args.validation_pod:
             from .tpu.slice_gate import SliceProbeSpec, make_validation_provisioner
             from .tpu.validation_pod import ValidationPodManager, ValidationPodSpec
@@ -285,8 +314,40 @@ def main(argv: list[str] | None = None) -> int:
                     opts.post_maintenance_hook = cache_warmup_hook()
             enable_requestor_mode(mgr, opts)
 
+        if args.shards:
+            # Before the watch wiring: the worker's scoped source is the
+            # snapshot source, and its informers are the triggers too.
+            worker = _shard_worker(args, client, mgr, selector, identity)
+
         if args.watch:
-            queue = _watch(args, client, mgr, selector, sup, probe_selector)
+            queue = _watch(args, client, mgr, selector, sup, probe_selector, worker)
+
+        if worker is not None:
+            if not worker.source.started:
+                worker.start(sync_timeout=30)
+
+            def stop_worker() -> None:
+                if tasks_ended.is_set():
+                    worker.stop()
+                    return
+                print("fleet: background tasks outlived the shutdown; leaving the shard "
+                      "Leases to expire", file=sys.stderr, flush=True)
+                worker.stop(release=False)
+
+            worker_deps = ["nm-informer"] if (args.watch and args.requestor) else []
+            if args.leader_elect:
+                worker_deps.append("leader-elector")
+            sup.adopt(FuncComponent("shard-worker", stop=stop_worker), depends_on=worker_deps)
+
+        if args.orchestrate:
+            from .runtime import OrchestratorDaemon
+
+            orchestrator = OrchestratorDaemon(
+                client, args.fleet_rollout, namespace=args.namespace, identity=identity,
+                interval_s=min(args.interval, 2.0),
+            ).start()
+            sup.adopt(orchestrator)
+            print(f"fleet orchestrator: campaigning as {identity!r}", flush=True)
 
         metrics = None
         if args.metrics_port:
@@ -301,7 +362,6 @@ def main(argv: list[str] | None = None) -> int:
         if args.leader_elect:
             from .kube.leader import LeaderElectionConfig, LeaderElector
 
-            identity = args.leader_elect_id or f"{socket.gethostname()}_{os.getpid()}"
             elector = LeaderElector(
                 client,
                 LeaderElectionConfig(
@@ -329,7 +389,8 @@ def main(argv: list[str] | None = None) -> int:
                     return 0
             print("leader election: leading; starting reconciles", flush=True)
 
-        return _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup)
+        return _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup,
+                               worker, orchestrator)
     finally:
         # Every exit (--once, SIGTERM even in the setup, the lease lost, an
         # error) drains what the supervisor adopted; a Lease is released
@@ -345,10 +406,39 @@ def main(argv: list[str] | None = None) -> int:
             print(f"trace: {count} spans exported to {args.trace_export}", file=sys.stderr)
 
 
-def _watch(args, client, mgr, selector, sup, probe_selector: str = ""):
+def _shard_worker(args, client, mgr, selector, identity: str):
+    """The fleet worker around the configured manager: a Lease a shard,
+    the shard-scoped snapshot source and, with a rollout, the grant-gated
+    planner. Not started."""
+    from .fleet import FleetWorkerConfig, ShardWorker, shard_id
+
+    sep = args.pool_prefix_sep
+
+    def pool_of(name: str) -> str:
+        return name.rsplit(sep, 1)[0] if sep else name
+
+    return ShardWorker(
+        client,
+        FleetWorkerConfig(
+            identity=identity,
+            pool_of=pool_of,
+            shards=args.shards,
+            namespace=args.namespace,
+            driver_labels=selector,
+            rollout_name=args.fleet_rollout,
+            preferred_shards=[shard_id(args.shard_index % args.shards)],
+            lease_namespace=args.namespace,
+            verify_every_n=args.verify_every_n,
+        ),
+        manager=mgr,
+    )
+
+
+def _watch(args, client, mgr, selector, sup, probe_selector: str = "", worker=None):
     """The watch path: informer deltas add node keys to a rate-limited
     workqueue, and one informer set is both the trigger and the
-    incremental snapshot source; with probe pods (``probe_selector``), an
+    incremental snapshot source (a fleet worker's scoped one where
+    ``worker`` is given); with probe pods (``probe_selector``), an
     informer over them wakes their nodes too, since a probe pod turning
     Ready is what a node in validation waits for. The queue, started and
     adopted."""
@@ -359,7 +449,8 @@ def _watch(args, client, mgr, selector, sup, probe_selector: str = ""):
     queue = RateLimitingQueue(default_controller_rate_limiter())
     # The queue consumes the informers' deltas: it drains first, so nothing
     # enqueues into a half-stopped trigger path.
-    queue_deps = (["snapshot-source"] + (["nm-informer"] if args.requestor else [])
+    queue_deps = ([("shard-worker" if worker is not None else "snapshot-source")]
+                  + (["nm-informer"] if args.requestor else [])
                   + (["probe-informer"] if probe_selector else []))
     sup.adopt(FuncComponent("workqueue", stop=queue.shutdown), depends_on=queue_deps)
 
@@ -392,7 +483,7 @@ def _watch(args, client, mgr, selector, sup, probe_selector: str = ""):
             for name in nm_node_names(obj) or [RESYNC_KEY]:
                 queue.add(name)
 
-    source = IncrementalSnapshotSource(
+    source = worker.source if worker is not None else IncrementalSnapshotSource(
         client, args.namespace, selector, verify_every_n=args.verify_every_n
     )
     # A new ControllerRevision is the rollout's trigger: the driver bump
@@ -414,11 +505,15 @@ def _watch(args, client, mgr, selector, sup, probe_selector: str = ""):
         sup.adopt(FuncComponent("nm-informer", stop=nm_informer.stop),
                   depends_on=["leader-elector"] if args.leader_elect else [])
     # start() returns once the stores are seeded: a snapshot before that
-    # would be empty, not stale.
-    source.start(sync_timeout=30)
-    mgr.snapshot_source = source
-    mgr.provider.set_write_through(source.record_write)
-    mgr.common.pod_manager.revision_source = source
+    # would be empty, not stale. The worker wired its source into the
+    # manager, and its component stops it.
+    if worker is not None:
+        worker.start(sync_timeout=30)
+    else:
+        source.start(sync_timeout=30)
+        mgr.snapshot_source = source
+        mgr.provider.set_write_through(source.record_write)
+        mgr.common.pod_manager.revision_source = source
     if probe_selector:
         # Not part of the kept state (the validation manager reads its pods
         # itself): only a trigger.
@@ -431,34 +526,53 @@ def _watch(args, client, mgr, selector, sup, probe_selector: str = ""):
         if not probe_informer.wait_for_sync(timeout=30):
             logging.warning("probe pod informer did not sync within 30s; reconciles may "
                             "miss a probe pod's readiness until it catches up")
-    source_deps = ["nm-informer"] if args.requestor else []
-    if args.leader_elect:
-        source_deps.append("leader-elector")
-    sup.adopt(FuncComponent("snapshot-source", stop=source.stop), depends_on=source_deps)
+    if worker is None:
+        source_deps = ["nm-informer"] if args.requestor else []
+        if args.leader_elect:
+            source_deps.append("leader-elector")
+        sup.adopt(FuncComponent("snapshot-source", stop=source.stop), depends_on=source_deps)
     if nm_informer is not None and not nm_informer.wait_for_sync(timeout=30):
         logging.warning("%s informer did not sync within 30s; reconciles may miss its "
                         "triggers until it catches up", nm_informer.kind)
     return queue
 
 
-def _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup):
+def _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup,
+                    worker=None, orchestrator=None):
     # The stats file is written on every exit. With --watch, ``woken_by``
     # counts the passes after the first by what woke them: a node's key, the
-    # world's key alone, or the interval running out.
+    # world's key alone, or the interval running out. A fleet worker adds
+    # its ticks that held no shard, the shards it held last and the pools
+    # it reported done; an orchestrator its grants.
     stats: dict = {"passes": 0}
     if queue is not None:
         stats["woken_by"] = {"nodes": 0, "resync": 0, "interval": 0}
+    if worker is not None:
+        stats.update(idle_ticks=0, shards=[], pools_reported_done=0)
     started = time.monotonic()
     try:
-        return _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup, stats)
+        return _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup,
+                                 stats, worker)
     finally:
+        if orchestrator is not None:
+            orch = orchestrator.orchestrator
+            stats["orchestrator"] = {
+                "grants_issued": orch.grants_issued, "grant_order": list(orch.grant_order),
+                "budget_denials": orch.budget_denials, "ticks": orch.ticks,
+                "led_ticks": orchestrator.led_ticks, "api_errors": orch.api_errors,
+            }
         if args.stats_json:
             with open(args.stats_json, "w") as f:
                 json.dump(dict(stats, wall_s=time.monotonic() - started),
                           f, indent=2, sort_keys=True)
 
 
-def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup, stats):
+def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup, stats,
+                      worker=None):
+    # A fleet worker renews its shard Leases in its ticks, so it ticks at
+    # least every retry period whatever the interval.
+    interval = (min(args.interval, worker.config.retry_period_s) if worker is not None
+                else args.interval)
     passes = 0
     consecutive_failures = 0
     #: The workqueue keys the current pass reconciles (--watch). A pass
@@ -482,8 +596,16 @@ def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup,
         passes += 1
         stats["passes"] = passes
         try:
-            state = mgr.build_state(args.namespace, selector)
-            mgr.apply_state(state, policy)
+            if worker is not None:
+                # One tick: the shard Leases, a pass over the shards held,
+                # the ledger's grants and completions. No state: no shard.
+                ticked = worker.tick(policy)
+                state = ticked.state
+                stats["shards"] = sorted(ticked.owned)
+                stats["pools_reported_done"] = worker.pools_reported_done
+            else:
+                state = mgr.build_state(args.namespace, selector)
+                mgr.apply_state(state, policy)
         except Exception as e:  # noqa: BLE001 - the process outlives its passes
             if args.once:
                 raise
@@ -504,7 +626,7 @@ def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup,
                 requeues = queue.num_requeues(keys[0] if keys else RESYNC_KEY)
                 print(f"pass {passes}: reconcile failed (rate-limited requeue #{requeues}): {e}",
                       file=sys.stderr, flush=True)
-                keys = _next_batch(queue, args.interval, sup, elector)
+                keys = _next_batch(queue, interval, sup, elector)
                 continue
             # Interval mode: 0.5 s doubling to 30 s, reset by a success; the
             # exponent is capped before the power.
@@ -520,24 +642,31 @@ def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup,
             for key in keys:
                 queue.forget(key)
                 queue.done(key)
-        if metrics is not None:
-            metrics.observe(state)
-        print(
-            f"pass {passes}: {state_counts(state)} | "
-            f"in-progress={mgr.get_upgrades_in_progress(state)} "
-            f"done={mgr.get_upgrades_done(state)} "
-            f"failed={mgr.get_upgrades_failed(state)}",
-            flush=True,
-        )
+        if state is None:
+            stats["idle_ticks"] += 1
+            print(f"pass {passes}: no shards owned (campaigning for {sorted(worker.shards)})",
+                  flush=True)
+        else:
+            if metrics is not None:
+                metrics.observe(state)
+            shard_note = (f" | shards={','.join(sorted(worker.owned_shards()))}"
+                          if worker is not None else "")
+            print(
+                f"pass {passes}: {state_counts(state)} | "
+                f"in-progress={mgr.get_upgrades_in_progress(state)} "
+                f"done={mgr.get_upgrades_done(state)} "
+                f"failed={mgr.get_upgrades_failed(state)}{shard_note}",
+                flush=True,
+            )
         if args.once:
             return 0
         if queue is not None:
             # Block for the first key, then take what gathered during the
             # pass: one pass covers them all. An empty batch (the timeout)
             # is the periodic resync.
-            keys = _next_batch(queue, args.interval, sup, elector)
+            keys = _next_batch(queue, interval, sup, elector)
         else:
-            _pause(args.interval, sup, elector)
+            _pause(interval, sup, elector)
 
 
 def _interrupted(sup, elector) -> bool:

@@ -31,10 +31,12 @@ the pass has work).
 The spans the port emits are the machine's (``reconcile.pass``,
 ``bucket.*``, ``drain.node``, ``evict.node``, ``validate.node``,
 ``write.flush``, the ``state.transition`` and ``checkpoint.*`` events),
-the informer's ``informer.deliver``, the client's ``http.request`` and the
-leader election's ``lease.round`` (``kube/leader.py``). The server side's
-``server.request`` and ``apf.queue`` are the in-memory API server's, which
-waits for ROADMAP A19; the fleet's ``fleet.*`` wait for A18.
+the informer's ``informer.deliver``, the client's ``http.request``, the
+leader election's ``lease.round`` (``kube/leader.py``) and the fleet's
+``fleet.grant_round`` (with a ``fleet.grant`` event a pool granted) and
+``fleet.report_done`` (``fleet/``). The server side's ``server.request``
+and ``apf.queue`` are the in-memory API server's, which waits for ROADMAP
+A19.
 """
 
 from __future__ import annotations
@@ -51,8 +53,8 @@ from .faultpoints import wall_now
 #: anything else as unattributed. ``idle`` is derived (wall time no span
 #: covers), never stamped on a span. The port's machine stamps
 #: ``reconcile``, ``wire``, ``drain``, ``checkpoint``, ``probe`` and
-#: ``write``, the leader election ``lease``; ``grant`` is the fleet's
-#: (ROADMAP A18), ``queue`` an API server's (A19).
+#: ``write``, the leader election ``lease``, the fleet ``grant``;
+#: ``queue`` is an API server's (ROADMAP A19).
 CATEGORIES = (
     "grant",      # the fleet orchestrator's grant rounds / done reports
     "lease",      # the leader election's protocol rounds

@@ -530,6 +530,73 @@ def test_requestor_roll_with_the_warmup_hook_on_the_card(cuda, tmp_path):
     assert kernels["launches"]["matmul"] > 0 and kernels["launches"]["flash_attention"] > 0
 
 
+def test_one_pool_fleet_roll_on_the_card(cuda, tmp_path):
+    """One GPU pool (one node, labelled from the card's facts) rolled by a
+    fleet ``ShardWorker`` over the port's machine under a FleetRollout's
+    grant; the probe pod's payload runs the gate on the card, and the pool
+    is reported done in the ledger."""
+    from k8s_operator_libs_tpu_torch.ops._build import KERNEL_DIR_ENV
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    env[KERNEL_DIR_ENV] = str(tmp_path / "kernel-cache")
+    kernels = fleet_roll_one_pool(tmp_path, env, extra_args=[],
+                                  tpu_chips=torch.cuda.device_count())
+    assert kernels["launches"]["matmul"] > 0 and kernels["launches"]["flash_attention"] > 0
+
+
+def fleet_roll_one_pool(tmp_path, env, extra_args, tpu_chips=1) -> dict:
+    """The pool ``gpu-fleet`` rolled by a ShardWorker and a FleetOrchestrator
+    ticked in turn; the probe pod's kernels line."""
+    from test_torch_roll import NS, GpuRoll
+
+    from k8s_operator_libs_tpu.kube.objects import KubeObject
+    from k8s_operator_libs_tpu_torch.api import make_fleet_rollout, pool_phase
+    from k8s_operator_libs_tpu_torch.fleet import (
+        FleetOrchestrator,
+        FleetWorkerConfig,
+        ShardWorker,
+    )
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.tpu.health import HealthReport
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import ValidationPodSpec
+
+    spec = ValidationPodSpec(tpu_chips=tpu_chips)
+    with GpuRoll(spec, {"gpu-fleet-h0": local_gpu_labels()}, tmp_path, env=env,
+                 extra_args=extra_args, payload_timeout_s=600.0, machine="port") as roll:
+        roll.cluster.create(KubeObject(make_fleet_rollout("roll", ["gpu-fleet"], 1)))
+        worker = ShardWorker(roll.cluster, FleetWorkerConfig(
+            identity="w", shards=1, namespace=NS, driver_labels=roll.installer.match_labels,
+            pool_of=lambda name: name.rsplit("-", 1)[0], rollout_name="roll",
+            lease_namespace=NS,
+        ), manager=roll.mgr).start()
+        orchestrator = FleetOrchestrator(roll.cluster, "roll")
+        try:
+            deadline = time.monotonic() + 600
+            while pool_phase(roll.cluster.get("FleetRollout", "roll").raw, "gpu-fleet") != "done":
+                assert time.monotonic() < deadline, roll.states()
+                roll.sim.step()
+                roll.pods.step()
+                orchestrator.tick()
+                worker.tick(roll.policy)
+                roll.sim.step()
+                time.sleep(0.5)
+            passes = worker.passes
+        finally:
+            worker.stop()
+        history = dict(roll.executor.history)
+        assert roll.states() == {"gpu-fleet-h0": "upgrade-done"}
+        assert not roll.node("gpu-fleet-h0").unschedulable
+        assert roll.sim.all_pods_ready_and_current()
+        assert history == {roll.pod_name("gpu-fleet-h0"): True}
+        assert orchestrator.grant_order == ["gpu-fleet"] and worker.pools_reported_done == 1
+        assert passes > 0 and roll.cluster.get("Lease", "fleet-shard-00", NS).holder_identity == ""
+        report = HealthReport.from_dict(roll.report("gpu-fleet-h0"))
+        assert report.ok, report.failures
+        return roll.kernel_line("gpu-fleet-h0")
+
+
 def chip_smoke_module():
     """``chip_smoke.py`` as a module, loaded once."""
     import sys

@@ -445,11 +445,21 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     "k8s_operator_libs_tpu_torch.kube.leader",
     "k8s_operator_libs_tpu_torch.kube.controller",
     "k8s_operator_libs_tpu_torch.kube.workqueue",
+    "k8s_operator_libs_tpu_torch.api",
+    "k8s_operator_libs_tpu_torch.api.fleet_v1alpha1",
+    "k8s_operator_libs_tpu_torch.fleet",
+    "k8s_operator_libs_tpu_torch.fleet.hashring",
+    "k8s_operator_libs_tpu_torch.fleet.scope",
+    "k8s_operator_libs_tpu_torch.fleet.wakeup",
+    "k8s_operator_libs_tpu_torch.fleet.orchestrator",
+    "k8s_operator_libs_tpu_torch.fleet.worker",
+    "k8s_operator_libs_tpu_torch.fleet.metrics",
+    "k8s_operator_libs_tpu_torch.runtime.daemon",
 ])
 def test_controller_runtime_imports_with_jax_and_torch_blocked(module):
-    """The controller runtime, the test doubles and the command are
-    control-plane code: they import neither JAX, nor the JAX package, nor
-    torch."""
+    """The controller runtime, the test doubles, the command and the fleet
+    tier are control-plane code: they import neither JAX, nor the JAX
+    package, nor torch."""
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'k8s_operator_libs_tpu', 'tools', 'torch'):\n"
@@ -490,6 +500,8 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.testing as tt\n"
         "[getattr(tt, name) for name in tt.__all__]\n"
         "import k8s_operator_libs_tpu_torch.upgrade_controller\n"
+        "import k8s_operator_libs_tpu_torch.fleet as f\n"
+        "[getattr(f, name) for name in f.__all__]\n"
         "import k8s_operator_libs_tpu_torch.kube as k\n"
         "[getattr(k, name) for name in k.__all__]\n"
         "import k8s_operator_libs_tpu_torch.upgrade.metrics\n"

@@ -9,11 +9,8 @@ equal. The lease case puts the JAX elector on a ``FakeCluster`` and the
 port's on the port's ``RestClient`` at a ``LocalApiServer`` serving
 another one.
 
-Left out, with ``OrchestratorDaemon`` (``runtime/daemon.py``, ROADMAP
-A18): ``TestOrchestratorDaemon::test_leader_ticks_and_stop_joins_and_releases``,
-``::test_standby_does_not_tick``,
-``::test_failover_to_standby_after_graceful_stop`` and
-``::test_stop_reports_cover_the_daemon``.
+The cases of ``TestOrchestratorDaemon`` (``runtime/daemon.py``) run in
+``tests/test_torch_fleet_daemon.py``, with the rest of the fleet tier.
 """
 
 from __future__ import annotations

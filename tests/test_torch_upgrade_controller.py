@@ -20,7 +20,8 @@ kubelets played by the port's ``DaemonSetSimulator``:
   elector reports the loss, within the renew deadline and a wake slice;
 * ``--once`` prints exactly one pass;
 * each refused flag exits non-zero naming its ROADMAP item, before any
-  step;
+  step; each fleet flag runs one tick of a shard worker under ``--once``
+  and leaves every Lease released;
 * ``--ici-gate`` with no card: the gate raises in the validation hook, so
   the node stays in ``validation-required`` instead of passing.
 
@@ -310,11 +311,6 @@ def test_once_prints_exactly_one_pass(pool, capsys):
 
 @pytest.mark.parametrize("flag, item", [
     (["--demo"], "A19"),
-    (["--shards", "2"], "A18"),
-    (["--shard-index", "1"], "A18"),
-    (["--fleet-rollout", "roll"], "A18"),
-    (["--pool-prefix-sep", "-"], "A18"),
-    (["--orchestrate"], "A18"),
     (["--watch-relay", "http://127.0.0.1:1"], "A18"),
 ])
 def test_refused_flags_exit_nonzero_naming_their_item(pool, capsys, flag, item):
@@ -326,6 +322,34 @@ def test_refused_flags_exit_nonzero_naming_their_item(pool, capsys, flag, item):
     err = capsys.readouterr().err
     assert flag[0] in err and f"(ROADMAP {item})" in err
     assert _states(server.cluster) == before  # no step taken
+
+
+@pytest.mark.parametrize("flags, shards, states", [
+    (["--shards", "2"], "shard-00", {"wd-0": None, "wd-1": None}),
+    (["--shards", "2", "--shard-index", "1"], "shard-01",
+     {"wd-0": "upgrade-done", "wd-1": "upgrade-done"}),
+    (["--shards", "2", "--pool-prefix-sep=-"], "shard-00",
+     {"wd-0": "upgrade-done", "wd-1": "upgrade-done"}),
+    (["--shards", "1", "--fleet-rollout", "roll"], "shard-00",
+     {"wd-0": "upgrade-done", "wd-1": "upgrade-done"}),
+    (["--shards", "1", "--fleet-rollout", "roll", "--orchestrate"], "shard-00",
+     {"wd-0": "upgrade-done", "wd-1": "upgrade-done"}),
+], ids=["shards", "shard-index", "pool-prefix-sep", "fleet-rollout", "orchestrate"])
+def test_fleet_flags_run_one_tick_over_the_shards_held(pool, capsys, flags, shards, states):
+    """Each flag the fleet slice lifted: ``--once`` ticks the shard worker
+    once, and at its first tick a worker holds only its preferred shard.
+    Of two shards, each node its own pool, shard-01 holds both nodes; with
+    ``--pool-prefix-sep=-`` their pool ``wd`` is shard-00's. On the way out
+    the shard Leases and the orchestrator's are released."""
+    server, _ = pool
+    assert upgrade_controller.main([*flags, "--once", "--leader-elect-id", "w"]) == 0
+    out = capsys.readouterr().out
+    passes = [line for line in out.splitlines() if line.startswith("pass ")]
+    assert len(passes) == 1 and passes[0].endswith(f" | shards={shards}"), out
+    assert _states(server.cluster) == states
+    assert ("fleet orchestrator: campaigning as 'w'" in out) == ("--orchestrate" in flags)
+    holders = {lease.name: lease.holder_identity for lease in server.cluster.list("Lease")}
+    assert holders.get(f"fleet-{shards}") == "" and set(holders.values()) == {""}
 
 
 def test_ici_gate_without_a_card_raises_instead_of_passing(pool, caplog):

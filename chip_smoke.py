@@ -330,7 +330,40 @@ Phases, in order; any failure raises and the script exits non-zero:
     each node's states with the second each began, each probe pod's
     seconds to Ready and kernels, the scrape, the takeover seconds, the
     return codes, the Lease's holder after each stop and its transitions,
-    each trace's spans by name and each stats file.
+    each trace's spans by name and each stats file;
+21. fleet_roll phase (the fleet tier), after the controller roll: two
+    fleet workers of the same command roll two pools under one
+    FleetRollout's budget of one pool (``fleet_roll_phase``);
+22. calibration phase, after the gang phase: ``python -m
+    k8s_operator_libs_tpu_torch.tools.calibration`` as a child on every
+    card; its one line is printed as ``{"calibration": ...}`` and must
+    carry the port's keys (``CALIBRATION_KEYS``) with ``ok``,
+    ``matmul_kernel_launched`` and ``flash_attention_ok`` true and both
+    TFLOP/s above 0. The gate's floors stay 0: this line is what they
+    will be set from;
+23. monitor_manifest phase, after the calibration: the port's two
+    DaemonSet manifests, read through the package's own data path, each
+    container run as its kubelet would (``DaemonSetPod``: ``python`` this
+    interpreter, a free metrics port, ``NODE_NAME`` the monitored node,
+    ``KUBECONFIG`` at an ``ApiStub`` holding that node labelled from the
+    card, the kernel-cache hostPath a fresh empty directory). The full
+    tier twice on that directory, each until the node's ``TpuIciHealthy``
+    is True and ``/metrics`` counts the first cycle, then SIGTERM: the
+    first pod must build both kernels there, the second (the restart)
+    must build nothing and leave every ``.so`` with its name and mtime,
+    and must write nothing (it starts from the published condition); each
+    pod's payload, as the monitor logs it, launches the gate phase's
+    counts. Then the quick tier until its NodeHealthReport (source
+    ``quick-probe``), which must not write the Node; then the full tier
+    in process with an impossible floor, the condition set back to True
+    each time it writes False, until its recorder patches a repeated
+    Warning. Every request each pod made (method and path, as the stub
+    logged them, mapped to group, resource with its subresource, and
+    verb) must be allowed by its own shipped ClusterRole.
+    ``{"monitor_manifest": ...}`` gives each pod's seconds, build seconds,
+    launches and ``.so`` files, the seconds the cache saved the restart,
+    the quick report's checks, the flaps and Warning counts, and each
+    pod's requests by verb and resource.
 
 The last lines are the kernel table as one JSON object (each row with the
 launches of the gate, the burn-in forward, the flagship MoE flash
@@ -338,7 +371,9 @@ forward, the probe pod, the roll's probe pods together, the requestor
 roll's hook calls together and its probe pods together, the checkpoint
 roll's probe pods together, the monitor's payload, the quarantine
 hand-off's probe pod, the informer roll's probe pods together, the
-controller roll's probe pods together and the gang's payload),
+controller roll's probe pods together, the fleet roll's probe pods
+together, the gang's payload and the first full-tier monitor pod's
+payload),
 the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
 or run from a directory that holds only this file, it exits non-zero and
@@ -508,6 +543,18 @@ FLEET_SHARDS = 2
 FLEET_IDS = ("fleet-w0", "fleet-w1")
 FLEET_INTERVAL_S = 1
 FLEET_LEASES = ("fleet-orchestrator", "fleet-shard-00", "fleet-shard-01")
+#: The port's monitor DaemonSets (package data), the seconds a pod of
+#: them may take to what it is waited for, and the flapping pod's cadence.
+FULL_MANIFEST = "monitor-daemonset.yaml"
+QUICK_MANIFEST = "monitor-quickprobe-daemonset.yaml"
+MONITOR_POD_TIMEOUT_S = 300.0
+FLAP_INTERVAL_S = 0.2
+#: The keys of the calibration line (``tools/calibration.py``).
+CALIBRATION_KEYS = {
+    "platform", "n_devices", "links_exercised", "ok", "failures", "mxu_tflops",
+    "torch_matmul_tflops", "kernel_vs_torch_matmul", "matmul_kernel_launched",
+    "ring_gbytes_per_s", "flash_attention_ok", "elapsed_s",
+}
 
 
 def card_line() -> str:
@@ -1612,7 +1659,8 @@ class ApiStub(ThreadingHTTPServer):
     ``/apis/<group>/<version>``, and ``?watch=true``: the client's journal
     streamed as newline-delimited events after ``resourceVersion``, ended
     after ``timeoutSeconds``; a revision compacted away is a 410
-    ``Status``."""
+    ``Status``. Each request's method and path are logged in
+    ``requests``, for the RBAC check of the monitor's pods."""
 
     daemon_threads = True
     request_queue_size = 128
@@ -1633,9 +1681,12 @@ class ApiStub(ThreadingHTTPServer):
 
         kinds = {plural: kind for kind, (_, plural, _) in RESOURCES.items()}
         stub = self
+        #: Every request served: (method, path with its query).
+        self.requests: list[tuple[str, str]] = []
 
         class Handler(BaseHTTPRequestHandler):
             def _serve(self) -> None:
+                stub.requests.append((self.command, self.path))
                 url = urllib.parse.urlsplit(self.path)
                 query = dict(urllib.parse.parse_qsl(url.query))
                 m = stub.PATH.match(url.path)
@@ -4458,6 +4509,371 @@ def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
     return result
 
 
+# ----------------------------------------------------------------------
+# The calibration line, and the monitor's shipped DaemonSets.
+# ----------------------------------------------------------------------
+
+def calibration_phase(card: str) -> dict:
+    """``python -m k8s_operator_libs_tpu_torch.tools.calibration`` as a
+    child on every card: one line with the port's keys, the gate ok, K1
+    launched, the flash probe ok, both rates measured."""
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_operator_libs_tpu_torch.tools.calibration"],
+        cwd=REPO, env=child_env(), capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+    )
+    wall_s = time.perf_counter() - start
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith("{")]
+    if proc.returncode != 0 or len(lines) != 1:
+        raise AssertionError(
+            f"calibration: rc {proc.returncode}, {len(lines)} lines: {proc.stderr[-2000:]}"
+        )
+    line = json.loads(lines[0])
+    print(json.dumps({"calibration": line, "wall_s": wall_s, "card": card}), flush=True)
+    if set(line) != CALIBRATION_KEYS:
+        raise AssertionError(f"calibration keys: {sorted(line)}")
+    if not (line["ok"] and line["matmul_kernel_launched"] is True
+            and line["flash_attention_ok"] is True
+            and line["mxu_tflops"] > 0 and line["torch_matmul_tflops"] > 0):
+        raise AssertionError(f"calibration: {line}")
+    return line
+
+
+def shipped_manifest(name: str) -> dict:
+    """One of the port's DaemonSet manifests, read through the package's
+    own data path (what an installed package ships), by kind."""
+    import importlib.resources
+
+    import yaml
+
+    text = (importlib.resources.files("k8s_operator_libs_tpu_torch") / "manifests"
+            / name).read_text()
+    return {doc["kind"]: doc for doc in yaml.safe_load_all(text) if doc}
+
+
+#: A request path of the API: its group, resource, object and subresource.
+API_PATH = re.compile(
+    r"^/(?:api/v1|apis/(?P<group>[^/]+)/[^/]+)(?:/namespaces/[^/]+)?"
+    r"/(?P<plural>[^/]+)(?:/(?P<name>[^/]+))?(?:/(?P<sub>[^/]+))?$"
+)
+
+
+def rbac_request(method: str, path: str) -> tuple[str, str, str]:
+    """A logged request as (API group, resource, verb): the subresource
+    kept on the resource (``nodes/status``) and ``patch`` apart from
+    ``update``. A path that names no resource maps to one no rule grants."""
+    import urllib.parse
+
+    url = urllib.parse.urlsplit(path)
+    m = API_PATH.match(url.path)
+    if m is None:
+        return ("", f"? {url.path}", method.lower())
+    resource = m.group("plural") + (f"/{m.group('sub')}" if m.group("sub") else "")
+    named = m.group("name") is not None
+    if method == "GET":
+        verb = "get" if named else ("watch" if "watch=true" in url.query else "list")
+    elif method == "DELETE":
+        verb = "delete" if named else "deletecollection"
+    else:
+        verb = {"POST": "create", "PUT": "update", "PATCH": "patch"}.get(method, method.lower())
+    return (m.group("group") or "", resource, verb)
+
+
+def request_name(request: tuple[str, str, str]) -> str:
+    group, resource, verb = request
+    return f"{verb} {group}/{resource}" if group else f"{verb} {resource}"
+
+
+def role_allows(role: dict, request: tuple[str, str, str]) -> bool:
+    group, resource, verb = request
+    return any(group in rule.get("apiGroups", ()) and resource in rule.get("resources", ())
+               and verb in rule.get("verbs", ()) for rule in role["rules"])
+
+
+def child_pids(pid: int) -> list[int]:
+    """The processes whose parent is ``pid``."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        if int(fields[1]) == pid:
+            out.append(int(entry))
+    return out
+
+
+class DaemonSetPod:
+    """A DaemonSet's container run as the kubelet would: its command with
+    ``python`` this interpreter and the metrics port a free one, its
+    environment with ``NODE_NAME`` from the downward API (the monitored
+    node), each hostPath mount a directory here, and ``KUBECONFIG`` at the
+    stub in place of the service account; ``flags`` replace or add
+    command-line flags. Its output goes to files; :meth:`stop` sends
+    SIGTERM to its process group and to its children's (the per-cycle
+    payload runs in a session of its own)."""
+
+    def __init__(self, docs: dict, label: str, workdir: str, kubeconfig: str,
+                 host_paths: dict, flags: Optional[dict] = None) -> None:
+        pod = docs["DaemonSet"]["spec"]["template"]["spec"]
+        (container,) = pod["containers"]
+        volumes = {v["name"]: v["hostPath"]["path"] for v in pod.get("volumes", [])}
+        if set(volumes.values()) != set(host_paths):
+            raise AssertionError(f"{label}: hostPaths {volumes}, mapped {host_paths}")
+        here = {m["mountPath"]: host_paths[volumes[m["name"]]]
+                for m in container.get("volumeMounts", [])}
+        argv = list(container["command"])
+        argv[0] = sys.executable
+        self.metrics_port = 0
+        if "--metrics-port" in argv:
+            self.metrics_port = free_port()
+            argv[argv.index("--metrics-port") + 1] = str(self.metrics_port)
+        for flag, value in (flags or {}).items():
+            if flag in argv and value is not None:
+                argv[argv.index(flag) + 1] = value
+            elif flag not in argv:
+                argv += [flag] if value is None else [flag, value]
+        env = child_env(KUBECONFIG=kubeconfig)
+        env.pop("KUBERNETES_SERVICE_HOST", None)
+        for item in container.get("env", []):
+            if "valueFrom" in item:
+                if item["valueFrom"]["fieldRef"]["fieldPath"] != "spec.nodeName":
+                    raise AssertionError(f"{label}: downward API field {item}")
+                env[item["name"]] = MONITOR_NODE
+            else:
+                env[item["name"]] = here.get(item["value"], item["value"])
+        self.label, self.argv = label, argv
+        self.err_path = os.path.join(workdir, f"{label}.err")
+        with open(os.path.join(workdir, f"{label}.out"), "w") as out, \
+                open(self.err_path, "w") as err:
+            self.start = time.perf_counter()
+            self.proc = subprocess.Popen(argv, cwd=workdir, env=env, stdout=out, stderr=err,
+                                         start_new_session=True)
+
+    def stderr(self) -> str:
+        with open(self.err_path) as f:
+            return f.read()
+
+    def scrape(self) -> str:
+        """``/metrics`` of the pod, or "" while it does not answer 200."""
+        import urllib.request
+
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{self.metrics_port}/metrics", timeout=2) as resp:
+                return resp.read().decode() if resp.status == 200 else ""
+        except OSError:
+            return ""
+
+    def wait(self, what: str, predicate, timeout: float) -> float:
+        """Seconds from the pod's start until ``predicate()`` holds."""
+        while not predicate():
+            if self.proc.poll() is not None:
+                raise AssertionError(
+                    f"{self.label} exited {self.proc.returncode} before {what}: "
+                    f"{self.stderr()[-3000:]}"
+                )
+            if time.perf_counter() - self.start > timeout:
+                raise AssertionError(f"{self.label}: no {what} within {timeout} s: "
+                                     f"{self.stderr()[-3000:]}")
+            time.sleep(0.1)
+        return time.perf_counter() - self.start
+
+    def stop(self) -> Optional[int]:
+        import signal
+
+        kids = child_pids(self.proc.pid)
+        for pid in [self.proc.pid] + kids:
+            try:
+                os.killpg(os.getpgid(pid), signal.SIGTERM)
+            except ProcessLookupError:
+                pass
+        try:
+            return self.proc.wait(timeout=30)
+        except subprocess.TimeoutExpired:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+            return self.proc.wait(timeout=30)
+
+
+def probes_total(metrics: str) -> float:
+    m = re.search(r"^tpu_monitor_probes_total\{[^}]*\} (\S+)$", metrics, re.MULTILINE)
+    return float(m.group(1)) if m else 0.0
+
+
+def payload_cost(stderr: str) -> dict:
+    """The first probe payload's kernel builds and launches, as the
+    monitor logged them."""
+    for line in stderr.splitlines():
+        if "probe payload: " in line:
+            return json.loads(line.split("probe payload: ", 1)[1])["kernels"]
+    raise AssertionError(f"no probe payload line in the monitor's log: {stderr[-2000:]}")
+
+
+def monitor_manifest_phase(card: str, gate_launches: dict) -> dict:
+    """The port's two shipped monitor DaemonSets run as the kubelet would
+    on a GPU node over ``ApiStub``: the full tier twice on one fresh kernel
+    cache (a restart), the quick tier once, and the full tier flapping
+    until its recorder repeats a Warning; every request each pod made is
+    held to its shipped ClusterRole."""
+    from k8s_operator_libs_tpu_torch.kube.client import get_or_none
+    from k8s_operator_libs_tpu_torch.kube.objects import Node, condition_status, set_condition
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.tpu.health import KERNEL_CACHE_DIR
+    from k8s_operator_libs_tpu_torch.tpu.monitor import ICI_HEALTHY_CONDITION
+
+    phase_start = time.perf_counter()
+    docs = {"full": shipped_manifest(FULL_MANIFEST), "quick": shipped_manifest(QUICK_MANIFEST)}
+    client = DictClient()
+    node = Node.new(MONITOR_NODE, labels=local_gpu_labels())
+    node.set_ready(True)
+    client.create(node)
+
+    def condition() -> Optional[str]:
+        return condition_status(client.get("Node", MONITOR_NODE).status, ICI_HEALTHY_CONDITION)
+
+    info: dict = {"node_labels": node.labels}
+    requests: dict = {}
+    with tempfile.TemporaryDirectory(prefix="monitor-manifest-") as workdir, \
+            ApiStub(client) as stub:
+        kubeconfig = write_kubeconfig(workdir, stub.url)
+        # Fresh and empty: the first pod must build, not find the
+        # kernels this script built at its start.
+        cache = os.path.join(workdir, "kernel-cache")
+        os.mkdir(cache)
+        host_paths = {KERNEL_CACHE_DIR: cache}
+
+        def so_files() -> dict:
+            return {name: os.stat(os.path.join(cache, name)).st_mtime_ns
+                    for name in sorted(os.listdir(cache)) if name.endswith(".so")}
+
+        def run(label: str, tier: str, paths: dict, until, what: str, flags=None) -> dict:
+            mark = len(stub.requests)
+            pod = DaemonSetPod(docs[tier], label, workdir, kubeconfig, paths, flags)
+            try:
+                seconds = pod.wait(what, until(pod), MONITOR_POD_TIMEOUT_S)
+            finally:
+                rc = pod.stop()
+            requests[label] = [rbac_request(m, p) for m, p in stub.requests[mark:]]
+            return {"seconds": seconds, "rc_after_sigterm": rc, "stderr": pod.stderr(),
+                    "argv": pod.argv[1:]}
+
+        def first_cycle(pod):
+            return lambda: condition() == "True" and probes_total(pod.scrape()) >= 1
+
+        for label in ("full_1", "full_2"):
+            pod = run(label, "full", host_paths, first_cycle, "first cycle")
+            cost = payload_cost(pod.pop("stderr"))
+            check_launches(f"monitor_manifest {label} payload", cost["launches"], gate_launches)
+            info[label] = {"seconds_to_first_cycle": pod["seconds"],
+                           "rc_after_sigterm": pod["rc_after_sigterm"],
+                           "build_s": cost["build_s"], "launches": cost["launches"],
+                           "so_files": so_files()}
+        info["command"] = pod["argv"]
+        info["nvcc_saved_s"] = (info["full_1"]["seconds_to_first_cycle"]
+                                - info["full_2"]["seconds_to_first_cycle"])
+
+        rv = client.get("Node", MONITOR_NODE).raw["metadata"]["resourceVersion"]
+
+        def quick_report(pod):
+            def published() -> bool:
+                report = get_or_none(client, "NodeHealthReport", MONITOR_NODE)
+                return (report is not None and report.raw["spec"].get("source") == "quick-probe"
+                        and bool(report.raw.get("status", {}).get("checks")))
+            return published
+
+        pod = run("quick", "quick", {}, quick_report, "NodeHealthReport")
+        report = client.get("NodeHealthReport", MONITOR_NODE).raw
+        info["quick"] = {"seconds_to_report": pod["seconds"],
+                         "rc_after_sigterm": pod["rc_after_sigterm"],
+                         "checks": report["status"]["checks"],
+                         "node_rv_unchanged":
+                             client.get("Node", MONITOR_NODE).raw["metadata"]["resourceVersion"]
+                             == rv}
+
+        # A flapping node: the full tier in process with an impossible
+        # floor, the condition set back to True by hand each time the pod
+        # writes False, until the recorder repeats a Warning. A Warning
+        # is recorded only on a transition, and its message carries the
+        # battery's seconds and rate, so a repeat is a message that came
+        # out the same, or the eleventh similar one in ten minutes (the
+        # correlator's aggregate); either is a PATCH of the Event.
+        flips = 0
+
+        def repeated(pod):
+            def check() -> bool:
+                nonlocal flips
+                if any(e.raw["type"] == "Warning" and e.raw["count"] >= 2
+                       for e in client.list("Event")):
+                    return True
+                current = client.get("Node", MONITOR_NODE)
+                if condition_status(current.status, ICI_HEALTHY_CONDITION) == "False":
+                    set_condition(current.status, ICI_HEALTHY_CONDITION, "True",
+                                  reason="ClearedByHand", message="cleared")
+                    try:
+                        client.update_status(current)
+                        flips += 1
+                    except Exception as e:  # noqa: BLE001 - raced the pod's write
+                        if getattr(e, "reason", "") != "Conflict":
+                            raise
+                return False
+            return check
+
+        pod = run("full_flap", "full", host_paths, repeated, "repeated Warning",
+                  flags={"--in-process": None, "--min-mxu-tflops": "1e9",
+                         "--interval-seconds": str(FLAP_INTERVAL_S)})
+        warnings = [e.raw for e in client.list("Event") if e.raw["type"] == "Warning"]
+        info["full_flap"] = {"seconds": pod["seconds"], "flips": flips,
+                             "rc_after_sigterm": pod["rc_after_sigterm"],
+                             "warning_events": len(warnings),
+                             "warning_counts": sorted(e["count"] for e in warnings),
+                             "argv": pod["argv"]}
+        info["so_files_after"] = so_files()
+
+    denied = {}
+    for label, seen in requests.items():
+        role = docs["quick" if label == "quick" else "full"]["ClusterRole"]
+        info.setdefault("requests", {})[label] = {
+            request_name(r): seen.count(r) for r in sorted(set(seen))
+        }
+        bad = sorted({request_name(r) for r in seen if not role_allows(role, r)})
+        if bad:
+            denied[label] = bad
+    info["denied"] = denied
+    info["phase_wall_s"] = time.perf_counter() - phase_start
+    print(json.dumps({"monitor_manifest": info, "card": card}), flush=True)
+
+    full_1, full_2 = info["full_1"], info["full_2"]
+    writes_2 = [r for r in requests["full_2"] if r[2] not in ("get", "list", "watch")]
+    if writes_2:
+        raise AssertionError(f"monitor_manifest: the restarted pod wrote {writes_2}")
+    quick_writes = [r for r in requests["quick"] if r[1].startswith("nodes") and r[2] != "get"]
+    if quick_writes or not info["quick"]["node_rv_unchanged"]:
+        raise AssertionError(f"monitor_manifest: the quick tier wrote the node: {quick_writes}")
+    if info["quick"]["checks"] != {"ring_allreduce": True, "mxu": True}:
+        raise AssertionError(f"monitor_manifest: quick report {info['quick']['checks']}")
+    if ("", "events", "patch") not in requests["full_flap"]:
+        raise AssertionError("monitor_manifest: no Event was patched")
+    if denied:
+        raise AssertionError(f"monitor_manifest: requests the ClusterRole denies: {denied}")
+    # Last, what only the card shows (a CPU rehearsal stops here): pod 1
+    # built both kernels into the empty cache, and the restart built
+    # nothing, leaving each .so as pod 1 wrote it.
+    if any(full_2["build_s"].values()) or full_2["so_files"] != full_1["so_files"]:
+        raise AssertionError(
+            f"monitor_manifest: the restarted pod built: {full_2['build_s']}, "
+            f"{full_1['so_files']} -> {full_2['so_files']}"
+        )
+    if not (full_1["so_files"] and all(
+            full_1["build_s"].get(lib, 0.0) > 0 for lib in ("matmul", "flash_attention"))):
+        raise AssertionError(
+            f"monitor_manifest: pod 1 did not build: {full_1['build_s']}, {full_1['so_files']}"
+        )
+    return info
+
+
 def lease_holder(client, name: str, namespace: str) -> str:
     from k8s_operator_libs_tpu_torch.kube.client import get_or_none
 
@@ -4527,6 +4943,8 @@ def main() -> int:
         watched = watch.stop()
     print(json.dumps({"watch": watched, "card": card}), flush=True)
     gang = gang_phase(card, launches)
+    calibration_phase(card)
+    manifest = monitor_manifest_phase(card, launches)
 
     for row in rows:
         kernel = "matmul" if row["name"] == "matmul" else "flash_attention"
@@ -4544,6 +4962,7 @@ def main() -> int:
         row["launches_controller_roll"] = controller["pod_launches"][kernel]
         row["launches_fleet_roll"] = fleet["pod_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
+        row["launches_monitor_manifest"] = manifest["full_1"]["launches"][kernel]
         if kernel == "matmul":
             row["path_launches"] = launches["matmul_by_path"].get(row["path"], 0)
     print(json.dumps({"kernels": rows}), flush=True)

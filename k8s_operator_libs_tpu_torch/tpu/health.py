@@ -589,6 +589,12 @@ class SubprocessHealthGate:
         try:
             stdout, stderr = proc.communicate(timeout=self.timeout_seconds)
             self.last_stderr = stderr or ""
+            # The child's line of kernel builds, world formation and
+            # launches, into this process's log (a monitor pod's log).
+            cost = next((line for line in reversed(self.last_stderr.splitlines())
+                         if line.startswith('{"kernels"')), None)
+            if cost is not None:
+                log.info("probe payload: %s", cost)
         except subprocess.TimeoutExpired:
             self.last_stderr = ""
             try:

@@ -272,6 +272,18 @@ def test_gate_on_card_launches_both_kernels(cuda):
     assert flash_attention.launches == 4
 
 
+def test_calibration_line_on_the_cards(cuda):
+    from k8s_operator_libs_tpu_torch.tools.calibration import run_calibration
+
+    line = run_calibration()
+    assert line["platform"] == "gpu"
+    assert line["n_devices"] == torch.cuda.device_count()
+    assert line["ok"], line["failures"]
+    assert line["matmul_kernel_launched"] is True
+    assert line["flash_attention_ok"] is True
+    assert line["kernel_vs_torch_matmul"] > 0
+
+
 # ----------------------------------------------------------------------
 # NCCL worlds.
 # ----------------------------------------------------------------------

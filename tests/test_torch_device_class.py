@@ -592,9 +592,11 @@ def test_slice_scoped_gate_matches_jax(monkeypatch):
 # Packaging (the kernel sources ship) and the kernels' build directory
 # ----------------------------------------------------------------------
 
-def test_wheel_carries_the_kernel_sources(tmp_path):
-    # Built from a copy: an in-tree build would write build/ and egg-info
-    # into the checkout.
+@pytest.fixture(scope="module")
+def wheel_names(tmp_path_factory) -> set:
+    """The file names in a wheel of the package. Built from a copy: an
+    in-tree build would write build/ and egg-info into the checkout."""
+    tmp_path = tmp_path_factory.mktemp("wheel")
     src = tmp_path / "src"
     src.mkdir()
     for name in ("pyproject.toml", "README.md"):
@@ -611,12 +613,25 @@ def test_wheel_carries_the_kernel_sources(tmp_path):
     )
     assert proc.returncode == 0, proc.stderr[-2000:]
     (wheel,) = out.glob("*.whl")
-    names = set(zipfile.ZipFile(wheel).namelist())
+    return set(zipfile.ZipFile(wheel).namelist())
+
+
+def test_wheel_carries_the_kernel_sources(wheel_names):
     csrc = REPO / "k8s_operator_libs_tpu_torch" / "ops" / "csrc"
     sources = sorted(p.relative_to(REPO).as_posix() for p in csrc.iterdir() if p.is_file())
     assert "k8s_operator_libs_tpu_torch/ops/csrc/matmul.cu" in sources
     assert "k8s_operator_libs_tpu_torch/ops/csrc/flash_attention.cu" in sources
-    assert not [s for s in sources if s not in names]
+    assert not [s for s in sources if s not in wheel_names]
+
+
+def test_wheel_carries_the_monitor_manifests(wheel_names):
+    manifests = REPO / "k8s_operator_libs_tpu_torch" / "manifests"
+    shipped = sorted(p.relative_to(REPO).as_posix() for p in manifests.glob("*.yaml"))
+    assert shipped == [
+        "k8s_operator_libs_tpu_torch/manifests/monitor-daemonset.yaml",
+        "k8s_operator_libs_tpu_torch/manifests/monitor-quickprobe-daemonset.yaml",
+    ]
+    assert not [m for m in shipped if m not in wheel_names]
 
 
 def test_build_directory_follows_the_environment(monkeypatch, tmp_path):

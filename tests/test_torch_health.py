@@ -534,6 +534,7 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.upgrade.inplace\n"
         "from k8s_operator_libs_tpu_torch.upgrade.metrics import UpgradeMetrics\n"
         "import k8s_operator_libs_tpu_torch.tools.trace_view\n"
+        "import k8s_operator_libs_tpu_torch.tools.calibration\n"
         "import k8s_operator_libs_tpu_torch.policy\n"
         "import k8s_operator_libs_tpu_torch.api.telemetry_v1alpha1\n"
         "import k8s_operator_libs_tpu_torch.tpu as t\n"

@@ -331,6 +331,8 @@ def test_monitor_process_writes_the_condition(tmp_path, extra, rc, condition):
         server.cluster.create(_node())
         proc = _run_monitor_process(server, tmp_path, "--publish-reports", *extra)
         assert proc.returncode == rc, proc.stderr[-3000:]
+        # The child's kernel builds and launches reach the monitor's log.
+        assert 'probe payload: {"kernels": {"build_s": {}, ' in proc.stderr
         node = Node(server.cluster.get("Node", NODE).raw)
         assert condition_status(node.status, port_monitor.ICI_HEALTHY_CONDITION) == condition
         events = [e.raw for e in server.cluster.list("Event")]

@@ -543,6 +543,13 @@ FLEET_SHARDS = 2
 FLEET_IDS = ("fleet-w0", "fleet-w1")
 FLEET_INTERVAL_S = 1
 FLEET_LEASES = ("fleet-orchestrator", "fleet-shard-00", "fleet-shard-01")
+#: The relay roll: the fleet roll's shape on pools of its own, the workers
+#: watching through a ``WatchRelay`` in this process until the first pool
+#: is done.
+RELAY_NODES = ("relay-a-h0", "relay-b-h0")
+RELAY_POOLS = ("relay-a", "relay-b")
+RELAY_ROLLOUT = "gpu-relay-fleet"
+RELAY_IDS = ("relay-w0", "relay-w1")
 #: The port's monitor DaemonSets (package data), the seconds a pod of
 #: them may take to what it is waited for, and the flapping pod's cadence.
 FULL_MANIFEST = "monitor-daemonset.yaml"
@@ -1657,10 +1664,20 @@ class ApiStub(ThreadingHTTPServer):
     the maps the machine writes) and DELETE of an object, a pod's
     ``eviction`` subresource, the discovery documents ``/api/v1`` and
     ``/apis/<group>/<version>``, and ``?watch=true``: the client's journal
-    streamed as newline-delimited events after ``resourceVersion``, ended
-    after ``timeoutSeconds``; a revision compacted away is a 410
-    ``Status``. Each request's method and path are logged in
-    ``requests``, for the RBAC check of the monitor's pods."""
+    streamed after ``resourceVersion`` as chunked frames, ended after
+    ``timeoutSeconds`` by the terminal chunk; a revision compacted away is
+    a 410 ``Status``. HTTP/1.1: every reply has its ``Content-Length`` (a
+    watch window its chunks), so a connection stays open for the next
+    request or window, pipelined ones included. A request whose ``Accept``
+    lists the compact encoding (``kube/wire.py``) is answered compact, and
+    a compact body is read by its ``Content-Type``. It neither pages a
+    list nor serves ``sinceResourceVersion``: a list is always whole,
+    which the client takes as an older server's answer. Each request's
+    method and path are logged in ``requests``, for the RBAC check of the
+    monitor's pods; the watch streams open on each (plural, namespace,
+    label selector, field selector) are counted in ``watch_open``, with
+    their high-water mark in ``watch_high`` and the streams ever opened in
+    ``watch_opens``."""
 
     daemon_threads = True
     request_queue_size = 128
@@ -1679,20 +1696,31 @@ class ApiStub(ThreadingHTTPServer):
 
         from k8s_operator_libs_tpu_torch.kube.rest import RESOURCES
 
+        from k8s_operator_libs_tpu_torch.kube import wire
+
         kinds = {plural: kind for kind, (_, plural, _) in RESOURCES.items()}
         stub = self
         #: Every request served: (method, path with its query).
         self.requests: list[tuple[str, str]] = []
+        self.watch_lock = threading.Lock()
+        #: Watch streams open now, and the most open at once, by scope.
+        self.watch_open: dict[tuple, int] = {}
+        self.watch_high: dict[tuple, int] = {}
+        self.watch_opens: dict[tuple, int] = {}
 
         class Handler(BaseHTTPRequestHandler):
+            protocol_version = "HTTP/1.1"
+
             def _serve(self) -> None:
                 stub.requests.append((self.command, self.path))
                 url = urllib.parse.urlsplit(self.path)
                 query = dict(urllib.parse.parse_qsl(url.query))
                 m = stub.PATH.match(url.path)
                 d = stub.DISCOVERY.match(url.path)
+                self.encoding = wire.negotiate_encoding(self.headers.get("Accept"))
                 length = int(self.headers.get("Content-Length") or 0)
-                body = json.loads(self.rfile.read(length)) if length else None
+                body = (wire.decode_body(self.rfile.read(length), self.headers.get("Content-Type"))
+                        if length else None)
                 try:
                     if d is not None and self.command == "GET":
                         group = d.group("group") or ""
@@ -1701,8 +1729,8 @@ class ApiStub(ThreadingHTTPServer):
                                "groupVersion": f"{group}/{version}" if group else version,
                                "resources": client.discover(group, version)}
                     elif (self.command == "GET" and query.get("watch") == "true"
-                          and not m.group("name")):
-                        self._watch(kinds[m.group("plural")], m.group("ns") or "", query)
+                          and m is not None and not m.group("name")):
+                        self._watch(m.group("plural"), m.group("ns") or "", query)
                         return
                     else:
                         out = self._object(m, body, query)
@@ -1714,43 +1742,57 @@ class ApiStub(ThreadingHTTPServer):
                 self._reply(code, out)
 
             def _reply(self, code: int, out: dict) -> None:
-                data = json.dumps(out).encode()
+                data = wire.encode_body(out, self.encoding)
                 self.send_response(code)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", wire.content_type_for(self.encoding))
                 self.send_header("Content-Length", str(len(data)))
                 self.end_headers()
                 self.wfile.write(data)
 
-            def _watch(self, kind: str, ns: str, query: dict) -> None:
-                """The journal's events as a stream that ends with the
-                window (HTTP/1.0: the connection's close ends the body)."""
+            def _chunk(self, event: dict) -> None:
+                frame = wire.encode_watch_frame(event, self.encoding)
+                self.wfile.write(b"%x\r\n%s\r\n" % (len(frame), frame))
+
+            def _watch(self, plural: str, ns: str, query: dict) -> None:
+                """The journal's events as chunked frames; the terminal
+                chunk ends the window and the connection stays open."""
                 rv = query.get("resourceVersion") or None
                 if rv is not None and int(rv) < client.compacted:
                     self._reply(410, {"kind": "Status", "reason": "Expired", "code": 410,
                                       "message": f"resourceVersion {rv} is compacted"})
                     return
+                scope = (plural, ns, query.get("labelSelector", ""), query.get("fieldSelector", ""))
                 events = client.watch(
-                    kind, ns, label_selector=query.get("labelSelector") or None,
+                    kinds[plural], ns, label_selector=query.get("labelSelector") or None,
                     field_selector=query.get("fieldSelector") or None,
                     timeout_seconds=int(query.get("timeoutSeconds") or 300),
                     resource_version=rv,
                 )
                 self.send_response(200)
-                self.send_header("Content-Type", "application/json")
+                self.send_header("Content-Type", wire.content_type_for(self.encoding))
+                self.send_header("Transfer-Encoding", "chunked")
                 self.end_headers()
+                stub.watch_opened(scope)
                 try:
-                    for event, obj in events:
-                        line = json.dumps({"type": event, "object": obj.raw}) + "\n"
-                        self.wfile.write(line.encode())
-                        self.wfile.flush()
+                    try:
+                        for event, obj in events:
+                            self._chunk({"type": event, "object": obj.raw})
+                    except OSError:
+                        self.close_connection = True
+                        return  # the watcher went away
+                    except Exception as e:  # noqa: BLE001 - an ERROR frame, as the API sends
+                        reason = getattr(e, "reason", "InternalError")
+                        self._chunk({"type": "ERROR", "object": {
+                            "kind": "Status", "reason": reason, "message": str(e),
+                            "code": stub.CODES.get(reason, 500)}})
+                finally:
+                    # Closed before the terminal chunk: the watcher may
+                    # open its next window at once.
+                    stub.watch_closed(scope)
+                try:
+                    self.wfile.write(b"0\r\n\r\n")
                 except OSError:
-                    return  # the watcher went away
-                except Exception as e:  # noqa: BLE001 - an ERROR frame, as the API sends
-                    reason = getattr(e, "reason", "InternalError")
-                    status = {"kind": "Status", "reason": reason, "message": str(e),
-                              "code": stub.CODES.get(reason, 500)}
-                    self.wfile.write((json.dumps({"type": "ERROR", "object": status})
-                                      + "\n").encode())
+                    self.close_connection = True
 
             def _object(self, m, body, query) -> dict:
                 from k8s_operator_libs_tpu_torch.kube.client import ApiError
@@ -1793,6 +1835,31 @@ class ApiStub(ThreadingHTTPServer):
 
         super().__init__(("127.0.0.1", 0), Handler)
         self.thread = threading.Thread(target=self.serve_forever, daemon=True)
+
+    def watch_opened(self, scope: tuple) -> None:
+        with self.watch_lock:
+            self.watch_open[scope] = self.watch_open.get(scope, 0) + 1
+            self.watch_opens[scope] = self.watch_opens.get(scope, 0) + 1
+            self.watch_high[scope] = max(self.watch_high.get(scope, 0), self.watch_open[scope])
+
+    def watch_closed(self, scope: tuple) -> None:
+        with self.watch_lock:
+            self.watch_open[scope] -= 1
+
+    def watch_marks(self, restart: bool = False) -> dict:
+        """The high-water mark of each scope's open streams, as
+        ``plural ns label field`` -> count; ``restart`` starts the next
+        marks from the streams open now."""
+        with self.watch_lock:
+            marks = {" ".join(scope): n for scope, n in sorted(self.watch_high.items())}
+            if restart:
+                self.watch_high = dict(self.watch_open)
+        return marks
+
+    def watch_opens_by_scope(self) -> dict:
+        """The streams ever opened on each scope, keyed as ``watch_marks``."""
+        with self.watch_lock:
+            return {" ".join(scope): n for scope, n in sorted(self.watch_opens.items())}
 
     @property
     def url(self) -> str:
@@ -4300,14 +4367,25 @@ def cordoned_pools(journal, nodes) -> list[list[str]]:
     return out
 
 
-def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str,
+                     label: str = "fleet_roll", nodes=FLEET_NODES, pools=FLEET_POOLS,
+                     rollout: str = FLEET_ROLLOUT, ids=FLEET_IDS, relay: bool = False) -> dict:
     """Two GPU pools, ``fleet-a`` and ``fleet-b`` (a node each), rolled
     550 -> 560 under one FleetRollout whose global budget is one pool, by
     two fleet workers of the port's ``upgrade_controller`` command
     (``--shards 2``, the first also ``--orchestrate``) over ``ApiStub``,
     interval-driven; the port's simulators play the kubelets, each probe
     pod's payload on the card with a kernel cache an earlier phase warmed.
-    Then both workers stopped by SIGTERM."""
+    Then both workers stopped by SIGTERM.
+
+    With ``relay`` (the ``relay_roll`` phase, its own pools) a port
+    ``WatchRelay`` over ``ApiStub`` runs in this process, with the wire
+    loop's stall watchdog, and the workers watch through it
+    (``--watch-relay``); it is stopped once the first pool is done, and
+    the second pool finishes on direct watches. The phase then holds the
+    stub's watch streams a scope, the workers' fallbacks and the
+    watchdog's stalls to the contract, and checks the transport on the
+    stub (``relay_transport``)."""
     from k8s_operator_libs_tpu_torch.api import make_fleet_rollout, pool_phase
     from k8s_operator_libs_tpu_torch.kube.objects import Node, wrap
     from k8s_operator_libs_tpu_torch.kube.sim import (
@@ -4324,7 +4402,7 @@ def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
     start = time.perf_counter()
     keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
     client = DictClient()
-    pool_nodes(client, FLEET_NODES)
+    pool_nodes(client, nodes)
     installer = LibtpuDaemonSetManager(client, LibtpuSpec(version=ROLL_VERSIONS[0]))
     lease_ns = installer.spec.namespace
     driver = DaemonSetSimulator(client, name=installer.name, namespace=installer.spec.namespace,
@@ -4332,12 +4410,17 @@ def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
                                 initial_hash=ROLL_VERSIONS[0])
     driver.settle()
     driver.safe_load_annotation = keys.safe_driver_load_annotation
-    client.create(wrap(make_fleet_rollout(FLEET_ROLLOUT, list(FLEET_POOLS), 1)))
+    client.create(wrap(make_fleet_rollout(rollout, list(pools), 1)))
     cache = os.path.join(cache_root, ROLL_NODES[0])
-    print(f"fleet_roll: probe pods on the kernel cache of {ROLL_NODES[0]}", flush=True)
+    print(f"{label}: probe pods on the kernel cache of {ROLL_NODES[0]}", flush=True)
     spec = ValidationPodSpec()
     policy_doc = dict(ROLL_POLICY, maxUnavailable="100%")  # the grant is the budget
     workers: list = []
+    watch_relay = watchdog = None
+    relay_stats: dict = {}
+    marks_with_relay: dict = {}
+    opens_at_stop: dict = {}
+    killed_at = None
     with ApiStub(client) as stub, tempfile.TemporaryDirectory(prefix="fleet-") as workdir:
         kubeconfig = write_kubeconfig(workdir, stub.url)
         policy = os.path.join(workdir, "policy.json")
@@ -4375,19 +4458,31 @@ def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
         ticker = threading.Thread(target=kubelet, daemon=True)
         ticker.start()
         try:
-            for index, identity in enumerate(FLEET_IDS):
+            relay_flags = []
+            if relay:
+                from k8s_operator_libs_tpu_torch.kube.loopwatch import install_wire_loop_watchdog
+                from k8s_operator_libs_tpu_torch.kube.relay import WatchRelay
+                from k8s_operator_libs_tpu_torch.kube.rest import RestConfig
+
+                watchdog = install_wire_loop_watchdog()
+                watch_relay = WatchRelay(RestConfig(server=stub.url)).start()
+                relay_flags = ["--watch-relay", watch_relay.url]
+                stub.watch_marks(restart=True)
+            for index, identity in enumerate(ids):
                 flags = ["--shards", str(FLEET_SHARDS), "--shard-index", str(index),
-                         "--fleet-rollout", FLEET_ROLLOUT, "--pool-prefix-sep=-",
+                         "--fleet-rollout", rollout, "--pool-prefix-sep=-",
                          "--validation-pod", "--interval", str(FLEET_INTERVAL_S),
-                         "--policy", policy, "--leader-elect-id", identity]
+                         "--policy", policy, "--leader-elect-id", identity, *relay_flags]
                 if index == 0:
                     flags.append("--orchestrate")
                 workers.append(ControllerReplica(identity, kubeconfig, policy, workdir,
-                                                 flags=flags, label="fleet_roll"))
+                                                 flags=flags, label=label))
             for worker in workers:
                 worker.wait_for("pass 1: ", CONTROLLER_START_S)
             workers[0].wait_for("fleet orchestrator: campaigning", CONTROLLER_START_S)
             reset_counts()
+            if watchdog is not None:
+                watchdog.reset()
             journal_at = len(client.journal)
             bumped = last_change = time.perf_counter()
             driver.set_template_hash(ROLL_VERSIONS[1])
@@ -4397,51 +4492,66 @@ def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
                     raise failure[0]
                 for worker in workers:
                     if worker.proc.poll() is not None:
-                        raise AssertionError(f"fleet_roll: {worker.identity} exited "
+                        raise AssertionError(f"{label}: {worker.identity} exited "
                                              f"{worker.proc.returncode}: {worker.tail()}")
-                ledger = client.get("FleetRollout", FLEET_ROLLOUT).raw
-                nodes = {n: Node(client.get("Node", n).raw) for n in FLEET_NODES}
+                ledger = client.get("FleetRollout", rollout).raw
+                node_objs = {n: Node(client.get("Node", n).raw) for n in nodes}
                 now = time.perf_counter()
-                for pool in FLEET_POOLS:
+                if watch_relay is not None and done_at:
+                    # The first pool is done: the relay goes, and the
+                    # second pool must finish on direct watches.
+                    relay_stats = watch_relay.stats()
+                    marks_with_relay = stub.watch_marks(restart=True)
+                    opens_at_stop = stub.watch_opens_by_scope()
+                    watch_relay.stop()
+                    watch_relay, killed_at = None, now - bumped
+                for pool in pools:
                     phase = pool_phase(ledger, pool)
                     if phase in ("granted", "done"):
                         granted_at.setdefault(pool, now - bumped)
                     if phase == "done":
                         done_at.setdefault(pool, now - bumped)
                 view = ({n: (node.labels.get(keys.state_label, ""), node.unschedulable)
-                         for n, node in nodes.items()}, sorted(granted_at), sorted(done_at))
+                         for n, node in node_objs.items()}, sorted(granted_at), sorted(done_at))
                 if view != seen:
                     seen, last_change = view, now
                 if any(state == "upgrade-failed" for state, _ in view[0].values()):
-                    raise AssertionError(f"fleet_roll: a node failed: {view}")
-                if (len(done_at) == len(FLEET_POOLS)
+                    raise AssertionError(f"{label}: a node failed: {view}")
+                if (len(done_at) == len(pools)
                         and all(state == "upgrade-done" and not cordoned
                                 for state, cordoned in view[0].values())
                         and driver.all_pods_ready_and_current()):
                     break
                 if now - last_change > ROLL_STALL_S:
-                    raise AssertionError(f"fleet_roll: nothing moved for {ROLL_STALL_S} s: "
+                    raise AssertionError(f"{label}: nothing moved for {ROLL_STALL_S} s: "
                                          f"{view} {workers[1].tail()}")
                 time.sleep(0.1)
             wall_s = time.perf_counter() - bumped
             stop.set()
             ticker.join(timeout=30)
+            stalls = watchdog.stats() if watchdog is not None else None
+            marks_after_kill = stub.watch_marks()
+            opens_after_stop = {scope: n - opens_at_stop.get(scope, 0)
+                                for scope, n in stub.watch_opens_by_scope().items()}
             with client.lock:
                 journal = list(client.journal[journal_at:])
-            out_at_once = cordoned_pools(journal, FLEET_NODES)
+            out_at_once = cordoned_pools(journal, nodes)
             ends = [worker.terminate() for worker in workers]
             leases = {name: lease_holder(client, name, lease_ns) for name in FLEET_LEASES}
+            transport = relay_transport(stub.url, keys, installer, nodes) if relay else None
         finally:
             stop.set()
             ticker.join(timeout=30)
             for worker in workers:
                 worker.kill()
+            if watch_relay is not None:
+                watch_relay.stop()
             executor.close()
         runs = {}
         for name, seen_at in sorted(pod_seen.items()):
-            run = read_pod_run(workdir, name, "fleet_roll")
+            run = read_pod_run(workdir, name, label)
             run["seconds_to_ready"] = pod_ready[name] - seen_at
-            check_launches(f"fleet_roll probe pod {name}", run["launches"], gate_launches)
+            check_launches(f"{label} probe pod {name}", run["launches"], gate_launches)
             runs[name] = run
         stats, spans = {}, {}
         for worker in workers:
@@ -4454,10 +4564,10 @@ def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
             spans[worker.identity] = dict(sorted(by_name.items()))
         tails = {w.identity: w.tail(8) for w in workers}
     parent = counts()
-    orchestrator = stats[FLEET_IDS[0]].get("orchestrator", {})
+    orchestrator = stats[ids[0]].get("orchestrator", {})
     result = {
-        "nodes": list(FLEET_NODES),
-        "pools": list(FLEET_POOLS),
+        "nodes": list(nodes),
+        "pools": list(pools),
         "versions": list(ROLL_VERSIONS),
         "max_unavailable_pools": 1,
         "interval_s": FLEET_INTERVAL_S,
@@ -4468,8 +4578,9 @@ def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
         "node_writes": len(out_at_once),
         "workers": {w: {"passes": stats[w]["passes"], "idle_ticks": stats[w]["idle_ticks"],
                         "shards": stats[w]["shards"],
-                        "pools_reported_done": stats[w]["pools_reported_done"]}
-                    for w in FLEET_IDS},
+                        "pools_reported_done": stats[w]["pools_reported_done"],
+                        "transport": stats[w].get("transport"), "relay": stats[w].get("relay")}
+                    for w in ids},
         "orchestrator": orchestrator,
         "probe_pods": runs,
         "pod_launches": total_launches(runs.values()),
@@ -4481,32 +4592,144 @@ def fleet_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
         "parent_launches": {lib: parent[lib] for lib in ("matmul", "flash_attention")},
         "phase_wall_s": time.perf_counter() - start,
     }
-    print(json.dumps({"fleet_roll": result, "card": card}), flush=True)
+    if relay:
+        result.update({
+            "relay_stopped_s": killed_at,
+            "upstream_watch_streams_with_relay": marks_with_relay,
+            "upstream_watch_streams_after_stop": marks_after_kill,
+            "upstream_watch_streams_opened_after_stop": opens_after_stop,
+            "relay": relay_stats,
+            "watchdog": stalls,
+            "transport_check": transport,
+        })
+    print(json.dumps({label: result, "card": card}), flush=True)
     if any(len(p) > 1 for p in out_at_once):
-        raise AssertionError(f"fleet_roll: two pools were cordoned at once: {out_at_once}")
-    if {p[0] for p in out_at_once if p} != set(FLEET_POOLS):
-        raise AssertionError(f"fleet_roll: the pools cordoned were {out_at_once}")
+        raise AssertionError(f"{label}: two pools were cordoned at once: {out_at_once}")
+    if {p[0] for p in out_at_once if p} != set(pools):
+        raise AssertionError(f"{label}: the pools cordoned were {out_at_once}")
     if any(rc != 0 for rc in result["return_codes"].values()):
-        raise AssertionError(f"fleet_roll: return codes {result['return_codes']}: {tails}")
+        raise AssertionError(f"{label}: return codes {result['return_codes']}: {tails}")
     if any(leases.values()):
-        raise AssertionError(f"fleet_roll: Leases left held: {leases}")
-    if sorted(run_node(name) for name in runs) != sorted(FLEET_NODES):
-        raise AssertionError(f"fleet_roll: probe pods ran for {sorted(runs)}")
+        raise AssertionError(f"{label}: Leases left held: {leases}")
+    if sorted(run_node(name) for name in runs) != sorted(nodes):
+        raise AssertionError(f"{label}: probe pods ran for {sorted(runs)}")
     if parent["matmul"] or parent["flash_attention"]:
-        raise AssertionError(f"fleet_roll: the parent launched kernels: {parent}")
-    if orchestrator.get("grants_issued") != len(FLEET_POOLS):
-        raise AssertionError(f"fleet_roll: the orchestrator granted {orchestrator}")
-    if not spans[FLEET_IDS[0]].get("fleet.grant_round"):
-        raise AssertionError(f"fleet_roll: no fleet.grant_round span: {spans}")
+        raise AssertionError(f"{label}: the parent launched kernels: {parent}")
+    if orchestrator.get("grants_issued") != len(pools):
+        raise AssertionError(f"{label}: the orchestrator granted {orchestrator}")
+    if not spans[ids[0]].get("fleet.grant_round"):
+        raise AssertionError(f"{label}: no fleet.grant_round span: {spans}")
     if not any(s.get("fleet.report_done") for s in spans.values()):
-        raise AssertionError(f"fleet_roll: no fleet.report_done span: {spans}")
-    if sorted(shard for w in FLEET_IDS for shard in stats[w]["shards"]) != [
+        raise AssertionError(f"{label}: no fleet.report_done span: {spans}")
+    if sorted(shard for w in ids for shard in stats[w]["shards"]) != [
             "shard-00", "shard-01"]:
-        raise AssertionError(f"fleet_roll: shards held {stats}")
+        raise AssertionError(f"{label}: shards held {stats}")
     pods_left = sorted(p.name for p in client.list("Pod"))
     if any(name.startswith("train-") for name in pods_left):
-        raise AssertionError(f"fleet_roll: the drain left workload pods: {pods_left}")
+        raise AssertionError(f"{label}: the drain left workload pods: {pods_left}")
+    if relay:
+        check_relay_roll(result)
     return result
+
+
+def check_relay_roll(result: dict) -> None:
+    """The relay_roll's own contract (``fleet_roll_phase`` with a relay)."""
+    if result["relay_stopped_s"] is None:
+        raise AssertionError("relay_roll: the relay was never stopped")
+    shared = result["upstream_watch_streams_with_relay"]
+    if not shared or max(shared.values()) > 1:
+        raise AssertionError(f"relay_roll: upstream watch streams while the relay lived: "
+                             f"{shared}")
+    if not result["relay"].get("streams_total"):
+        raise AssertionError(f"relay_roll: no stream went through the relay: {result['relay']}")
+    for identity, worker in result["workers"].items():
+        relay, transport = worker["relay"] or {}, worker["transport"] or {}
+        if not relay.get("fallbacks_to_direct") or not relay.get("direct_windows"):
+            raise AssertionError(f"relay_roll: {identity} never fell back to direct watches: "
+                                 f"{relay}")
+        if not transport.get("server_speaks_compact"):
+            raise AssertionError(f"relay_roll: {identity} never got a compact answer: "
+                                 f"{transport}")
+    stalls = result["watchdog"] or {}
+    if stalls.get("stalls_over_threshold", 1):
+        raise AssertionError(f"relay_roll: the wire loop stalled: {stalls}")
+    check = result["transport_check"]
+    if check["primed_requests_sent"] != 0:
+        raise AssertionError(f"relay_roll: the primed lists sent requests: {check}")
+    if check["batch_pipelined_batches"] != 1 or check["batch_connections_opened"] > 1:
+        raise AssertionError(f"relay_roll: the batched flush was not one pipelined batch on "
+                             f"one connection: {check}")
+
+
+def relay_transport(url: str, keys, installer, nodes) -> dict:
+    """The transport on ``ApiStub`` after the relay roll: the lists the
+    workers' informers make, primed in one pipelined batch, then listed
+    (no request may go out for them); and two nodes' annotations flushed
+    together through the write batcher (one pipelined batch, on at most
+    one new connection). The counters' deltas."""
+    from k8s_operator_libs_tpu_torch.kube.rest import RestClient, RestConfig
+    from k8s_operator_libs_tpu_torch.upgrade.write_batch import WriteBatcher
+
+    client = RestClient(RestConfig(server=url, wire_encoding="compact"))
+    try:
+        ns, labels = installer.spec.namespace, dict(installer.match_labels)
+        specs = [("Node", "", None, None), ("Pod", ns, labels, None),
+                 ("DaemonSet", ns, labels, None), ("ControllerRevision", ns, None, None)]
+        primed = client.prime_list_cache(specs)
+        before = client.transport_stats()
+        listed = {kind: len(client.list_with_revision(kind, ns_, label_sel, field_sel)[0])
+                  for kind, ns_, label_sel, field_sel in specs}
+        after_lists = client.transport_stats()
+        batcher = WriteBatcher(client)
+        annotation = keys.upgrade_requested_annotation
+        patches = [(name, {"metadata": {"annotations": {annotation: None}}}) for name in nodes]
+        results = flush_together(batcher, "Node", patches)
+        after_batch = client.transport_stats()
+    finally:
+        client.close()
+    return {
+        "lists_primed": primed,
+        "listed": listed,
+        "primed_requests_sent": after_lists["requests_sent"] - before["requests_sent"],
+        "batch_results": [getattr(r, "name", repr(r)) for r in results],
+        "batch_pipelined_batches": (after_batch["pipelined_batches"]
+                                    - after_lists["pipelined_batches"]),
+        "batch_connections_opened": (after_batch["connections_opened"]
+                                     - after_lists["connections_opened"]),
+        "batch_requests_sent": after_batch["requests_sent"] - after_lists["requests_sent"],
+        "server_speaks_compact": after_batch["server_speaks_compact"],
+    }
+
+
+def flush_together(batcher, kind: str, patches: list) -> list:
+    """Stage ``(name, patch)`` writes from a thread each while this thread
+    holds the batcher's flush, then lead the one flush that carries them
+    all: a batch of exactly these writes, whatever the threads' timing."""
+    with batcher._lock:
+        batcher._flushing = True  # as a leader mid-flush: every stage follows
+    results: dict = {}
+
+    def stage(name, patch) -> None:
+        try:
+            results[name] = batcher.stage(kind, name, patch)
+        except Exception as e:  # noqa: BLE001 - kept as the slot's result
+            results[name] = e
+
+    threads = [threading.Thread(target=stage, args=item) for item in patches]
+    for thread in threads:
+        thread.start()
+    deadline = time.monotonic() + 30
+    while True:
+        with batcher._lock:
+            if len(batcher._pending) == len(patches):
+                break
+        if time.monotonic() > deadline:
+            raise AssertionError("relay_roll: the staged writes never queued")
+        time.sleep(0.01)
+    batcher._drain()
+    for thread in threads:
+        thread.join(timeout=30)
+    return [results[name] for name, _ in patches]
 
 
 # ----------------------------------------------------------------------
@@ -4777,11 +5000,20 @@ def monitor_manifest_phase(card: str, gate_launches: dict) -> dict:
 
         rv = client.get("Node", MONITOR_NODE).raw["metadata"]["resourceVersion"]
 
+        def status_writes() -> int:
+            path = f"/nodehealthreports/{MONITOR_NODE}/status"
+            return sum(1 for m, p in list(stub.requests) if m == "PUT" and p.endswith(path))
+
         def quick_report(pod):
+            writes = status_writes()
+
             def published() -> bool:
+                # The status write, not the create (which this client
+                # stores with its status): the pod stops after it.
                 report = get_or_none(client, "NodeHealthReport", MONITOR_NODE)
                 return (report is not None and report.raw["spec"].get("source") == "quick-probe"
-                        and bool(report.raw.get("status", {}).get("checks")))
+                        and bool(report.raw.get("status", {}).get("checks"))
+                        and status_writes() > writes)
             return published
 
         pod = run("quick", "quick", {}, quick_report, "NodeHealthReport")
@@ -4939,6 +5171,9 @@ def main() -> int:
             informer = informer_roll_phase(card, launches, cache_root)
             controller = controller_roll_phase(card, launches, cache_root)
             fleet = fleet_roll_phase(card, launches, cache_root)
+            relayed = fleet_roll_phase(card, launches, cache_root, label="relay_roll",
+                                       nodes=RELAY_NODES, pools=RELAY_POOLS,
+                                       rollout=RELAY_ROLLOUT, ids=RELAY_IDS, relay=True)
     finally:
         watched = watch.stop()
     print(json.dumps({"watch": watched, "card": card}), flush=True)
@@ -4961,6 +5196,7 @@ def main() -> int:
         row["launches_informer_roll"] = informer["pod_launches"][kernel]
         row["launches_controller_roll"] = controller["pod_launches"][kernel]
         row["launches_fleet_roll"] = fleet["pod_launches"][kernel]
+        row["launches_relay_roll"] = relayed["pod_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         row["launches_monitor_manifest"] = manifest["full_1"]["launches"][kernel]
         if kernel == "matmul":

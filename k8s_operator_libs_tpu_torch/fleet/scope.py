@@ -25,8 +25,10 @@ The rewrite of the desired count assumes the driver DaemonSet targets
 every node of the fleet, the driver's deployment shape on dedicated
 accelerator pools and the only shape the upgrade machine models.
 
-A shared watch hub as the informers' stream waits for ROADMAP A18 (b) and
-is refused.
+With a ``watch_hub`` the informers' watches ride its shared streams:
+workers in one process share a ``kube/watchhub.py`` ``WatchHub``, worker
+processes of one host a ``kube/relay.py`` relay through their
+``RelayWatchSource``.
 """
 
 from __future__ import annotations
@@ -36,7 +38,6 @@ from typing import Callable, Mapping
 from ..kube.client import Client
 from ..kube.objects import DaemonSet, Node, Pod
 from ..upgrade.snapshot import DEFAULT_RESYNC_PERIOD_S, IncrementalSnapshotSource
-from ..upgrade.state_manager import not_ported
 from ..utils.log import get_logger
 
 log = get_logger("fleet.scope")
@@ -60,9 +61,6 @@ class ShardScopedSnapshotSource(IncrementalSnapshotSource):
         verify_every_n: int = 0,
         watch_hub=None,
     ) -> None:
-        if watch_hub is not None:
-            raise not_ported("a shard-scoped snapshot source on a shared watch hub",
-                             "A18 (b)")
         # The scope's state first: the base registers the event handlers
         # this class overrides, and they read these fields.
         self._shard_of_node = shard_of_node
@@ -79,6 +77,7 @@ class ShardScopedSnapshotSource(IncrementalSnapshotSource):
         super().__init__(
             client, namespace, driver_labels,
             resync_period_s=resync_period_s, verify_every_n=verify_every_n,
+            watch_hub=watch_hub,
         )
 
     # -- the shard mapping -------------------------------------------------------

@@ -13,8 +13,8 @@ write origins, and the originating traces are handed to the woken tick:
 and a worker hands them to ``IncrementalSnapshotSource.note_wake_trace``,
 so its pass span links back to the grant.
 
-A shared watch hub as the streams' source waits for ROADMAP A18 (b); the
-threads watch through the client. Unlike the JAX package's, :meth:`stop`
+The threads watch through the client, as the JAX package's do. Unlike
+the JAX package's, :meth:`stop`
 cancels each open window (``kube/rest.py``'s ``WatchHandle``) rather than
 letting it run out.
 """

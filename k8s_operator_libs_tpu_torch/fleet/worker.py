@@ -112,8 +112,10 @@ class FleetWorkerConfig:
     #: filtered to the owned shards) and attach it to every snapshot;
     #: register it with the orchestrator's aggregator for the global fold.
     with_health: bool = False
-    #: A shared watch hub for workers in one process: waits for ROADMAP
-    #: A18 (b), and is refused.
+    #: A shared watch source for the worker's informers: a ``WatchHub``
+    #: for workers in one process, a ``RelayWatchSource`` for worker
+    #: processes of one host. N workers then cost one upstream watch a
+    #: kind, not N; the lists stay on the client.
     watch_hub: Optional[Any] = None
     #: The device of the worker's own machine: NVIDIA GPUs where None.
     device: Optional[DeviceClass] = None
@@ -386,7 +388,8 @@ class ShardWorker:
         if self.config.with_health:
             from ..upgrade.health_source import HealthSource
 
-            self.health = HealthSource(self.client, node_filter=self.source.in_scope)
+            self.health = HealthSource(self.client, node_filter=self.source.in_scope,
+                                       watch_hub=self.config.watch_hub)
             self.mgr.with_health_telemetry(self.health, sync_timeout=sync_timeout)
         return self
 

@@ -1,19 +1,24 @@
 """The Kubernetes object views, API-error helpers, Event recorder, label
 and field selectors, minimal REST client with its watch, and the
 list-watch informer that the GPU device class, the monitor, the slice gang,
-the state machine and the CRD utility need; and the controller runtime
-over them: the rate-limited workqueue, the informer-fed ``Controller`` and
+the state machine and the CRD utility need; the wire path under the
+client (the compact codec, the wire loop's stall watchdog) and the shared
+watch over it (``WatchHub`` in one process, ``WatchRelay`` and
+``RelayWatchSource`` across processes); and the controller runtime over
+them: the rate-limited workqueue, the informer-fed ``Controller`` and
 Lease-based leader election. The operator passes in its own client and
 objects; the port reads them by duck typing and imports none of the
 operator's code. The monitor, run as a pod, builds its own
 ``rest.RestClient``."""
 
-from .client import WatchExpiredError, patch_many
+from .client import ListDelta, UnsupportedMediaTypeError, WatchExpiredError, patch_many
 from .controller import Controller, Request, Result
 from .events import EventRecorder
 from .informer import EventHandler, Informer
 from .leader import LeaderElectionConfig, LeaderElector
+from .loopwatch import LoopStallWatchdog, install_wire_loop_watchdog, wire_loop_stall_stats
 from .objects import CustomResourceDefinition, Lease, deep_copy_json
+from .relay import RelayWatchSource, WatchRelay
 from .rest import DEFAULT_WATCH_TIMEOUT_SECONDS, RestClient, RestConfig, WatchHandle
 from .selectors import (
     FieldRequirement,
@@ -23,6 +28,16 @@ from .selectors import (
     SelectorError,
     parse_field_selector,
     parse_selector,
+)
+from .watchhub import WatchHub
+from .wire import (
+    WireDecodeError,
+    decode_body,
+    decode_compact,
+    encode_body,
+    encode_compact,
+    encode_watch_frame,
+    negotiate_encoding,
 )
 from .workqueue import (
     BucketRateLimiter,
@@ -50,20 +65,35 @@ __all__ = [
     "LeaderElectionConfig",
     "LeaderElector",
     "Lease",
+    "ListDelta",
+    "LoopStallWatchdog",
     "MaxOfRateLimiter",
     "RateLimitingQueue",
+    "RelayWatchSource",
     "Request",
     "Requirement",
     "RestClient",
     "RestConfig",
     "Result",
     "SelectorError",
+    "UnsupportedMediaTypeError",
     "WatchExpiredError",
     "WatchHandle",
+    "WatchHub",
+    "WatchRelay",
+    "WireDecodeError",
     "WorkQueue",
-    "default_controller_rate_limiter",
+    "decode_body",
+    "decode_compact",
     "deep_copy_json",
+    "default_controller_rate_limiter",
+    "encode_body",
+    "encode_compact",
+    "encode_watch_frame",
+    "install_wire_loop_watchdog",
+    "negotiate_encoding",
     "parse_field_selector",
     "parse_selector",
     "patch_many",
+    "wire_loop_stall_stats",
 ]

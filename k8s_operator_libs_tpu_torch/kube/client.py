@@ -69,6 +69,42 @@ class TooManyRequestsError(ApiError):
         self.retry_after_s = retry_after_s
 
 
+class UnsupportedMediaTypeError(ApiError):
+    """A patch content type the resource cannot take (415): an API server
+    takes strategic merge patches only for built-in types; a custom
+    resource takes JSON and merge patches."""
+
+    reason = "UnsupportedMediaType"
+
+
+class ListDelta:
+    """A deltas-since-revision LIST's result: ``items`` is the current
+    state of every object in scope that changed after the presented
+    revision, ``deleted`` the ``(namespace, name)`` keys that left the
+    collection or the selectors' scope, ``revision`` the collection
+    revision a following watch resumes from. A server answers it only
+    while the presented revision is inside its event journal.
+
+    ``full=True`` means the server answered a full list instead (it
+    predates delta lists): ``items`` is then the whole collection and
+    ``deleted`` is empty, and the caller diffs it against its own store
+    rather than fetch the same bytes again."""
+
+    __slots__ = ("items", "deleted", "revision", "full")
+
+    def __init__(
+        self,
+        items: list,
+        deleted: list[tuple[str, str]],
+        revision: str,
+        full: bool = False,
+    ) -> None:
+        self.items = items
+        self.deleted = deleted
+        self.revision = revision
+        self.full = full
+
+
 class Client(Protocol):
     """The client operations the port calls. Objects come back as views
     with a ``.raw`` document (the port wraps them again by it); API
@@ -174,8 +210,8 @@ def patch_many(
     """Patch a batch of ``kind`` objects, ``(name, patch, patch_type)`` a
     slot: through the client's own ``patch_many`` where it has one, else
     one ``client.patch`` a slot in order (the JAX base
-    ``Client.patch_many``; the JAX client's pipelined batch on one
-    connection waits for ROADMAP A18). Each slot's result is the patched
+    ``Client.patch_many``). ``rest.RestClient``'s own pipelines the slots
+    on one connection. Each slot's result is the patched
     object or the exception that slot raised; a failed slot never fails
     the others."""
     own = getattr(client, "patch_many", None)

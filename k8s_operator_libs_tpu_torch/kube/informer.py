@@ -7,8 +7,9 @@ book, keyed by resourceVersion) and starts at that write's wall time, so
 its length is the write-to-handler lag; the handlers run inside it. The
 watch loop consults the ``watch.deliver`` fault point
 (``utils/faultpoints.chaos_hold``): while a plan holds it, events wait
-upstream and the store goes stale. A watch hub's stream source, and the
-origins its resumed streams keep, wait for ROADMAP A18.
+upstream and the store goes stale. A watch hub's stream (``stream_source``)
+keeps each frame's resourceVersion, so a delivery of a frame the hub or a
+relay resumed or replayed still joins its write's trace.
 
 The reference never touches the apiserver directly for reads:
 controller-runtime's manager gives it a cache fed by list+watch informers,
@@ -28,9 +29,9 @@ that layer over ``Client.watch``:
   state against the store so handlers see synthetic
   ADDED/MODIFIED/DELETED for anything missed. The client's errors are
   recognised by their reason, whichever client's class raised them;
-* a degraded re-list asks a client that has ``list_delta`` for the
-  changes since the informer's revision first (O(what changed)); a client
-  without it (the port's ``RestClient``, until ROADMAP A18) re-lists whole;
+* a degraded re-list asks a client that has ``list_delta`` (the port's
+  ``RestClient`` has) for the changes since the informer's revision first
+  (O(what changed)); a client without it re-lists whole;
 * handlers run on the informer thread with ``(event_type, obj, old)`` —
   pair them with the requestor's plain-function predicates;
 * reads (``get``/``list``) serve from the local store: cheap, point-in-time
@@ -83,9 +84,9 @@ class Informer:
         self._client = client
         #: Where the WATCH stream comes from: any object with the
         #: ``Client.watch`` signature. None = the client itself; a shared
-        #: hub here (the JAX package's ``WatchHub``; the port's waits for
-        #: ROADMAP A18) multiplexes co-hosted informers of one scope onto
-        #: one upstream watch. Lists (seed + relist) stay on the client —
+        #: hub here (``kube/watchhub.py``'s ``WatchHub``, or a relay's
+        #: ``RelayWatchSource``) multiplexes co-hosted informers of one
+        #: scope onto one upstream watch. Lists (seed + relist) stay on the client —
         #: the hub only owns watches.
         self._stream_source = stream_source
         self.kind = kind

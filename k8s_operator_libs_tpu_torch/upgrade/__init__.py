@@ -12,7 +12,7 @@ from .cordon_manager import CordonManager
 from .drain_manager import DrainConfiguration, DrainManager
 from .health_source import HealthMetrics, HealthSource, LinkMetrics
 from .inplace import InplaceNodeStateManager, ProcessNodeStateManager
-from .metrics import MetricsServer, UpgradeMetrics
+from .metrics import MetricsServer, UpgradeMetrics, WireMetrics
 from .pod_manager import PodDeletionFilter, PodManager, PodManagerConfig, RevisionHashError
 from .quarantine_manager import QuarantineManager
 from .requestor import (
@@ -78,6 +78,7 @@ __all__ = [
     "TaskRunner",
     "UpgradeKeys",
     "UpgradeMetrics",
+    "WireMetrics",
     "UpgradeState",
     "VALIDATION_TIMEOUT_SECONDS",
     "ValidationManager",

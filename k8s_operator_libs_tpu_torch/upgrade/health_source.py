@@ -18,8 +18,9 @@ by the ``MetricsServer``.
 snapshot source's dirty set: the node it names and its link peers, so a
 health-only change reclassifies those nodes and never everything; a
 report delivered inside a traced write's delivery span records that trace
-as a wake of the next pass, as any dirty mark does. Not here yet: a shared
-watch hub as the informer's stream waits for ROADMAP A18 and is refused.
+as a wake of the next pass, as any dirty mark does. With a ``watch_hub``
+(a ``kube/watchhub.py`` ``WatchHub`` or a ``kube/relay.py``
+``RelayWatchSource``) the informer's watch rides the shared stream.
 """
 
 from __future__ import annotations
@@ -52,7 +53,6 @@ from .metrics import (
     render_rows,
     render_samples,
 )
-from .state_manager import not_ported
 
 log = get_logger("upgrade.health")
 
@@ -95,10 +95,9 @@ class HealthSource:
         node_filter: Optional[Callable[[str], bool]] = None,
         watch_hub=None,
     ) -> None:
-        if watch_hub is not None:
-            raise not_ported("a HealthSource on a shared watch hub", "A18")
         self._informer = Informer(
-            client, NODE_HEALTH_REPORT_KIND, resync_period_s=resync_period_s
+            client, NODE_HEALTH_REPORT_KIND, resync_period_s=resync_period_s,
+            stream_source=watch_hub,
         )
         #: Only reports of nodes the filter accepts enter the map. The
         #: filter may change (a shard's owned scope); its owner then calls

@@ -7,9 +7,10 @@ The JAX package's ``upgrade/metrics.py``: the emitter the monitor's
 :class:`UpgradeMetrics` (the node counts of a snapshot, the last pass's
 ``PassStats``, the checkpoint arc's gauges, each bucket's seconds and the
 passes observed), rendered byte for byte as the JAX collector renders
-them. ``WireMetrics``, which reads the watch hub, the relay, the API
-server's priority-and-fairness layer and the wire loop's watchdog, waits
-for ROADMAP A18.
+them; and :class:`WireMetrics`, the ``tpu_operator_wire_*`` family, which
+reads the watch hub, the relay and its client side, an API server's
+priority-and-fairness layer (any object with ``apf_stats()``) and the wire
+loop's watchdog, each half duck-typed and optional.
 """
 
 from __future__ import annotations
@@ -380,3 +381,197 @@ class UpgradeMetrics:
                 [(label, self._reconcile_passes)],
             ))
         return render_samples(_PREFIX, rows)
+
+
+_WIRE_PREFIX = "tpu_operator_wire"
+
+
+class WireMetrics:
+    """The ``tpu_operator_wire_*`` family, the wire path's gauges and
+    counters, served by :class:`MetricsServer` like every other collector:
+
+    * **watch hub** (from ``WatchHub.stats()``): upstream streams,
+      subscribers, frames upstream vs delivered and their ratio (the
+      fan-out multiplier the hub exists to buy), per-subscriber buffer
+      depths (max exported), stale self-resumes, per-scope subscriber
+      gauges;
+    * **APF** (from ``LocalApiServer.apf_stats()``): per-flow queue
+      depth, admitted/shed totals (a shed IS a 429), high-water depth;
+    * **relay** (from ``WatchRelay.stats()``, as ``relay=``) and its
+      client half (``RelayWatchSource.stats()``, as ``relay_source=``):
+      ``tpu_operator_wire_relay_*`` — live subscriber connections,
+      shared streams per scope, upstream vs fanned-out bytes (the
+      cross-process fan-out multiplier the relay exists to buy), and
+      the fallback-to-direct count (each one is a window a subscriber
+      rode the degraded path);
+    * **loop stall watchdog** — pass either a
+      ``kube.loopwatch.LoopStallWatchdog`` (its ``stats()`` shape) or a
+      ``LocalApiServer`` directly (its ``loop_stall_stats()`` shape) as
+      ``loop_watchdog=``: heartbeat-measured event-loop stalls over
+      threshold and the worst observed stall. An API server with the
+      watchdog off renders nothing (empty stats).
+
+    All halves are optional and duck-typed (any object with the same
+    ``stats()``/``apf_stats()`` shape works), so the collector can sit
+    beside a client-only process (hub, no server) or a server-only one.
+    """
+
+    def __init__(
+        self,
+        hub=None,
+        apiserver=None,
+        loop_watchdog=None,
+        relay=None,
+        relay_source=None,
+    ) -> None:
+        self._hub = hub
+        self._apiserver = apiserver
+        self._loop_watchdog = loop_watchdog
+        self._relay = relay
+        self._relay_source = relay_source
+
+    def render(self) -> str:
+        out: list[str] = []
+        if self._hub is not None:
+            stats = self._hub.stats()
+            depths = [
+                depth
+                for scope in stats["scopes"].values()
+                for depth in scope["buffer_depths"]
+            ]
+            out.append(render_rows(_WIRE_PREFIX, "", [
+                ("hub_upstream_streams", "gauge",
+                 "Live upstream watch streams the hub multiplexes",
+                 stats["upstream_streams"]),
+                ("hub_subscribers", "gauge",
+                 "Subscribers across all hub scopes",
+                 stats["subscribers"]),
+                ("hub_frames_upstream_total", "counter",
+                 "Watch frames received on upstream streams",
+                 stats["frames_upstream"]),
+                ("hub_frames_delivered_total", "counter",
+                 "Watch frames delivered to subscribers (fan-out)",
+                 stats["frames_delivered"]),
+                ("hub_fanout_ratio", "gauge",
+                 "Frames delivered / frames received upstream",
+                 stats["fanout_ratio"]),
+                ("hub_subscriber_buffer_depth_max", "gauge",
+                 "Deepest per-subscriber buffer right now",
+                 max(depths) if depths else 0),
+                ("hub_stale_resumes_total", "counter",
+                 "Slow-subscriber buffer overflows healed by a journal "
+                 "self-resume (no upstream re-LIST)",
+                 stats["stale_resumes"]),
+            ]))
+            out.append(render_samples(_WIRE_PREFIX, [
+                ("hub_scope_subscribers", "gauge",
+                 "Subscribers per hub scope",
+                 [
+                     (prom_label("scope", scope_name), scope["subscribers"])
+                     for scope_name, scope in sorted(
+                         stats["scopes"].items()
+                     )
+                 ]),
+            ]))
+        if self._relay is not None:
+            stats = self._relay.stats()
+            out.append(render_rows(_WIRE_PREFIX, "", [
+                ("relay_clients", "gauge",
+                 "Live subscriber connections on the relay",
+                 stats["clients_active"]),
+                ("relay_streams_total", "counter",
+                 "Watch streams the relay has served",
+                 stats["streams_total"]),
+                ("relay_streams_compact_total", "counter",
+                 "Relay streams served with the compact codec (the "
+                 "negotiated default on relay connections)",
+                 stats["streams_compact"]),
+                ("relay_upstream_bytes_total", "counter",
+                 "Bytes received on the relay's shared upstream streams",
+                 stats["upstream_bytes"]),
+                ("relay_fanout_bytes_total", "counter",
+                 "Bytes fanned out to relay subscribers (the "
+                 "cross-process multiplier over upstream bytes)",
+                 stats["bytes_fanned_out"]),
+                ("relay_refused_requests_total", "counter",
+                 "Non-watch requests refused with 400 (LISTs and "
+                 "writes belong on the apiserver)",
+                 stats["refused_requests"]),
+            ]))
+            out.append(render_samples(_WIRE_PREFIX, [
+                ("relay_scope_streams", "gauge",
+                 "Shared upstream streams per relay scope (the hard-1 "
+                 "the fleet bench asserts per kind)",
+                 [
+                     (prom_label("scope", scope_name),
+                      1 if scope["subscribers"] else 0)
+                     for scope_name, scope in sorted(
+                         stats["hub"].get("scopes", {}).items()
+                     )
+                 ]),
+                ("relay_scope_subscribers", "gauge",
+                 "Relay-side subscribers per scope",
+                 [
+                     (prom_label("scope", scope_name),
+                      scope["subscribers"])
+                     for scope_name, scope in sorted(
+                         stats["hub"].get("scopes", {}).items()
+                     )
+                 ]),
+            ]))
+        if self._relay_source is not None:
+            stats = self._relay_source.stats()
+            out.append(render_rows(_WIRE_PREFIX, "", [
+                ("relay_windows_total", "counter",
+                 "Watch windows this process served through the relay",
+                 stats["relay_windows"]),
+                ("relay_direct_windows_total", "counter",
+                 "Watch windows served DIRECT from the apiserver (the "
+                 "degraded path while the relay is down)",
+                 stats["direct_windows"]),
+                ("relay_fallback_to_direct_total", "counter",
+                 "Relay failures that opened a bounded direct-watch "
+                 "fallback window",
+                 stats["fallbacks_to_direct"]),
+            ]))
+        if self._apiserver is not None:
+            flows = self._apiserver.apf_stats()
+            labeled = [
+                (prom_label("flow", flow), stats)
+                for flow, stats in sorted(flows.items())
+            ]
+            out.append(render_samples(_WIRE_PREFIX, [
+                ("apf_queue_depth", "gauge",
+                 "Requests queued per priority-and-fairness flow",
+                 [(label, s["queued"]) for label, s in labeled]),
+                ("apf_queue_depth_max", "gauge",
+                 "High-water queue depth per flow",
+                 [(label, s["max_queued"]) for label, s in labeled]),
+                ("apf_admitted_total", "counter",
+                 "Requests dispatched per flow",
+                 [(label, s["admitted_total"]) for label, s in labeled]),
+                ("apf_shed_429_total", "counter",
+                 "Requests shed as 429 + Retry-After per flow",
+                 [(label, s["shed_429_total"]) for label, s in labeled]),
+            ]))
+        if self._loop_watchdog is not None:
+            source = getattr(
+                self._loop_watchdog, "loop_stall_stats", None
+            ) or self._loop_watchdog.stats
+            stats = source()
+            if stats:
+                out.append(render_rows(_WIRE_PREFIX, "", [
+                    ("loop_stall_total", "counter",
+                     "Event-loop heartbeat wakeups that arrived over the "
+                     "stall threshold late (each one is a window in "
+                     "which a callback held the loop)",
+                     stats["stalls_over_threshold"]),
+                    ("loop_stall_max_seconds", "gauge",
+                     "Worst observed event-loop stall since the "
+                     "watchdog started (heartbeat lateness, seconds)",
+                     stats["max_stall_s"]),
+                    ("loop_stall_threshold_seconds", "gauge",
+                     "Configured stall threshold of the loop watchdog",
+                     stats["threshold_s"]),
+                ]))
+        return "".join(out)

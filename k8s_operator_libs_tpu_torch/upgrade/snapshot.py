@@ -19,8 +19,11 @@ The JAX package's ``upgrade/snapshot.py``. Three sources:
 An informer snapshot is as stale as a controller-runtime cached client: at
 most one watch delivery behind. ``build_state``'s completeness check (the
 DaemonSet's desired count against its pods) is the guard: a stale view
-aborts the pass and the next one retries. A shared watch hub as the
-informers' stream waits for ROADMAP A18 and is refused. The incremental
+aborts the pass and the next one retries. With a ``watch_hub`` (a
+``kube/watchhub.py`` ``WatchHub``, or a ``kube/relay.py``
+``RelayWatchSource``) every informer's watch rides the shared stream of
+its scope, and co-hosted sources cost one upstream stream a kind; the
+lists stay on the client. The incremental
 source keeps a **wake book**: a node dirtied inside an informer's delivery
 span (which joined the trace of the write it delivers) records that trace,
 and the next pass span links to it (``consume_wake_traces``).
@@ -145,22 +148,19 @@ class InformerSnapshotSource:
         resync_period_s: float = DEFAULT_RESYNC_PERIOD_S,
         watch_hub=None,
     ) -> None:
-        if watch_hub is not None:
-            from .state_manager import not_ported
-
-            raise not_ported("a snapshot source on a shared watch hub", "A18")
         self._client = client
         self.namespace = namespace
         self.driver_labels = dict(driver_labels)
         self._informers: dict[str, Informer] = {
-            "Node": Informer(client, "Node", resync_period_s=resync_period_s),
+            "Node": Informer(client, "Node", resync_period_s=resync_period_s,
+                             stream_source=watch_hub),
             "Pod": Informer(
                 client, "Pod", namespace=namespace, label_selector=self.driver_labels,
-                resync_period_s=resync_period_s,
+                resync_period_s=resync_period_s, stream_source=watch_hub,
             ),
             "DaemonSet": Informer(
                 client, "DaemonSet", namespace=namespace, label_selector=self.driver_labels,
-                resync_period_s=resync_period_s,
+                resync_period_s=resync_period_s, stream_source=watch_hub,
             ),
             # Read every pass (the rollout hash). Unselected within the
             # namespace: a revision carries the DaemonSet's match labels,
@@ -168,16 +168,35 @@ class InformerSnapshotSource:
             # controller_revisions() selects at read time.
             "ControllerRevision": Informer(
                 client, "ControllerRevision", namespace=namespace,
-                resync_period_s=resync_period_s,
+                resync_period_s=resync_period_s, stream_source=watch_hub,
             ),
         }
         self._started = False
+        self._primed = False
 
     # -- lifecycle ---------------------------------------------------------
     def start(self, sync_timeout: float = 30.0) -> "InformerSnapshotSource":
         """Start the informers and wait until each has listed: a snapshot
-        before that would be empty, not stale. The JAX client's pipelined
-        seed of the lists waits for ROADMAP A18."""
+        before that would be empty, not stale. Where the client has
+        ``prime_list_cache`` (``RestClient``), the informers' first lists
+        are pipelined first as one batch on one connection, and each
+        informer's list takes its primed result; a failed prime leaves
+        the lists to ask, and meet the error, themselves. Only the first
+        start primes: a restarted informer asks for the changes since its
+        revision (``list_delta``), and a primed list it never took would
+        wait, stale, for the next whole list."""
+        prime = getattr(self._client, "prime_list_cache", None)
+        if prime is not None and not self._primed:
+            self._primed = True
+            try:
+                prime([
+                    (inf.kind, inf.namespace, inf.label_selector, inf.field_selector)
+                    for inf in self._informers.values()
+                    if not inf.started
+                ])
+            except Exception:  # noqa: BLE001 - the seed is a saving only
+                log.debug("pipelined informer seed failed; the lists will ask",
+                          exc_info=True)
         for informer in self._informers.values():
             if not informer.started:
                 informer.start()

@@ -46,8 +46,7 @@ work, and the completeness aborts in all (``upgrade/metrics.py``'s
 opened by ``build_state`` for a snapshot that is not settled, or by the
 first non-empty bucket, and closed as ``apply_state`` ends; it links to
 the traces of the writes whose deliveries woke it. A settled pass opens
-no span. A shared watch hub for the informers waits for A18 and is
-refused.
+no span.
 """
 
 from __future__ import annotations
@@ -310,12 +309,14 @@ class ClusterUpgradeStateManager:
         classified state too, so ``build_state`` costs what changed, and
         with ``verify_every_n`` audit it every n-th build. Starts the
         informers and waits until they have listed; returns the source,
-        which the caller stops. A ``watch_hub`` is refused (ROADMAP A18)."""
-        if watch_hub is not None:
-            raise not_ported("a snapshot source on a shared watch hub", "A18")
+        which the caller stops. With a ``watch_hub`` the informers'
+        watches ride its shared streams; their lists stay on this
+        manager's client."""
         kwargs = {}
         if resync_period_s is not None:
             kwargs["resync_period_s"] = resync_period_s
+        if watch_hub is not None:
+            kwargs["watch_hub"] = watch_hub
         if incremental:
             source: InformerSnapshotSource = IncrementalSnapshotSource(
                 self.client, namespace, driver_labels, verify_every_n=verify_every_n, **kwargs

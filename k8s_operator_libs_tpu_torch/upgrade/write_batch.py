@@ -21,9 +21,10 @@ write.
 
 Each flush is one ``write.flush`` span (category ``write``) with the
 slots it sent (``writes``) and took (``staged``), under the caller's
-current span. ``RestClient`` has no ``patch_many`` of its own, so its
-slots go one ``patch`` at a time; the JAX client's pipelined batch on one
-connection waits for ROADMAP A18.
+current span. ``RestClient``'s own ``patch_many`` pipelines a group's
+slots on one pooled connection (``kube/rest.py``), so a flush of N nodes
+costs one round trip, as the JAX batcher's does; a client without one
+sends a ``patch`` a slot.
 """
 
 from __future__ import annotations

@@ -45,10 +45,14 @@ expire.
 
 ``--device`` is ``nvidia`` (``DeviceClass.nvidia("gpu")``: the default
 Lease is ``upgrade-controller-nvidia``, the default selector the port's
-driver DaemonSet's, ``tpu/libtpu.py``). What the port does not run yet it
-refuses, naming the ROADMAP item and taking no step: ``--demo`` (the
-in-memory cluster, A19) and ``--watch-relay`` (the fleet's watch relay,
-A18).
+driver DaemonSet's, ``tpu/libtpu.py``). ``--watch-relay URL`` routes every
+watch of the process's informers through a ``kube/relay.py`` ``WatchRelay``
+at URL (a ``RelayWatchSource``, adopted as ``relay-source``): the worker
+processes of one host then share one upstream watch a kind, and a dead
+relay degrades the process to direct watches for a bounded window, then
+the relay is tried again; lists and writes stay on the API server. What
+the port does not run yet it refuses, naming the ROADMAP item and taking
+no step: ``--demo`` (the in-memory cluster, A19).
 """
 
 from __future__ import annotations
@@ -89,7 +93,6 @@ COMPONENT_TIMEOUT_S = 10.0
 #: Flags of the JAX command this port refuses, and the item each waits for.
 REFUSED = {
     "demo": ("--demo (the in-memory cluster)", "A19"),
-    "watch_relay": ("--watch-relay (the watch relay)", "A18"),
 }
 
 
@@ -178,7 +181,12 @@ def build_parser() -> argparse.ArgumentParser:
                         "as JSONL to PATH on exit (python -m "
                         "k8s_operator_libs_tpu_torch.tools.trace_view PATH)")
     parser.add_argument("--stats-json", default="", metavar="PATH",
-                        help="write the passes and wall seconds as JSON to PATH on exit")
+                        help="write the passes, the wall seconds and the transport's "
+                        "(and the relay source's) counters as JSON to PATH on exit")
+    parser.add_argument("--watch-relay", default="", metavar="URL",
+                        help="route the informers' watches through the WatchRelay at URL: "
+                        "the processes of one host share one upstream watch a kind; a "
+                        "dead relay degrades to direct watches for a bounded window")
     parser.add_argument("--shards", type=int, default=0,
                         help="fleet mode: the fleet's shard count; campaign for a Lease a "
                         "shard and reconcile only the nodes of the shards held (0: off)")
@@ -197,7 +205,6 @@ def build_parser() -> argparse.ArgumentParser:
                         "--fleet-rollout")
     # Refused: parsed so that the refusal can name its item.
     parser.add_argument("--demo", action="store_true", help=argparse.SUPPRESS)
-    parser.add_argument("--watch-relay", default=None, help=argparse.SUPPRESS)
     return parser
 
 
@@ -240,6 +247,16 @@ def main(argv: list[str] | None = None) -> int:
             client = RestClient.from_environment()
         except Exception as e:  # noqa: BLE001 - RestConfigError when unconfigured
             raise SystemExit(f"no cluster access configured ({e})")
+
+        relay_source = None
+        if args.watch_relay:
+            from .kube.relay import RelayWatchSource
+
+            # Every informer below streams through the relay; lists and
+            # writes stay direct. The source owns a transport to the
+            # relay, so it closes only after the consumers that name it.
+            relay_source = RelayWatchSource(args.watch_relay, direct=client)
+            sup.adopt(FuncComponent("relay-source", stop=relay_source.close))
 
         # The holder identity of every Lease this process campaigns for.
         identity = args.leader_elect_id or f"{socket.gethostname()}_{os.getpid()}"
@@ -317,10 +334,11 @@ def main(argv: list[str] | None = None) -> int:
         if args.shards:
             # Before the watch wiring: the worker's scoped source is the
             # snapshot source, and its informers are the triggers too.
-            worker = _shard_worker(args, client, mgr, selector, identity)
+            worker = _shard_worker(args, client, mgr, selector, identity, relay_source)
 
         if args.watch:
-            queue = _watch(args, client, mgr, selector, sup, probe_selector, worker)
+            queue = _watch(args, client, mgr, selector, sup, probe_selector, worker,
+                           relay_source)
 
         if worker is not None:
             if not worker.source.started:
@@ -337,6 +355,8 @@ def main(argv: list[str] | None = None) -> int:
             worker_deps = ["nm-informer"] if (args.watch and args.requestor) else []
             if args.leader_elect:
                 worker_deps.append("leader-elector")
+            if relay_source is not None:
+                worker_deps.append("relay-source")
             sup.adopt(FuncComponent("shard-worker", stop=stop_worker), depends_on=worker_deps)
 
         if args.orchestrate:
@@ -390,7 +410,7 @@ def main(argv: list[str] | None = None) -> int:
             print("leader election: leading; starting reconciles", flush=True)
 
         return _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup,
-                               worker, orchestrator)
+                               worker, orchestrator, relay_source)
     finally:
         # Every exit (--once, SIGTERM even in the setup, the lease lost, an
         # error) drains what the supervisor adopted; a Lease is released
@@ -406,10 +426,11 @@ def main(argv: list[str] | None = None) -> int:
             print(f"trace: {count} spans exported to {args.trace_export}", file=sys.stderr)
 
 
-def _shard_worker(args, client, mgr, selector, identity: str):
+def _shard_worker(args, client, mgr, selector, identity: str, relay_source=None):
     """The fleet worker around the configured manager: a Lease a shard,
-    the shard-scoped snapshot source and, with a rollout, the grant-gated
-    planner. Not started."""
+    the shard-scoped snapshot source (its watches through
+    ``relay_source`` where there is one) and, with a rollout, the
+    grant-gated planner. Not started."""
     from .fleet import FleetWorkerConfig, ShardWorker, shard_id
 
     sep = args.pool_prefix_sep
@@ -429,12 +450,14 @@ def _shard_worker(args, client, mgr, selector, identity: str):
             preferred_shards=[shard_id(args.shard_index % args.shards)],
             lease_namespace=args.namespace,
             verify_every_n=args.verify_every_n,
+            watch_hub=relay_source,
         ),
         manager=mgr,
     )
 
 
-def _watch(args, client, mgr, selector, sup, probe_selector: str = "", worker=None):
+def _watch(args, client, mgr, selector, sup, probe_selector: str = "", worker=None,
+           relay_source=None):
     """The watch path: informer deltas add node keys to a rate-limited
     workqueue, and one informer set is both the trigger and the
     incremental snapshot source (a fleet worker's scoped one where
@@ -484,7 +507,8 @@ def _watch(args, client, mgr, selector, sup, probe_selector: str = "", worker=No
                 queue.add(name)
 
     source = worker.source if worker is not None else IncrementalSnapshotSource(
-        client, args.namespace, selector, verify_every_n=args.verify_every_n
+        client, args.namespace, selector, verify_every_n=args.verify_every_n,
+        watch_hub=relay_source,
     )
     # A new ControllerRevision is the rollout's trigger: the driver bump
     # lands as one, and nothing else would wake the controller to start.
@@ -530,6 +554,8 @@ def _watch(args, client, mgr, selector, sup, probe_selector: str = "", worker=No
         source_deps = ["nm-informer"] if args.requestor else []
         if args.leader_elect:
             source_deps.append("leader-elector")
+        if relay_source is not None:
+            source_deps.append("relay-source")
         sup.adopt(FuncComponent("snapshot-source", stop=source.stop), depends_on=source_deps)
     if nm_informer is not None and not nm_informer.wait_for_sync(timeout=30):
         logging.warning("%s informer did not sync within 30s; reconciles may miss its "
@@ -538,7 +564,7 @@ def _watch(args, client, mgr, selector, sup, probe_selector: str = "", worker=No
 
 
 def _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup,
-                    worker=None, orchestrator=None):
+                    worker=None, orchestrator=None, relay_source=None):
     # The stats file is written on every exit. With --watch, ``woken_by``
     # counts the passes after the first by what woke them: a node's key, the
     # world's key alone, or the interval running out. A fleet worker adds
@@ -562,6 +588,11 @@ def _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup,
                 "led_ticks": orchestrator.led_ticks, "api_errors": orch.api_errors,
             }
         if args.stats_json:
+            transport_stats = getattr(mgr.client, "transport_stats", None)
+            if callable(transport_stats):
+                stats["transport"] = transport_stats()
+            if relay_source is not None:
+                stats["relay"] = relay_source.stats()
             with open(args.stats_json, "w") as f:
                 json.dump(dict(stats, wall_s=time.monotonic() - started),
                           f, indent=2, sort_keys=True)

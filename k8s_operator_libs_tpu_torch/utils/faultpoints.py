@@ -11,12 +11,17 @@ package to drive both machines alike.
 
 A fault plan (an object with ``consult(point, ctx) -> FaultAction or
 None``) answers :func:`fault_point` at the named points the port consults:
-the write batcher's ``upgrade.write_batch_partial`` (``RAISE``) and the
+the write batcher's ``upgrade.write_batch_partial`` (``RAISE``), the
 informer's ``watch.deliver``, where :func:`chaos_hold` blocks a watch
 stream while the plan answers ``HOLD`` (a lagging stream: the consumer's
-view goes stale until the plan lets go). With no plan installed a
-consult is one global read. The JAX module's other points and its
-monotonic clock serve its chaos harness, which waits for ROADMAP A19.
+view goes stale until the plan lets go), and the watch hub's
+``watchhub.deliver``, where ``OVERFLOW`` forces every live subscriber's
+buffer over its bound (``kube/watchhub.py``). With no plan installed a
+consult is one global read, and :func:`plan_active` lets a site skip the
+work of building its consult's context. :func:`mono_now` is
+``time.monotonic`` unless a clock with a ``now()`` is installed. The
+JAX module's other points serve its chaos harness, which waits for
+ROADMAP A19.
 """
 
 from __future__ import annotations
@@ -29,7 +34,7 @@ from typing import Any, Callable, Optional, Protocol
 #: ``deny`` fails a protocol round benignly, ``raise`` raises
 #: ``FaultAction.exc`` at the site, ``hold`` blocks a delivery while the
 #: plan keeps answering it, ``overflow`` forces a watch hub's buffers over
-#: their bound. The port's sites read ``raise`` and ``hold``.
+#: their bound. The port's sites read ``raise``, ``hold`` and ``overflow``.
 DENY = "deny"
 RAISE = "raise"
 HOLD = "hold"
@@ -66,6 +71,12 @@ def clear_plan() -> None:
     _plan = None
 
 
+def plan_active() -> bool:
+    """True while a fault plan is installed: the cheap check before a
+    site builds a costly context (the hub's scan of its subscribers)."""
+    return _plan is not None
+
+
 def fault_point(point: str, **ctx: Any) -> Optional[FaultAction]:
     """The installed plan's answer at ``point`` (``ctx`` names the site:
     the node, the kind); None without a plan."""
@@ -92,6 +103,13 @@ def wall_now() -> float:
     """``time.time()``, or the installed clock's ``wall()``."""
     clock = _clock
     return time.time() if clock is None else clock.wall()
+
+
+def mono_now() -> float:
+    """``time.monotonic()``, or the installed clock's ``now()`` where it
+    has one (a clock of ``wall()`` alone leaves the monotonic time real)."""
+    now = getattr(_clock, "now", None)
+    return time.monotonic() if now is None else now()
 
 
 def chaos_hold(

@@ -558,6 +558,79 @@ def test_one_pool_fleet_roll_on_the_card(cuda, tmp_path):
     assert kernels["launches"]["matmul"] > 0 and kernels["launches"]["flash_attention"] > 0
 
 
+def test_one_node_roll_through_a_relay_on_the_card(cuda, tmp_path):
+    """One GPU node rolled by the port's ``upgrade_controller`` command
+    (``--watch --validation-pod``) whose informers watch through a port
+    ``WatchRelay`` over the JAX ``LocalApiServer``: the probe pod's payload
+    runs on the card (K1 launched), the node is let back in, and every
+    watch of the command went through the relay."""
+    import signal
+    import subprocess
+    import sys
+    import threading
+
+    from test_torch_roll import NS, GpuRoll
+
+    from k8s_operator_libs_tpu.kube import LocalApiServer
+    from k8s_operator_libs_tpu_torch.kube.relay import WatchRelay
+    from k8s_operator_libs_tpu_torch.kube.rest import RestConfig
+    from k8s_operator_libs_tpu_torch.ops._build import KERNEL_DIR_ENV
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+    from k8s_operator_libs_tpu_torch.tpu.validation_pod import ValidationPodSpec
+
+    repo = Path(__file__).resolve().parents[1]
+    env = dict(os.environ)
+    env["PYTHONPATH"] = str(repo) + os.pathsep + env.get("PYTHONPATH", "")
+    env[KERNEL_DIR_ENV] = str(tmp_path / "kernel-cache")
+    spec = ValidationPodSpec(tpu_chips=torch.cuda.device_count())
+    with GpuRoll(spec, {"gpu-0": local_gpu_labels()}, tmp_path, env=env, extra_args=[],
+                 payload_timeout_s=600.0, machine="port") as roll, \
+            LocalApiServer(cluster=roll.cluster) as server:
+        relay = WatchRelay(RestConfig(server=server.url)).start()
+        policy = tmp_path / "policy.json"
+        policy.write_text(json.dumps({"autoUpgrade": True, "maxParallelUpgrades": 1,
+                                      "maxUnavailable": "100%"}))
+        stats = tmp_path / "stats.json"
+        env["KUBECONFIG"] = server.write_kubeconfig(str(tmp_path / "kubeconfig"))
+        selector = ",".join(f"{k}={v}" for k, v in roll.installer.match_labels.items())
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "k8s_operator_libs_tpu_torch.upgrade_controller", "--watch",
+             "--interval", "600", "--validation-pod", "--namespace", NS, "--selector", selector,
+             "--policy", str(policy), "--watch-relay", relay.url, "--stats-json", str(stats)],
+            cwd=str(repo), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        output: list = []
+        drainer = threading.Thread(target=lambda: output.extend(proc.stdout), daemon=True)
+        drainer.start()
+        try:
+            deadline = time.monotonic() + 600
+            while not (roll.states() == {"gpu-0": "upgrade-done"}
+                       and not roll.node("gpu-0").unschedulable
+                       and roll.sim.all_pods_ready_and_current()):
+                assert time.monotonic() < deadline, (roll.states(), "".join(output[-40:]))
+                assert proc.poll() is None, "".join(output[-40:])
+                roll.sim.step()
+                roll.pods.step()
+                time.sleep(0.2)
+            relay_stats = relay.stats()
+            proc.send_signal(signal.SIGTERM)
+            assert proc.wait(timeout=60) == 0, "".join(output[-40:])
+        finally:
+            if proc.poll() is None:
+                proc.kill()
+            relay.stop()
+            drainer.join(timeout=10)
+        (pod_name,) = roll.executor.history
+        assert roll.executor.history[pod_name]
+        kernels = roll.kernel_line("gpu-0")
+    assert kernels["launches"]["matmul"] > 0
+    assert relay_stats["streams_total"] >= 4 and relay_stats["frames_fanned_out"] > 0
+    scopes = relay_stats["hub"]["scopes"].values()
+    assert all(scope["upstream_watches_opened"] == 1 for scope in scopes)
+    recorded = json.loads(stats.read_text())
+    assert recorded["relay"]["fallbacks_to_direct"] == 0
+    assert recorded["transport"]["server_speaks_compact"]
+
+
 def fleet_roll_one_pool(tmp_path, env, extra_args, tpu_chips=1) -> dict:
     """The pool ``gpu-fleet`` rolled by a ShardWorker and a FleetOrchestrator
     ticked in turn; the probe pod's kernels line."""

@@ -16,6 +16,13 @@ observations must be equal.
   code 0 and every Lease empty. The port's processes run
   ``python -m k8s_operator_libs_tpu_torch.upgrade_controller`` where
   neither ``jax`` nor the JAX package can be imported.
+* **Through a relay** (``TestOrchestrateThroughRelay``): the same two
+  workers stream their watches through a ``WatchRelay`` (the JAX
+  package's for its command, the port's for the port's) with
+  ``--watch-relay``; the relay is stopped once the first pool is done, and
+  the roll still converges on direct watches. While the relay lived the
+  server carried one watch stream a (kind, scope) for both processes;
+  every worker's ``--stats-json`` shows its fallback to direct watches.
 """
 
 from __future__ import annotations
@@ -398,3 +405,179 @@ def test_chip_smoke_fleet_roll_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert set(result["leases_after"].values()) == {""}
     assert result["pod_launches"] == {k: 2 * v for k, v in launches.items()}
     assert result["parent_launches"] == {"matmul": 0, "flash_attention": 0}
+
+
+def test_chip_smoke_relay_roll_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """``chip_smoke.py``'s relay_roll phase whole on the CPU, each probe
+    pod's payload a stub: the two workers watch through the port's
+    ``WatchRelay`` over ``ApiStub``, which carries one stream a scope until
+    it is stopped after the first pool; both workers fall back to direct
+    watches and the second pool finishes; the wire loop never stalls; the
+    primed lists send nothing and the batched flush is one pipelined batch."""
+    from k8s_operator_libs_tpu_torch.parallel import topology
+    from test_torch_cuda import chip_smoke_module
+
+    smoke = chip_smoke_module()
+    monkeypatch.setattr(topology, "local_gpu_labels", lambda: {
+        "nvidia.com/gpu.present": "true", "nvidia.com/gpu.count": "1",
+        "nvidia.com/gpu.product": "NVIDIA-H100-80GB-HBM3",
+    })
+    launches = {"matmul": 4657, "flash_attention": 4}
+    stub = ("import sys, time\n"
+            "open(sys.argv[sys.argv.index('--ready-file') + 1], 'w').write('ok=True')\n"
+            "time.sleep(600)\n")
+    monkeypatch.setattr(smoke, "controller_pod_argv", lambda workdir: (
+        lambda pod, argv: [sys.executable, "-c", stub, "--ready-file", "unset"]))
+    monkeypatch.setattr(smoke, "read_pod_run", lambda workdir, name, label: {
+        "launches": dict(launches), "elapsed_s": 0.0,
+        "build_s": {"matmul": 0.0, "flash_attention": 0.0}})
+    result = smoke.fleet_roll_phase("cpu", launches, str(tmp_path), label="relay_roll",
+                                    nodes=smoke.RELAY_NODES, pools=smoke.RELAY_POOLS,
+                                    rollout=smoke.RELAY_ROLLOUT, ids=smoke.RELAY_IDS,
+                                    relay=True)
+    out = capsys.readouterr().out.splitlines()
+    (printed,) = [json.loads(line)["relay_roll"] for line in out
+                  if line.startswith('{"relay_roll"')]
+    assert printed == result
+    assert result["most_pools_out_at_once"] == 1
+    assert set(result["done_s"]) == set(smoke.RELAY_POOLS)
+    assert max(result["upstream_watch_streams_with_relay"].values()) == 1
+    assert result["relay"]["streams_total"] > 0
+    for worker in result["workers"].values():
+        assert worker["relay"]["fallbacks_to_direct"] >= 1
+        assert worker["transport"]["connections_opened"] < worker["transport"]["requests_sent"]
+    assert result["watchdog"]["stalls_over_threshold"] == 0
+    check = result["transport_check"]
+    assert check["primed_requests_sent"] == 0 and check["batch_pipelined_batches"] == 1
+    assert check["batch_requests_sent"] == 2
+    assert result["return_codes"] == {w: 0 for w in smoke.RELAY_IDS}
+    assert set(result["leases_after"].values()) == {""}
+    assert result["pod_launches"] == {k: 2 * v for k, v in launches.items()}
+
+
+class WatchCounter:
+    """The open watch streams a ``LocalApiServer`` serves, by (kind,
+    namespace, selectors), and the high-water mark of each, read around
+    its watch handler."""
+
+    def __init__(self, server) -> None:
+        self.open: dict = {}
+        self.high: dict = {}
+        self.lock = threading.Lock()
+        inner = server._stream_watch
+
+        async def counted(writer, req, params):
+            key = (params.info.kind, params.namespace or "",
+                   params.query.get("labelSelector", ""), params.query.get("fieldSelector", ""))
+            with self.lock:
+                self.open[key] = self.open.get(key, 0) + 1
+                self.high[key] = max(self.high.get(key, 0), self.open[key])
+            try:
+                return await inner(writer, req, params)
+            finally:
+                with self.lock:
+                    self.open[key] -= 1
+
+        server._stream_watch = counted
+
+
+def relay_fleet_roll(name: str, tmp_path: Path, workers: int = 2, kill_relay: bool = True,
+                     pools: int = 4) -> dict:
+    """``workers`` processes of ``name``'s command (``--shards workers``,
+    the first with ``--orchestrate``) roll ``pools`` one-node pools under a
+    budget of half of them through ``name``'s ``WatchRelay``; with
+    ``kill_relay`` the relay stops once a pool is done."""
+    from k8s_operator_libs_tpu.kube import WatchRelay as JaxWatchRelay
+    from k8s_operator_libs_tpu_torch.kube.relay import WatchRelay
+
+    with LocalApiServer() as srv:
+        counter = WatchCounter(srv)
+        kubeconfig = srv.write_kubeconfig(str(tmp_path / f"{name}-relay.kubeconfig"))
+        node_names = []
+        for i in range(pools):
+            srv.cluster.create(tpu_node(f"relay{i}-h0", f"relay{i}"))
+            node_names.append(f"relay{i}-h0")
+        sim = DaemonSetSimulator(srv.cluster, name="libtpu-installer", namespace=NS,
+                                 match_labels=DS_LABELS, initial_hash="libtpu-v1")
+        sim.settle()
+        srv.cluster.create(KubeObject(make_fleet_rollout(ROLLOUT, node_names, "50%")))
+        sim.set_template_hash("libtpu-v2")
+        if name == "jax":
+            relay = JaxWatchRelay(JaxRestConfig(server=srv.url)).start()
+        else:
+            relay = WatchRelay(RestConfig(server=srv.url)).start()
+        argv, env, cwd = TestOrchestrateMultiProcess._command(None, name, tmp_path, kubeconfig)
+        env["KUBECONFIG"] = kubeconfig
+        procs, stats_paths = [], []
+        relay_killed = False
+        high_while_relay = {}
+        try:
+            for i in range(workers):
+                stats_paths.append(tmp_path / f"{name}-relay-stats-{i}.json")
+                flags = ["--shards", str(workers), "--shard-index", str(i),
+                         "--fleet-rollout", ROLLOUT, "--interval", "0.2",
+                         "--leader-elect-id", f"proc-{i}", "--watch-relay", relay.url,
+                         "--stats-json", str(stats_paths[-1])]
+                if i == 0:
+                    flags.append("--orchestrate")
+                procs.append(subprocess.Popen([*argv, *flags], env=env, cwd=cwd,
+                                              stdout=subprocess.PIPE,
+                                              stderr=subprocess.STDOUT, text=True))
+            deadline = time.time() + 150
+            while True:
+                sim.step()
+                for proc in procs:
+                    if proc.poll() is not None:
+                        out, _ = proc.communicate(timeout=10)
+                        raise AssertionError(
+                            f"{name}: worker exited early (rc={proc.returncode}): {out[-1500:]}")
+                ledger = srv.cluster.peek("FleetRollout", ROLLOUT)
+                done = len(pools_in_phase(ledger or {}, "done"))
+                if kill_relay and not relay_killed and done >= 1:
+                    assert relay.stats()["streams_total"] > 0, f"{name}: no stream via the relay"
+                    with counter.lock:
+                        high_while_relay = dict(counter.high)
+                    relay.stop()
+                    relay_killed = True
+                if done == pools:
+                    break
+                assert time.time() < deadline, (
+                    f"{name}: relay-backed fleet roll did not converge; "
+                    f"relay_killed={relay_killed} ledger={(ledger or {}).get('status')}")
+                time.sleep(0.05)
+            if not kill_relay:
+                with counter.lock:
+                    high_while_relay = dict(counter.high)
+            assert sim.all_pods_ready_and_current()
+            for proc in procs:
+                proc.send_signal(signal.SIGTERM)
+            outs = [proc.communicate(timeout=60)[0] for proc in procs]
+            leases = {lease: lease_holder(srv.cluster, lease) for lease in
+                      ["fleet-orchestrator"] + [f"fleet-shard-{i:02d}" for i in range(workers)]}
+        finally:
+            relay.stop()
+            for proc in procs:
+                if proc.poll() is None:
+                    proc.kill()
+        for proc, out in zip(procs, outs):
+            assert proc.returncode == 0, f"{name}: {out[-1500:]}"
+            assert "shutdown requested; draining" in out
+        relays = [json.loads(path.read_text())["relay"] for path in stats_paths]
+        return {
+            "return_codes": [p.returncode for p in procs],
+            "leases": leases,
+            "relay_killed": relay_killed,
+            "max_upstream_streams_while_relay": max(high_while_relay.values(), default=0),
+            "fell_back": [r["fallbacks_to_direct"] >= 1 and r["direct_windows"] >= 1
+                          for r in relays],
+            "via_relay": [r["frames_via_relay"] > 0 for r in relays],
+        }
+
+
+class TestOrchestrateThroughRelay:
+    def test_relay_backed_roll_survives_relay_kill(self, tmp_path):
+        got = on_both(lambda pkg: relay_fleet_roll(
+            "port" if pkg is PKGS["port"] else "jax", tmp_path))
+        assert got["relay_killed"] and got["max_upstream_streams_while_relay"] == 1
+        assert got["fell_back"] == [True, True] and got["via_relay"] == [True, True]
+        assert set(got["leases"].values()) == {""} and got["return_codes"] == [0, 0]

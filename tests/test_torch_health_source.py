@@ -24,8 +24,9 @@ itself; the port's reads them through the port's ``RestClient`` and a
   included, written by each machine from its own health source.
 
 ``TestFleetLinkFold`` and ``TestFleetMetricsFamily`` of
-``tests/test_link_health.py`` need the fleet tier, which waits for
-ROADMAP A18.
+``tests/test_link_health.py`` run with the fleet tier, in
+``tests/test_torch_fleet.py``. Each package's source on its own
+package's ``WatchHub`` holds the same map after every report.
 """
 
 from __future__ import annotations
@@ -278,9 +279,43 @@ def test_no_telemetry_pool_has_no_health(served):
     assert mgr.health_source is None
 
 
-def test_unported_wirings_name_their_roadmap_items(served):
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        HealthSource(served(FakeCluster()), watch_hub=object())
+def test_health_source_on_a_watch_hub(served):
+    """Each package's ``HealthSource`` on its own package's ``WatchHub``
+    (the port's over its ``RestClient``), over one cluster: after every
+    published report the two maps agree, and each hub carries one upstream
+    stream, of NodeHealthReports."""
+    from k8s_operator_libs_tpu.kube import WatchHub as JaxWatchHub
+    from k8s_operator_libs_tpu_torch.kube import WatchHub
+
+    cluster = FakeCluster()
+    client = served(cluster)
+    hubs = (JaxWatchHub(cluster), WatchHub(client))
+    jax_source = JaxHealthSource(cluster, watch_hub=hubs[0])
+    source = HealthSource(client, watch_hub=hubs[1])
+    publishers = [ReportPublisher(cluster, f"node-{i}", heartbeat_seconds=0.0) for i in range(3)]
+    try:
+        for src in (jax_source, source):
+            src.start()
+        steps = [(0, True), (1, False), (2, True), (1, True), (0, False), (2, False)]
+        for step, (i, ok) in enumerate(steps):
+            publishers[i].publish({"a": ok}, {"ring_gbytes_per_s": 10.0 + step})
+
+            def current(src, i=i, ok=ok):
+                health = src.snapshot().get(f"node-{i}")
+                return health is not None and health.checks.get("a") is ok
+
+            assert wait_until(lambda: current(jax_source) and current(source)), f"step {step}"
+            assert wait_until(lambda: jax_source.updates == source.updates), f"step {step}"
+            assert health_view(source.snapshot()) == health_view(jax_source.snapshot())
+        for hub in hubs:
+            stats = hub.stats()
+            assert stats["upstream_streams"] == 1 and stats["subscribers"] == 1
+            assert [s["kind"] for s in stats["scopes"].values()] == ["NodeHealthReport"]
+    finally:
+        for src in (jax_source, source):
+            src.stop()
+        for hub in hubs:
+            hub.stop()
 
 
 # ----------------------------------------------------------------------

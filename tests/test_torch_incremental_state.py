@@ -16,9 +16,9 @@ upgrade labels, annotations and cordon bit.
 once and done to both clusters, and after it the port's incremental
 machine must classify as the port's full rebuild (the LIST source over
 the same client) and as the JAX incremental machine, which must classify
-as the JAX full rebuild. The hub-fed seeds run the JAX informers on a
-``WatchHub``; the port's, whose hub waits for ROADMAP A18, watch
-directly. The roll cases compare each node's state-label sequence, as
+as the JAX full rebuild. The hub-fed seeds run each side's informers on
+its own package's ``WatchHub`` (the port's over its ``RestClient``). The
+roll cases compare each node's state-label sequence, as
 each cluster's journal saw it, with the JAX machine's full-rebuild roll.
 """
 
@@ -74,6 +74,14 @@ def incremental(side, verify_every_n=0, width=None, runner=None, batch_writes=Fa
     )
     side.stack.callback(source.stop)
     return mgr, source
+
+
+def own_hub(side):
+    """A ``WatchHub`` of the side's own package over the side's client,
+    stopped with the side."""
+    hub = side.pkg.WatchHub(side.client)
+    side.stack.callback(hub.stop)
+    return hub
 
 
 def full(side, width=None, runner=None):
@@ -133,11 +141,8 @@ def fuzz(sides, seed, hub=False, batch_writes=False, steps=50):
     machines = {}
     for name, side in s.items():
         watch_hub = None
-        if hub and name == "jax":
-            from k8s_operator_libs_tpu.kube import WatchHub
-
-            watch_hub = WatchHub(side.cluster)
-            side.stack.callback(watch_hub.stop)
+        if hub:
+            watch_hub = own_hub(side)
         mgr_inc, source = incremental(side, batch_writes=batch_writes, watch_hub=watch_hub)
         machines[name] = (mgr_inc, source, full(side))
     extra_nodes: list[str] = []
@@ -266,8 +271,7 @@ def test_incremental_matches_full_rebuild(sides, seed):
 
 @pytest.mark.parametrize("seed", [11, 2026])
 def test_incremental_matches_full_rebuild_hub_fed(sides, seed):
-    """The JAX informers on a shared ``WatchHub``, the port's watching
-    directly (its hub waits for ROADMAP A18 and is refused)."""
+    """Each side's informers on its own package's shared ``WatchHub``."""
     fuzz(sides, seed, hub=True)
 
 
@@ -276,12 +280,22 @@ def test_incremental_matches_full_rebuild_batched_writes(sides, seed):
     fuzz(sides, seed, batch_writes=True)
 
 
-def test_port_refuses_a_watch_hub(sides):
-    side = sides(nodes=1)["port"]
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        incremental(side, watch_hub=object())
-    with pytest.raises(NotImplementedError, match="ROADMAP A18"):
-        side.pkg.upgrade.IncrementalSnapshotSource(side.client, NS, LABELS, watch_hub=object())
+def test_port_rides_its_own_watch_hub(sides):
+    """Each side's incremental machine on its own package's ``WatchHub``
+    (the port's over its ``RestClient``) rolls each node through the JAX
+    full-rebuild roll's state-label sequence, and each hub carries one
+    upstream stream a kind for the source's four informers."""
+    reference = roll(sides(nodes=4)["jax"], incremental_source=False)
+    s = sides(nodes=4)
+    hubs = {name: own_hub(side) for name, side in s.items()}
+    got = {name: roll(side, True, watch_hub=hubs[name]) for name, side in s.items()}
+    assert got["port"] == got["jax"] == reference
+    for name, hub in hubs.items():
+        stats = hub.stats()
+        assert stats["upstream_streams"] == 4, (name, stats)
+        assert sorted(scope["kind"] for scope in stats["scopes"].values()) == sorted(
+            ("Node", "Pod", "DaemonSet", "ControllerRevision")), name
+        assert stats["frames_upstream"] > 0, name
 
 
 def test_resync_sweep_does_not_dirty_settled_pool(sides):
@@ -713,7 +727,7 @@ CHECKPOINT_POLICY = {
 
 
 def roll(side, incremental_source, width=1, threaded=False, checkpoint=False,
-         policy=None, watermark=None) -> dict:
+         policy=None, watermark=None, watch_hub=None) -> dict:
     """One v2 roll of the side's pool; each node's state-label sequence."""
     nodes = len(side.cluster.list("Node"))
     if watermark is not None:
@@ -727,7 +741,7 @@ def roll(side, incremental_source, width=1, threaded=False, checkpoint=False,
     runner = up.TaskRunner(max_workers=max(width, 1)) if threaded else up.TaskRunner(inline=True)
     source = None
     if incremental_source:
-        mgr, source = incremental(side, width=width, runner=runner)
+        mgr, source = incremental(side, width=width, runner=runner, watch_hub=watch_hub)
     else:
         mgr = full(side, width=width, runner=runner)
     transitions = transitions_of(side.cluster)

@@ -13,12 +13,10 @@ a controller command,
 has its counterpart in ``tests/test_torch_upgrade_controller.py``, which
 drives the port's ``upgrade_controller``.
 
-Over HTTP the JAX client is shown with the port client's surface: its
-``list_delta`` is hidden, because the port's ``RestClient`` has none
-(until ROADMAP A18), and the informer takes the delta re-list only where
-the client offers it. Both informers therefore take the same re-list
-path; the delta path itself is compared over ``FakeCluster``, which has
-``list_delta``. Where the JAX case races its writes against watch
+Over HTTP both clients offer ``list_delta``, so both informers take the
+same re-list path, the delta re-list where the server's journal still
+holds the informer's revision; over ``FakeCluster`` the delta path is
+compared in process. Where the JAX case races its writes against watch
 windows (the relist after expiry, the API server's restart), the case
 here waits until both informers stand at the same point first, so that
 the comparison is exact and not a matter of timing.
@@ -61,10 +59,11 @@ def wait_until(predicate, timeout=10.0, interval=0.05):
 
 
 class PortSurface:
-    """A client shown without ``list_delta``, the surface of the port's
-    ``RestClient``. ``arm()`` parks the next watch call (``parked`` set)
-    until ``release`` is set, then raises ``raises`` (``None``: opens the
-    watch); the ``fail_next`` calls after it fail on the connection."""
+    """A client with the surface of the port's ``RestClient`` (which has
+    ``list_delta``, as the JAX client has). ``arm()`` parks the next watch
+    call (``parked`` set) until ``release`` is set, then raises ``raises``
+    (``None``: opens the watch); the ``fail_next`` calls after it fail on
+    the connection."""
 
     def __init__(self, inner) -> None:
         self._inner = inner
@@ -76,8 +75,6 @@ class PortSurface:
         self.fail_next = 0
 
     def __getattr__(self, name):
-        if name == "list_delta":
-            raise AttributeError(name)
         return getattr(self._inner, name)
 
     def arm(self, raises=None, fail_next: int = 0) -> None:
@@ -97,13 +94,6 @@ class PortSurface:
             self.fail_next -= 1
             raise ConnectionError("the watch connection died")
         return self._inner.watch(*args, **kwargs)
-
-
-class DeltaSurface(PortSurface):
-    """``PortSurface`` that keeps the inner client's ``list_delta``."""
-
-    def __getattr__(self, name):
-        return getattr(self._inner, name)
 
 
 class Pair:
@@ -304,7 +294,9 @@ def test_stopped_informer_restarts(server, clients):
         assert pair.each(lambda inf: inf.get("post-restart") is not None)
         assert pair.each(lambda inf: len(pair.seen(inf)) == 4)
         pair.assert_equal()
-        assert pair.port.full_relists == 2
+        # The restart repairs the kept store from the changes since its
+        # revision: one whole list at the first start, one delta list.
+        assert (pair.port.full_relists, pair.port.delta_relists) == (1, 1)
 
 
 def test_handler_gets_old_object_for_predicates(server, clients):
@@ -608,7 +600,7 @@ def test_index_rebuilt_by_410_relist():
     only through the re-list's rebuild, and each informer re-lists once."""
     cluster = FakeCluster()
     _pod(cluster, "r1", "host-a")
-    shims = [DeltaSurface(cluster), DeltaSurface(cluster)]
+    shims = [PortSurface(cluster), PortSurface(cluster)]
     pair = Pair(*shims, "Pod", namespace="default", watch_timeout_seconds=1)
     for inf in pair.both:
         inf.add_indexer("by-node", _by_node)
@@ -639,7 +631,7 @@ def test_dead_connections_resume_then_delta_relist():
     cluster.create(make_node("keep"))
     cluster.create(make_node("change"))
     cluster.create(make_node("drop"))
-    shims = [DeltaSurface(cluster), DeltaSurface(cluster)]
+    shims = [PortSurface(cluster), PortSurface(cluster)]
     with Pair(*shims, "Node", watch_timeout_seconds=1) as pair:
         assert pair.synced()
         assert pair.each(lambda inf: len(pair.seen(inf)) == 3)
@@ -692,7 +684,7 @@ def test_record_write_and_settledness():
 def test_stream_source_carries_the_watch_and_the_client_the_lists():
     cluster = FakeCluster()
     cluster.create(make_node("src"))
-    sources = (DeltaSurface(cluster), DeltaSurface(cluster))
+    sources = (PortSurface(cluster), PortSurface(cluster))
     with Pair(cluster, cluster, "Node", sources=sources) as pair:
         assert pair.synced()
         cluster.create(make_node("live"))

@@ -516,17 +516,53 @@ def test_each_wiring_runs_one_pass(pool, wiring):
         assert pool.get("Node", node_name(i)).labels[KEYS.state_label] == "upgrade-done"
 
 
-@pytest.mark.parametrize(
-    "method, item",
-    [
-        ("with_snapshot_from_informers", "A18"),
-    ],
-)
-def test_unported_wirings_are_refused(pool, method, item):
-    """A snapshot source whose informers share a watch hub waits for the
-    hub (ROADMAP A18)."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        getattr(_manager(pool), method)(NS, LABELS, watch_hub=object())
+@pytest.mark.parametrize("incremental", [False, True], ids=["informers", "incremental"])
+def test_snapshot_from_informers_on_a_watch_hub(clock, incremental):
+    """``with_snapshot_from_informers(..., watch_hub=...)`` on twin pools:
+    the JAX machine's informers on a JAX ``WatchHub`` over its cluster, the
+    port's on the port's ``WatchHub`` over its ``RestClient``. A roll of
+    four nodes, each pass made once every store has caught up with its
+    cluster: after every pass both clusters' nodes agree (labels,
+    annotations, cordon bit), and each hub carries one upstream stream a
+    kind."""
+    import torch_twins as twins
+
+    with contextlib.ExitStack() as stack:
+        sides = {name: twins.Side(name, stack, nodes=4) for name in ("jax", "port")}
+        machines = {}
+        for name, side in sides.items():
+            hub = side.pkg.WatchHub(side.client)
+            stack.callback(hub.stop)
+            mgr = side.manager()
+            source = mgr.with_snapshot_from_informers(
+                twins.NS, twins.LABELS, resync_period_s=0.0, incremental=incremental,
+                watch_hub=hub,
+            )
+            stack.callback(source.stop)
+            machines[name] = (mgr, source, hub)
+        for side in sides.values():
+            side.sim.set_template_hash("v2")
+        for p in range(60):
+            clock.now += 5.0
+            for name, side in sides.items():
+                mgr, source, _ = machines[name]
+                side.sim.step()
+                assert twins.wait_until(lambda: twins.stores_caught_up(source, side.cluster))
+                try:
+                    mgr.apply_state(mgr.build_state(twins.NS, twins.LABELS), side.pkg.policy)
+                except side.pkg.upgrade.BuildStateError:
+                    pass
+            views = {name: twins.node_view(side.cluster) for name, side in sides.items()}
+            assert views["port"] == views["jax"], f"pass {p}"
+            if all(side.state(f"node-{i}") == "upgrade-done" for side in sides.values()
+                   for i in range(4)) and all(
+                    side.sim.all_pods_ready_and_current() for side in sides.values()):
+                break
+        else:
+            raise AssertionError("the hub-fed rolls did not converge")
+        for name, (_, _, hub) in machines.items():
+            stats = hub.stats()
+            assert stats["upstream_streams"] == 4 and stats["subscribers"] == 4, (name, stats)
 
 
 QUARANTINE = {"quarantine": {"enable": True}}

@@ -17,8 +17,10 @@ machine, ``tools/trace_view.py``), held against the JAX package's.
   write that reached the JAX server over HTTP to the port's tracer, so the
   port's informer deliveries join the port's writes' traces.
 * ``TestSettledZeroSpan``, ``TestBucketSecondsStats``, the cases of
-  ``TestWirePropagation`` that need no pipelined transport, and the
-  ``TestTraceView`` cases, on the port.
+  ``TestWirePropagation`` (keep-alive, pipelined and pipelined patches,
+  the 429 retry's attempt and backoff spans, the origins of a watch
+  resumed after a killed connection and of a hub's resumed frames), and
+  the ``TestTraceView`` cases, on the port.
 * A held Pod stream (``chaos_hold`` at ``watch.deliver``) aborts the next
   pass on both machines alike; the release heals.
 * ``chip_smoke.py``'s traced ``checkpoint_roll`` and ``informer_roll``
@@ -40,6 +42,7 @@ from k8s_operator_libs_tpu.kube.sim import DaemonSetSimulator
 from k8s_operator_libs_tpu.utils import faultpoints as jax_faultpoints
 from k8s_operator_libs_tpu.utils import tracing as jax_tracing
 from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import DriverUpgradePolicySpec
+from k8s_operator_libs_tpu_torch.kube.informer import Informer
 from k8s_operator_libs_tpu_torch.kube.rest import RestClient, RestConfig
 from k8s_operator_libs_tpu_torch.tools import trace_view
 from k8s_operator_libs_tpu_torch.upgrade import (
@@ -692,9 +695,9 @@ def _server_spans(jax, trace_id: str, n: int) -> list:
 
 
 def test_keepalive_requests_carry_traceparent(both_tracers):
-    """Every request of the port's client under a port span (a connection
-    each: ``urllib`` keeps none alive) reaches the server as a span of the
-    client's trace, each a child of its own ``http.request`` span."""
+    """Every request of the port's client under a port span, all on one
+    kept-alive connection, reaches the server as a span of the client's
+    trace, each a child of its own ``http.request`` span."""
     jax, port = both_tracers
     with LocalApiServer() as server:
         client = RestClient(RestConfig(server=server.url))
@@ -703,6 +706,8 @@ def test_keepalive_requests_carry_traceparent(both_tracers):
                 client.create(make_node(f"w{i}"))
             client.list("Node")
         server_spans = _server_spans(jax, op.trace_id, 6)
+        assert client.transport_stats()["connections_opened"] == 1
+        client.close()
     assert len(server_spans) >= 6
     requests = {r["span"]: r for r in port.records() if r["name"] == "http.request"}
     assert len(requests) == 6
@@ -742,6 +747,150 @@ def test_error_status_is_recorded_and_watch_carries_traceparent(both_tracers):
     (request,) = [r for r in port.records() if r["name"] == "http.request"]
     assert request["attrs"]["status"] == 404
     assert len(server_spans) == 2  # the GET and the watch
+
+
+def test_pipelined_request_many_carries_traceparent(both_tracers):
+    """A primed batch of lists and a batch of patches, each pipelined on
+    one connection: every request of them joins the caller's trace, and
+    the patches sit under one ``http.request_many`` span."""
+    jax, port = both_tracers
+    with LocalApiServer() as server:
+        client = RestClient(RestConfig(server=server.url))
+        for i in range(3):
+            client.create(make_node(f"p{i}"))
+        with tracing.span("seed") as seed:
+            assert client.prime_list_cache([("Node", "", None, None), ("Pod", NS, None, None)]) == 2
+        assert len(_server_spans(jax, seed.trace_id, 2)) == 2
+        with tracing.span("flush") as flush:
+            results = client.patch_many("Node", [
+                (f"p{i}", {"metadata": {"labels": {"x": "1"}}}, "merge") for i in range(3)])
+        assert [r.name for r in results] == ["p0", "p1", "p2"]
+        assert len(_server_spans(jax, flush.trace_id, 3)) == 3
+        assert client.transport_stats()["pipelined_batches"] == 2
+        client.close()
+    (batch,) = [r for r in port.records() if r["name"] == "http.request_many"]
+    assert batch["trace"] == flush.trace_id and batch["parent"] == flush.span_id
+    assert batch["attrs"] == {"method": "PATCH", "requests": 3, "errors": 0}
+
+
+def test_429_retries_are_children_of_one_logical_span(tracer):
+    """A stub server sheds the first attempt with 429 and Retry-After,
+    then answers: one ``http.request`` span, the retry an ``http.attempt``
+    child, the wait an ``http.backoff`` (category ``queue``); each attempt
+    carried a traceparent of its own in the request's trace."""
+    import socket
+
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    sock.listen(1)
+    port = sock.getsockname()[1]
+    hits = []
+
+    def serve():
+        for attempt in range(2):
+            conn, _ = sock.accept()
+            data = b""
+            while b"\r\n\r\n" not in data:
+                data += conn.recv(65536)
+            hits.append(data)
+            if attempt == 0:
+                body = json.dumps({"kind": "Status", "reason": "TooManyRequests",
+                                   "message": "shed", "code": 429}).encode()
+                head = ("HTTP/1.1 429 Too Many Requests\r\nRetry-After: 0.05\r\n"
+                        f"Content-Length: {len(body)}\r\nContent-Type: application/json\r\n\r\n")
+            else:
+                body = json.dumps({"kind": "Node",
+                                   "metadata": {"name": "ok", "resourceVersion": "1"}}).encode()
+                head = ("HTTP/1.1 200 OK\r\n"
+                        f"Content-Length: {len(body)}\r\nContent-Type: application/json\r\n\r\n")
+            conn.sendall(head.encode() + body)
+            conn.close()
+        sock.close()
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    client = RestClient(RestConfig(server=f"http://127.0.0.1:{port}"))
+    try:
+        assert client.get("Node", "ok").name == "ok"
+    finally:
+        client.close()
+    thread.join(timeout=5)
+    assert all(b"traceparent:" in hit.lower() for hit in hits)
+    records = tracer.records()
+    (logical,) = [r for r in records if r["name"] == "http.request"]
+    assert logical["attrs"]["status"] == 200
+    (attempt,) = [r for r in records if r["name"] == "http.attempt"]
+    assert attempt["parent"] == logical["span"]
+    (backoff,) = [r for r in records if r["name"] == "http.backoff"]
+    assert backoff["category"] == "queue"
+    tps = [[line for line in hit.split(b"\r\n") if line.lower().startswith(b"traceparent:")][0]
+           for hit in hits]
+    assert tps[0] != tps[1] and all(logical["trace"] in tp.decode() for tp in tps)
+
+
+def test_killed_connection_watch_resume_keeps_origins(tap):
+    """A watch killed and resumed (no re-list) delivers the write made
+    after the kill with that write's trace: origins are keyed by rv."""
+    with LocalApiServer() as server:
+        client = RestClient(RestConfig(server=server.url))
+        server.cluster.create(make_node("w0"))
+        informer = Informer(client, "Node")
+        informer.start()
+        try:
+            assert informer.wait_for_sync(10)
+            with tracing.span("writer.one") as one:
+                client.patch("Node", "w0", patch={"metadata": {"labels": {"a": "1"}}})
+            assert wait_until(lambda: informer.get("w0").labels.get("a") == "1")
+            assert server.kill_connections() >= 1
+            with tracing.span("writer.two") as two:
+                rv = client.patch("Node", "w0",
+                                  patch={"metadata": {"labels": {"a": "2"}}}).resource_version
+            deliveries: list = []
+            assert wait_until(lambda: bool(deliveries.extend(
+                r for r in tap.port.records()
+                if r["name"] == "informer.deliver" and r["attrs"].get("rv") == rv) or deliveries))
+            assert deliveries[0]["trace"] == two.trace_id != one.trace_id
+            assert informer.full_relists == 1
+        finally:
+            informer.stop()
+            client.close()
+
+
+def test_hub_resume_frames_keep_origins(tap):
+    """A subscriber of the port's hub with a buffer of two, a burst of
+    eight writes: each delivery, replayed from the hub's journal or not,
+    joins its own write's trace."""
+    from k8s_operator_libs_tpu_torch.kube.watchhub import WatchHub
+
+    with LocalApiServer() as server:
+        client = RestClient(RestConfig(server=server.url))
+        server.cluster.create(make_node("h0"))
+        hub = WatchHub(client, buffer_limit=2, idle_linger_s=0.0)
+        informer = Informer(client, "Node", stream_source=hub)
+        informer.start()
+        try:
+            assert informer.wait_for_sync(10)
+            traces = {}
+            for i in range(8):
+                with tracing.span(f"writer.{i}") as w:
+                    patched = client.patch("Node", "h0",
+                                           patch={"metadata": {"labels": {"i": str(i)}}})
+                    traces[patched.resource_version] = w.trace_id
+            last_rv = max(traces, key=int)
+            delivered: dict = {}
+
+            def caught_up() -> bool:
+                delivered.update({r["attrs"]["rv"]: r["trace"] for r in tap.port.records()
+                                  if r["name"] == "informer.deliver"
+                                  and r["attrs"].get("rv") in traces})
+                return last_rv in delivered
+
+            assert wait_until(caught_up), "the burst was never delivered"
+            assert all(trace_id == traces[rv] for rv, trace_id in delivered.items())
+        finally:
+            informer.stop()
+            hub.stop()
+            client.close()
 
 
 # ----------------------------------------------------------------------

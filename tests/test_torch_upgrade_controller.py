@@ -20,7 +20,13 @@ kubelets played by the port's ``DaemonSetSimulator``:
   elector reports the loss, within the renew deadline and a wake slice;
 * ``--once`` prints exactly one pass;
 * each refused flag exits non-zero naming its ROADMAP item, before any
-  step; each fleet flag runs one tick of a shard worker under ``--once``
+  step;
+* ``--watch --watch-relay`` on twin clusters: the JAX command through the
+  JAX ``WatchRelay`` on one, the port's through the port's on the other,
+  each roll driven by watch events alone; every node takes the JAX
+  command's state-label sequence, and each relay carried one upstream
+  stream a scope;
+* each fleet flag runs one tick of a shard worker under ``--once``
   and leaves every Lease released;
 * ``--ici-gate`` with no card: the gate raises in the validation hook, so
   the node stays in ``validation-required`` instead of passing.
@@ -311,7 +317,6 @@ def test_once_prints_exactly_one_pass(pool, capsys):
 
 @pytest.mark.parametrize("flag, item", [
     (["--demo"], "A19"),
-    (["--watch-relay", "http://127.0.0.1:1"], "A18"),
 ])
 def test_refused_flags_exit_nonzero_naming_their_item(pool, capsys, flag, item):
     server, _ = pool
@@ -407,3 +412,115 @@ def test_chip_smoke_controller_roll_on_the_cpu(monkeypatch, tmp_path, capsys):
     for node in smoke.CONTROLLER_NODES:
         states = [state for state, _ in result["trajectories"][node]]
         assert states[-1] == "upgrade-done" and "validation-required" in states
+
+
+RELAY_SIDES = {
+    "jax": dict(ds="libtpu-installer", keys="jax",
+                argv=[sys.executable, str(REPO / "examples" / "upgrade_controller.py")]),
+    "port": dict(ds="gpu-installer", keys="port",
+                 argv=[sys.executable, "-m", "k8s_operator_libs_tpu_torch.upgrade_controller"]),
+}
+
+
+def _relay_roll(name: str, tmp_path) -> dict:
+    """One watch-driven roll of two nodes by ``name``'s command through
+    ``name``'s relay; what the roll showed."""
+    from k8s_operator_libs_tpu.kube import RestConfig as JaxRestConfig
+    from k8s_operator_libs_tpu.kube import WatchRelay as JaxWatchRelay
+    from k8s_operator_libs_tpu.kube.sim import DaemonSetSimulator as JaxDaemonSetSimulator
+    from k8s_operator_libs_tpu.upgrade import DeviceClass as JaxDeviceClass
+    from k8s_operator_libs_tpu.upgrade import UpgradeKeys as JaxUpgradeKeys
+    from k8s_operator_libs_tpu.utils.jaxenv import hermetic_cpu_env
+    from k8s_operator_libs_tpu_torch.kube.relay import WatchRelay
+    from k8s_operator_libs_tpu_torch.kube.rest import RestConfig
+
+    side = RELAY_SIDES[name]
+    if name == "jax":
+        state_label = JaxUpgradeKeys(JaxDeviceClass.tpu()).state_label
+        env = hermetic_cpu_env(4)
+    else:
+        state_label = KEYS.state_label
+        env = dict(os.environ)
+        env["PYTHONPATH"] = str(REPO) + os.pathsep + env.get("PYTHONPATH", "")
+    sim_cls = JaxDaemonSetSimulator if name == "jax" else DaemonSetSimulator
+    with LocalApiServer() as server:
+        cluster = server.cluster
+        for i in range(2):
+            cluster.create(make_node(f"wd-{i}"))
+        sim = sim_cls(cluster, name=side["ds"], namespace=NS,
+                      match_labels={"app": side["ds"]}, initial_hash="v1")
+        sim.settle()
+        sequences: dict = {}
+        lock = threading.Lock()
+
+        def record(event, obj, old):
+            if obj.get("kind") != "Node":
+                return
+            label = (obj["metadata"].get("labels") or {}).get(state_label)
+            old_label = (((old or {}).get("metadata") or {}).get("labels") or {}).get(
+                state_label)
+            if label != old_label:
+                with lock:
+                    sequences.setdefault(obj["metadata"]["name"], []).append(label)
+
+        cluster.subscribe(record)
+        if name == "jax":
+            relay = JaxWatchRelay(JaxRestConfig(server=server.url)).start()
+        else:
+            relay = WatchRelay(RestConfig(server=server.url)).start()
+        env["KUBECONFIG"] = server.write_kubeconfig(str(tmp_path / f"{name}.kubeconfig"))
+        stats = tmp_path / f"{name}-stats.json"
+        proc = subprocess.Popen(
+            [*side["argv"], "--watch", "--interval", "600", "--selector", f"app={side['ds']}",
+             "--watch-relay", relay.url, "--stats-json", str(stats)],
+            cwd=str(REPO), env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        output: list[str] = []
+        drainer = threading.Thread(target=lambda: output.extend(proc.stdout), daemon=True)
+        drainer.start()
+        kubelet = Kubelet(sim)
+
+        def states():
+            return {n.name: n.labels.get(state_label) for n in cluster.list("Node")}
+
+        try:
+            assert wait_until(lambda: set(states().values()) == {"upgrade-done"}, 60), (
+                f"{name}: the first pass never classified the pool:\n" + "".join(output[-40:]))
+            sim.set_template_hash("v2")
+            converged = wait_until(
+                lambda: set(states().values()) == {"upgrade-done"}
+                and sim.all_pods_ready_and_current()
+                and not any(n.unschedulable for n in cluster.list("Node")), 120)
+            assert converged, f"{name}: the relay-fed roll did not converge:\n" + "".join(
+                output[-60:])
+            relay_stats = relay.stats()
+            proc.send_signal(signal.SIGTERM)
+            rc = proc.wait(timeout=60)
+        finally:
+            kubelet.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+            drainer.join(timeout=5)
+            relay.stop()
+        recorded = json.loads(stats.read_text())
+        scopes = relay_stats["hub"]["scopes"]
+        return {
+            "rc": rc,
+            "sequences": sequences,
+            "relay_kinds": sorted(scope["kind"] for scope in scopes.values()),
+            "one_upstream_a_scope": all(
+                scope["upstream_watches_opened"] == 1 for scope in scopes.values()),
+            "frames_via_relay": recorded["relay"]["frames_via_relay"] > 0,
+            "fallbacks_to_direct": recorded["relay"]["fallbacks_to_direct"],
+        }
+
+
+def test_watch_roll_through_a_relay_matches_the_jax_command(tmp_path):
+    outcomes = {name: _relay_roll(name, tmp_path) for name in RELAY_SIDES}
+    assert outcomes["port"] == outcomes["jax"]
+    got = outcomes["port"]
+    assert got["rc"] == 0 and got["one_upstream_a_scope"] and got["frames_via_relay"]
+    assert got["relay_kinds"] == ["ControllerRevision", "DaemonSet", "Node", "Pod"]
+    assert got["fallbacks_to_direct"] == 0
+    assert all(seq[-1] == "upgrade-done" for seq in got["sequences"].values())

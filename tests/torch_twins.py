@@ -27,6 +27,7 @@ from k8s_operator_libs_tpu.kube import Node as JaxNode
 from k8s_operator_libs_tpu.kube import client as jax_client
 from k8s_operator_libs_tpu.kube.informer import Informer as JaxInformer
 from k8s_operator_libs_tpu.kube.sim import DaemonSetSimulator
+from k8s_operator_libs_tpu.kube.watchhub import WatchHub as JaxWatchHub
 from k8s_operator_libs_tpu.upgrade import state_provider as jax_state_provider
 from k8s_operator_libs_tpu.upgrade import write_batch as jax_write_batch
 from k8s_operator_libs_tpu.upgrade.consts import NULL_STRING as JAX_NULL
@@ -37,6 +38,7 @@ from k8s_operator_libs_tpu_torch.kube import client as port_client
 from k8s_operator_libs_tpu_torch.kube.informer import Informer
 from k8s_operator_libs_tpu_torch.kube.objects import Node
 from k8s_operator_libs_tpu_torch.kube.rest import RestClient, RestConfig
+from k8s_operator_libs_tpu_torch.kube.watchhub import WatchHub
 from k8s_operator_libs_tpu_torch.upgrade import state_provider as port_state_provider
 from k8s_operator_libs_tpu_torch.upgrade import write_batch as port_write_batch
 from k8s_operator_libs_tpu_torch.upgrade.consts import NULL_STRING
@@ -49,7 +51,7 @@ POLICY = {"autoUpgrade": True, "maxParallelUpgrades": 0, "maxUnavailable": "100%
 
 
 def _pkg(upgrade, policy_cls, node_cls, client_mod, provider_mod, batch_mod, fault_mod,
-         informer_cls, null):
+         informer_cls, null, hub_cls):
     device = upgrade.DeviceClass.nvidia("gpu")
     return SimpleNamespace(
         upgrade=upgrade,
@@ -65,14 +67,16 @@ def _pkg(upgrade, policy_cls, node_cls, client_mod, provider_mod, batch_mod, fau
         faultpoints=fault_mod,
         Informer=informer_cls,
         NULL=null,
+        WatchHub=hub_cls,
     )
 
 
 PKGS = {
     "jax": _pkg(jax_upgrade, JaxPolicy, JaxNode, jax_client, jax_state_provider,
-                jax_write_batch, jax_faultpoints, JaxInformer, JAX_NULL),
+                jax_write_batch, jax_faultpoints, JaxInformer, JAX_NULL, JaxWatchHub),
     "port": _pkg(port_upgrade, DriverUpgradePolicySpec, Node, port_client,
-                 port_state_provider, port_write_batch, faultpoints, Informer, NULL_STRING),
+                 port_state_provider, port_write_batch, faultpoints, Informer, NULL_STRING,
+                 WatchHub),
 }
 #: The port's keys are the JAX package's, byte for byte.
 KEYS = PKGS["port"].keys

@@ -333,15 +333,34 @@ Phases, in order; any failure raises and the script exits non-zero:
     each trace's spans by name and each stats file;
 21. fleet_roll phase (the fleet tier), after the controller roll: two
     fleet workers of the same command roll two pools under one
-    FleetRollout's budget of one pool (``fleet_roll_phase``);
-22. calibration phase, after the gang phase: ``python -m
+    FleetRollout's budget of one pool (``fleet_roll_phase``); then
+    relay_roll, the same through a ``WatchRelay`` on pools of its own;
+22. in-memory phase (the port's in-memory cluster, ``kube/fake.py``),
+    after relay_roll and before the gang phase: ``demo``, the command's
+    ``--demo`` as two child processes at once on the card, plain and
+    ``--requestor --post-maintenance``, each uncordon gated by the in-process gate on
+    the card (the plain product, as the JAX demo's takes XLA's dot): each
+    must exit 0 printing ``rolling upgrade complete`` with every demo
+    node's gate verdict ok (``{"demo": ...}``: seconds, passes, each
+    node's verdict and gate seconds); ``crdutil_demo``, ``python -m
+    k8s_operator_libs_tpu_torch.crdutil --demo`` on ``manifests/crds``,
+    apply then delete, each printing ``processed 2 CRD(s)``
+    (``{"crdutil_demo": ...}``: seconds), beside the demo children;
+    ``fake_roll``, the roll phase's
+    scenario over the port's ``FakeCluster`` with 256 more GPU nodes, the
+    manager and the provider reading through ``CachedClient`` in its auto
+    mode, each probe pod on the kernel cache the roll phase left for its
+    node: each pod must launch both kernels as often as the gate phase
+    did and the controller neither (``{"fake_roll": ...}``: the roll's
+    fields, the cluster's node count and the provider's read-back waits);
+23. calibration phase, after the gang phase: ``python -m
     k8s_operator_libs_tpu_torch.tools.calibration`` as a child on every
     card; its one line is printed as ``{"calibration": ...}`` and must
     carry the port's keys (``CALIBRATION_KEYS``) with ``ok``,
     ``matmul_kernel_launched`` and ``flash_attention_ok`` true and both
     TFLOP/s above 0. The gate's floors stay 0: this line is what they
     will be set from;
-23. monitor_manifest phase, after the calibration: the port's two
+24. monitor_manifest phase, after the calibration: the port's two
     DaemonSet manifests, read through the package's own data path, each
     container run as its kubelet would (``DaemonSetPod``: ``python`` this
     interpreter, a free metrics port, ``NODE_NAME`` the monitored node,
@@ -372,7 +391,8 @@ roll's hook calls together and its probe pods together, the checkpoint
 roll's probe pods together, the monitor's payload, the quarantine
 hand-off's probe pod, the informer roll's probe pods together, the
 controller roll's probe pods together, the fleet roll's probe pods
-together, the gang's payload and the first full-tier monitor pod's
+together, the relay roll's and the fake roll's probe pods together, the
+gang's payload and the first full-tier monitor pod's
 payload),
 the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
@@ -550,6 +570,13 @@ RELAY_NODES = ("relay-a-h0", "relay-b-h0")
 RELAY_POOLS = ("relay-a", "relay-b")
 RELAY_ROLLOUT = "gpu-relay-fleet"
 RELAY_IDS = ("relay-w0", "relay-w1")
+#: The in-memory phase: the demo pool's nodes (``upgrade_controller``'s
+#: ``DEMO_POOL``), the seconds a demo child may take, and the nodes
+#: ``fake_roll`` rolls, each on the kernel cache ``roll`` left for the
+#: node of ``ROLL_NODES`` in its place.
+DEMO_NODES = tuple(f"h100-pool-{i}" for i in range(4))
+DEMO_TIMEOUT_S = 300
+FAKE_ROLL_NODES = ("gpu-fake-0", "gpu-fake-1")
 #: The port's monitor DaemonSets (package data), the seconds a pod of
 #: them may take to what it is waited for, and the flapping pod's cadence.
 FULL_MANIFEST = "monitor-daemonset.yaml"
@@ -1694,11 +1721,10 @@ class ApiStub(ThreadingHTTPServer):
     def __init__(self, client: DictClient) -> None:
         import urllib.parse
 
-        from k8s_operator_libs_tpu_torch.kube.rest import RESOURCES
-
         from k8s_operator_libs_tpu_torch.kube import wire
+        from k8s_operator_libs_tpu_torch.kube.resources import _REGISTRY
 
-        kinds = {plural: kind for kind, (_, plural, _) in RESOURCES.items()}
+        kinds = {info.plural: kind for kind, info in _REGISTRY.items()}
         stub = self
         #: Every request served: (method, path with its query).
         self.requests: list[tuple[str, str]] = []
@@ -2635,45 +2661,167 @@ def total_launches(calls) -> dict:
     return {lib: sum(c["launches"][lib] for c in calls) for lib in ("matmul", "flash_attention")}
 
 
-def roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
-    """Two GPU nodes rolled from driver 550 to 560 by the port's own state
-    machine, each let back in by its probe pod's payload on the card; each
-    node's kernel cache is its own directory under ``cache_root``."""
+def roll_phase(card: str, gate_launches: dict, cache_root: str, client, label: str = "roll",
+               nodes=ROLL_NODES, reader=None, caches: Optional[dict] = None,
+               extra: Optional[dict] = None) -> dict:
+    """Two GPU nodes of ``client`` rolled from driver 550 to 560 by the
+    port's own state machine (reading through ``reader`` where given),
+    each let back in by its probe pod's payload on the card; each node's
+    kernel cache is the directory ``caches`` names for it, by default its
+    own under ``cache_root``. ``extra()`` adds to the result printed."""
     from k8s_operator_libs_tpu_torch.tpu.validation_pod import (
         ValidationPodManager,
         ValidationPodSpec,
     )
     from k8s_operator_libs_tpu_torch.upgrade import ClusterUpgradeStateManager, DeviceClass
 
-    client = DictClient()
-    installer = roll_pool(client, ROLL_NODES)
-    mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"))
+    installer = roll_pool(client, nodes)
+    if reader is not None:
+        # A controller starts once its cache has synced: the reader holds
+        # the pool before the first pass.
+        reader.sync()
+    mgr = ClusterUpgradeStateManager(client, DeviceClass.nvidia("gpu"), reader=reader)
     mgr.with_validation_enabled(
         pod_provisioner=ValidationPodManager(client, ValidationPodSpec())
     )
-    caches = {name: os.path.join(cache_root, name) for name in ROLL_NODES}
-    with tempfile.TemporaryDirectory(prefix="roll-") as workdir:
-        kubelet = RollKubelet(client, installer, ROLL_NODES, workdir, gate_launches, caches)
+    if caches is None:
+        caches = {name: os.path.join(cache_root, name) for name in nodes}
+    with tempfile.TemporaryDirectory(prefix=f"{label}-") as workdir:
+        kubelet = RollKubelet(client, installer, nodes, workdir, gate_launches, caches)
         try:
-            run = drive_roll("roll", client, mgr, installer, kubelet)
+            run = drive_roll(label, client, mgr, installer, kubelet)
         finally:
             mgr.runner.shutdown()
         parent = counts()
     if parent["matmul"] or parent["flash_attention"]:
-        raise AssertionError(f"roll: the controller launched kernels itself: {parent}")
+        raise AssertionError(f"{label}: the controller launched kernels itself: {parent}")
     runs = kubelet.probe_runs
     result = {
-        "nodes": list(ROLL_NODES),
+        "nodes": list(nodes),
         "versions": list(ROLL_VERSIONS),
         "policy": ROLL_POLICY,
         **run,
         "probe_pods": runs,
         "launches": total_launches(runs.values()),
+        "controller_launches": parent,
         "pods_after": sorted(p.name for p in client.list("Pod")),
+        **(extra() if extra is not None else {}),
     }
-    print(json.dumps({"roll": result, "card": card}), flush=True)
-    check_rolled_pods("roll", client, installer, ROLL_NODES, runs)
+    print(json.dumps({label: result, "card": card}), flush=True)
+    check_rolled_pods(label, client, installer, nodes, runs)
     return result
+
+
+def demo_child(label: str, *args: str) -> dict:
+    """``python -m k8s_operator_libs_tpu_torch.upgrade_controller --demo``
+    with ``args``, its gate on the card: its seconds, passes and each
+    node's gate verdict. A non-zero exit, no ``rolling upgrade complete``
+    or a gate that did not pass fails the phase."""
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_operator_libs_tpu_torch.upgrade_controller", "--demo",
+         *args],
+        cwd=REPO, env=child_env(), capture_output=True, text=True, timeout=DEMO_TIMEOUT_S,
+    )
+    seconds = time.perf_counter() - start
+    tail = proc.stdout[-2000:] + proc.stderr[-2000:]
+    done = re.search(r"^demo: rolling upgrade complete in (\d+) passes$", proc.stdout, re.M)
+    if proc.returncode != 0 or done is None:
+        raise AssertionError(f"demo {label}: rc {proc.returncode}: {tail}")
+    gate = {m.group(1): {"ok": m.group(2) == "True", "seconds": float(m.group(3))}
+            for m in re.finditer(r"^demo gate: node=(\S+) ok=(True|False) seconds=([0-9.]+)$",
+                                 proc.stdout, re.M)}
+    if sorted(gate) != list(DEMO_NODES) or not all(v["ok"] for v in gate.values()):
+        raise AssertionError(f"demo {label}: gate verdicts {gate}: {tail}")
+    return {"args": list(args), "rc": proc.returncode, "seconds": seconds,
+            "passes": int(done.group(1)),
+            "pass_lines": sum(1 for ln in proc.stdout.splitlines() if ln.startswith("pass ")),
+            "gate": gate}
+
+
+def crdutil_demo_child(operation: str) -> dict:
+    """``python -m k8s_operator_libs_tpu_torch.crdutil --demo`` on the
+    repo's CRDs: its seconds and last line."""
+    start = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_operator_libs_tpu_torch.crdutil", "--demo",
+         "--crds-path", os.path.join(REPO, "manifests", "crds"), "--operation", operation],
+        cwd=REPO, env=child_env(), capture_output=True, text=True, timeout=CLI_TIMEOUT_S,
+    )
+    seconds = time.perf_counter() - start
+    last = (proc.stdout.strip().splitlines() or [""])[-1]
+    if proc.returncode != 0 or last != f"{operation}: processed 2 CRD(s)":
+        raise AssertionError(f"crdutil_demo {operation}: rc {proc.returncode}, last line "
+                             f"{last!r}: {proc.stderr[-2000:]}")
+    return {"seconds": seconds, "last_line": last}
+
+
+def in_memory_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+    """The port's in-memory cluster on the card: both commands' ``--demo``
+    as child processes, then ``roll``'s scenario over a ``FakeCluster`` of
+    256 more GPU nodes, the manager and provider reading through a
+    ``CachedClient`` in its auto mode, each probe pod on the kernel cache
+    ``roll`` left for its node."""
+    from k8s_operator_libs_tpu_torch.kube.cache import CachedClient
+    from k8s_operator_libs_tpu_torch.kube.fake import FakeCluster
+    from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    started = time.perf_counter()
+
+    # The two demo children share the card, each with its own world, and
+    # run beside the crdutil children: the phase's seconds are the roll's.
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        plain = pool.submit(demo_child, "plain")
+        requestor = pool.submit(demo_child, "requestor", "--requestor", "--post-maintenance")
+        crdutil = {op: crdutil_demo_child(op) for op in ("apply", "delete")}
+        demo = {"plain": plain.result(), "requestor": requestor.result()}
+    print(json.dumps({"demo": demo, "card": card}), flush=True)
+    print(json.dumps({"crdutil_demo": crdutil, "card": card}), flush=True)
+
+    cluster = FakeCluster()
+    labels = local_gpu_labels()
+    for i in range(WATCH_POOL_NODES):
+        cluster.create(pool_node(f"gpu-other-{i:03d}", labels))
+    reader = CachedClient(cluster, sync_mode="auto")
+    waits: list = []
+    wait_until = reader.wait_until
+
+    def timed_wait(predicate, timeout):
+        began = time.perf_counter()
+        ok = wait_until(predicate, timeout)
+        waits.append((round(time.perf_counter() - began, 4), ok))
+        return ok
+
+    # The provider's read-back waits, each timed: the instance's own
+    # attribute shadows the method.
+    reader.wait_until = timed_wait
+
+    def read_back() -> dict:
+        seconds = [w for w, _ in waits]
+        return {"cluster_nodes": len(cluster.list("Node")), "reader": "CachedClient(auto)",
+                "read_back_waits": len(waits),
+                "read_back_s_total": round(sum(seconds), 4),
+                "read_back_s_max": max(seconds, default=0.0),
+                "read_back_timeouts": sum(1 for _, ok in waits if not ok)}
+
+    try:
+        fake = roll_phase(card, gate_launches, cache_root, cluster, label="fake_roll",
+                          nodes=FAKE_ROLL_NODES, reader=reader,
+                          caches={name: os.path.join(cache_root, roll_node)
+                                  for name, roll_node in zip(FAKE_ROLL_NODES, ROLL_NODES)},
+                          extra=read_back)
+    finally:
+        reader.close()
+        cluster.close()
+    if not waits or fake["read_back_timeouts"]:
+        raise AssertionError(f"fake_roll: read-back waits {waits}")
+    if fake["cluster_nodes"] != WATCH_POOL_NODES + len(FAKE_ROLL_NODES):
+        raise AssertionError(f"fake_roll: {fake['cluster_nodes']} nodes in the cluster")
+    print(json.dumps({"in_memory": {"seconds": time.perf_counter() - started}, "card": card}),
+          flush=True)
+    return {"demo": demo, "crdutil_demo": crdutil, "fake_roll": fake}
 
 
 def requestor_roll_phase(card: str, gate_launches: dict, cache_root: str, client) -> dict:
@@ -5157,7 +5305,7 @@ def main() -> int:
     watch = WatchPhase()
     try:
         with tempfile.TemporaryDirectory(prefix="kernel-caches-") as cache_root:
-            roll = roll_phase(card, launches, cache_root)
+            roll = roll_phase(card, launches, cache_root, DictClient())
             requestor_client = DictClient()
             watch.start_maintenance(requestor_client)
             requestor = requestor_roll_phase(card, launches, cache_root, requestor_client)
@@ -5174,6 +5322,7 @@ def main() -> int:
             relayed = fleet_roll_phase(card, launches, cache_root, label="relay_roll",
                                        nodes=RELAY_NODES, pools=RELAY_POOLS,
                                        rollout=RELAY_ROLLOUT, ids=RELAY_IDS, relay=True)
+            in_memory = in_memory_phase(card, launches, cache_root)
     finally:
         watched = watch.stop()
     print(json.dumps({"watch": watched, "card": card}), flush=True)
@@ -5197,6 +5346,7 @@ def main() -> int:
         row["launches_controller_roll"] = controller["pod_launches"][kernel]
         row["launches_fleet_roll"] = fleet["pod_launches"][kernel]
         row["launches_relay_roll"] = relayed["pod_launches"][kernel]
+        row["launches_fake_roll"] = in_memory["fake_roll"]["launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         row["launches_monitor_manifest"] = manifest["full_1"]["launches"][kernel]
         if kernel == "matmul":

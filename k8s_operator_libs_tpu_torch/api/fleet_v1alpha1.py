@@ -15,8 +15,8 @@ object, never a worker's memory:
   successor reads the same grants, and the node labels carry each node's
   progress.
 
-The names and shapes live here, free of any client; ``kube/rest.py``'s
-``RESOURCES`` registers the kind. The object is cluster-scoped: a
+The names and shapes live here, free of any client; the resource
+registry (``kube/resources.py``) registers the kind. The object is cluster-scoped: a
 rollout spans pools.
 """
 

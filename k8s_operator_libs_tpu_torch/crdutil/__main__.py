@@ -7,8 +7,9 @@ The flags of the JAX package's ``examples/apply_crds.py`` (the
 reference's ``examples/apply-crds``), which is an example script and so
 has no module path for this one to mirror. The client is
 ``RestClient.from_environment()``: the in-cluster service account, else
-``$KUBECONFIG``. ``--demo`` would run against an in-memory API server,
-which waits for ROADMAP A19 and is refused. Prints
+``$KUBECONFIG``; with ``--demo`` it is the port's in-memory cluster
+(``kube/fake.py``), which establishes each CRD 0.05 s after its write, as
+the JAX example's does, and is closed on the way out. Prints
 ``<operation>: processed N CRD(s)``; exits 1 with the error on stderr when
 a path or document is bad or the wait times out.
 """
@@ -19,13 +20,14 @@ import argparse
 import logging
 import sys
 
-from ..upgrade.state_manager import not_ported
 from .crdutil import CRDOperation, CRDProcessingError, process_crds
 
 
 def build_client(args: argparse.Namespace):
     if args.demo:
-        raise not_ported("--demo, the in-memory API server", "A19")
+        from ..kube.fake import FakeCluster
+
+        return FakeCluster(crd_establish_delay=0.05)
     from ..kube.rest import RestClient, RestConfigError
 
     try:
@@ -50,7 +52,7 @@ def main(argv: list[str] | None = None) -> int:
     )
     parser.add_argument(
         "--demo", action="store_true",
-        help="run against an in-memory API server (not ported yet)",
+        help="run against the in-memory cluster, no cluster needed",
     )
     args = parser.parse_args(argv)
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
@@ -60,6 +62,10 @@ def main(argv: list[str] | None = None) -> int:
     except CRDProcessingError as e:
         print(f"error: {e}", file=sys.stderr)
         return 1
+    finally:
+        close = getattr(client, "close", None)
+        if callable(close):
+            close()
     print(f"{args.operation}: processed {count} CRD(s)")
     return 0
 

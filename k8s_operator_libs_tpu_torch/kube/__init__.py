@@ -6,19 +6,25 @@ client (the compact codec, the wire loop's stall watchdog) and the shared
 watch over it (``WatchHub`` in one process, ``WatchRelay`` and
 ``RelayWatchSource`` across processes); and the controller runtime over
 them: the rate-limited workqueue, the informer-fed ``Controller`` and
-Lease-based leader election. The operator passes in its own client and
+Lease-based leader election; and the in-memory cluster of the tests and
+demos (``FakeCluster`` with its patch engines, server-side apply and
+structural schemas, ``CachedClient`` over it, ``FakeRecorder``) with the
+resource registry every client routes through. The operator passes in its own client and
 objects; the port reads them by duck typing and imports none of the
 operator's code. The monitor, run as a pod, builds its own
 ``rest.RestClient``."""
 
+from .cache import CachedClient
 from .client import ListDelta, UnsupportedMediaTypeError, WatchExpiredError, patch_many
 from .controller import Controller, Request, Result
-from .events import EventRecorder
+from .events import EventRecorder, FakeRecorder
+from .fake import FakeCluster, json_patch, merge_patch
 from .informer import EventHandler, Informer
 from .leader import LeaderElectionConfig, LeaderElector
 from .loopwatch import LoopStallWatchdog, install_wire_loop_watchdog, wire_loop_stall_stats
-from .objects import CustomResourceDefinition, Lease, deep_copy_json
+from .objects import ConfigMap, CustomResourceDefinition, Lease, deep_copy_json
 from .relay import RelayWatchSource, WatchRelay
+from .resources import ResourceInfo, register_resource, resource_for_kind
 from .rest import DEFAULT_WATCH_TIMEOUT_SECONDS, RestClient, RestConfig, WatchHandle
 from .selectors import (
     FieldRequirement,
@@ -29,6 +35,8 @@ from .selectors import (
     parse_field_selector,
     parse_selector,
 )
+from .ssa import ApplyConflictError, server_side_apply
+from .structural import StructuralSchema, schema_for_crd_version
 from .watchhub import WatchHub
 from .wire import (
     WireDecodeError,
@@ -50,13 +58,18 @@ from .workqueue import (
 )
 
 __all__ = [
+    "ApplyConflictError",
     "BucketRateLimiter",
+    "CachedClient",
+    "ConfigMap",
     "Controller",
     "CustomResourceDefinition",
     "DEFAULT_WATCH_TIMEOUT_SECONDS",
     "DelayingQueue",
     "EventHandler",
     "EventRecorder",
+    "FakeCluster",
+    "FakeRecorder",
     "FieldRequirement",
     "FieldSelector",
     "Informer",
@@ -72,10 +85,12 @@ __all__ = [
     "RelayWatchSource",
     "Request",
     "Requirement",
+    "ResourceInfo",
     "RestClient",
     "RestConfig",
     "Result",
     "SelectorError",
+    "StructuralSchema",
     "UnsupportedMediaTypeError",
     "WatchExpiredError",
     "WatchHandle",
@@ -91,9 +106,15 @@ __all__ = [
     "encode_compact",
     "encode_watch_frame",
     "install_wire_loop_watchdog",
+    "json_patch",
+    "merge_patch",
     "negotiate_encoding",
     "parse_field_selector",
     "parse_selector",
     "patch_many",
+    "register_resource",
+    "resource_for_kind",
+    "schema_for_crd_version",
+    "server_side_apply",
     "wire_loop_stall_stats",
 ]

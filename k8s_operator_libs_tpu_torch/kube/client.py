@@ -169,6 +169,53 @@ class Client(Protocol):
         ...
 
 
+class ClientBase(Client):
+    """The methods the JAX package's ``Client`` base class gives every
+    client, for the port's clients that subclass it (the in-memory
+    cluster and ``CachedClient``): ``patch_many`` as a serial loop over
+    ``patch`` with each slot's error isolated, ``get_or_none`` and
+    ``delete_if_exists``."""
+
+    def patch_many(
+        self,
+        kind: str,
+        patches: Sequence[tuple[str, Any, str]],
+        namespace: str = "",
+        field_manager: str = "",
+        dry_run: bool = False,
+    ) -> list:
+        results: list = []
+        for name, patch, patch_type in patches:
+            try:
+                results.append(
+                    self.patch(
+                        kind,
+                        name,
+                        namespace=namespace,
+                        patch=patch,
+                        patch_type=patch_type,
+                        field_manager=field_manager,
+                        dry_run=dry_run,
+                    )
+                )
+            except Exception as e:  # noqa: BLE001 - per-item isolation
+                results.append(e)
+        return results
+
+    def get_or_none(self, kind: str, name: str, namespace: str = "") -> Optional[Any]:
+        try:
+            return self.get(kind, name, namespace)
+        except NotFoundError:
+            return None
+
+    def delete_if_exists(self, kind: str, name: str, namespace: str = "") -> bool:
+        try:
+            self.delete(kind, name, namespace)
+            return True
+        except NotFoundError:
+            return False
+
+
 def has_reason(exc: BaseException, kind: type[ApiError]) -> bool:
     """Whether ``exc`` is an API error of ``kind``, whichever client's
     class raised it."""

@@ -1,7 +1,7 @@
 """Kubernetes Event recording with client-go correlation semantics.
 
-The JAX package's ``kube/events.py`` recorder; its ``FakeRecorder`` waits
-for ROADMAP A19. The port's state machine passes its recorder to every
+The JAX package's ``kube/events.py``: the recorder, and ``FakeRecorder``,
+the in-memory one of the tests and demos. The port's state machine passes its recorder to every
 manager (cordon, drain, pod, validation, safe load, the state provider),
 and the monitor records each condition transition, so a hot reconcile
 loop records through here. client-go's EventCorrelator sits in front of
@@ -30,8 +30,8 @@ from __future__ import annotations
 import threading
 import time
 import uuid
-from collections import OrderedDict
-from typing import Callable
+from collections import OrderedDict, deque
+from typing import Callable, Deque
 
 from .client import Client, NotFoundError, has_reason
 from .objects import Event, KubeObject, rfc3339_now
@@ -208,3 +208,30 @@ class EventRecorder:
         self, obj: KubeObject, event_type: str, reason: str, fmt: str, *args
     ) -> None:
         self.event(obj, event_type, reason, fmt % args if args else fmt)
+
+
+class FakeRecorder:
+    """In-memory recorder with a bounded buffer, mirroring
+    record.FakeRecorder(100) in the reference suites."""
+
+    def __init__(self, capacity: int = 100) -> None:
+        self._lock = threading.Lock()
+        self.capacity = capacity
+        self.messages: Deque[str] = deque(maxlen=capacity)
+
+    def event(
+        self, obj: KubeObject, event_type: str, reason: str, message: str
+    ) -> None:
+        with self._lock:
+            self.messages.append(f"{event_type} {reason} {message}")
+
+    def eventf(
+        self, obj: KubeObject, event_type: str, reason: str, fmt: str, *args
+    ) -> None:
+        self.event(obj, event_type, reason, fmt % args if args else fmt)
+
+    def drain(self) -> list[str]:
+        with self._lock:
+            out = list(self.messages)
+            self.messages.clear()
+            return out

@@ -1,10 +1,11 @@
 """Thin typed views over Kubernetes object dicts.
 
 A subset of the JAX package's ``kube/objects.py``: ``deep_copy_json``
-(the informer's copy of a document), ``Node``, ``Pod``,
-``DaemonSet``, ``ControllerRevision``, ``Service``, ``Event``, the leader
-election's ``Lease`` and the external maintenance operator's
-``NodeMaintenance`` with the accessors
+(the informer's and the in-memory cluster's copy of a document),
+``Node``, ``Pod``, ``DaemonSet``, ``ControllerRevision``, ``Service``,
+``Event``, ``ConfigMap``, the leader election's ``Lease``, the
+``CustomResourceDefinition`` and the external maintenance operator's
+``NodeMaintenance``, each with its ``NAMESPACED`` scope and the accessors
 the GPU device class, the monitor, the slice gang and the upgrade state
 machine read, and the condition helpers the monitor writes with. Reads
 do not insert: a view of a document another component holds (a snapshot
@@ -46,6 +47,7 @@ class KubeObject:
 
     KIND = ""
     API_VERSION = ""
+    NAMESPACED = True
 
     def __init__(self, data: Optional[dict[str, Any]] = None) -> None:
         self.raw: dict[str, Any] = data if data is not None else {}
@@ -187,6 +189,7 @@ MIRROR_POD_ANNOTATION = "kubernetes.io/config.mirror"
 class Node(KubeObject):
     KIND = "Node"
     API_VERSION = "v1"
+    NAMESPACED = False
 
     @property
     def unschedulable(self) -> bool:
@@ -313,6 +316,18 @@ class Event(KubeObject):
     API_VERSION = "v1"
 
 
+class ConfigMap(KubeObject):
+    """A core v1 ConfigMap: a key/value payload, and the usual object two
+    managers share under server-side apply."""
+
+    KIND = "ConfigMap"
+    API_VERSION = "v1"
+
+    @property
+    def data(self) -> dict[str, str]:
+        return _ensure(self.raw, "data")
+
+
 class NodeMaintenance(KubeObject):
     """The external maintenance operator's request object (the NVIDIA
     maintenance operator's API, ``maintenance.nvidia.com/v1alpha1``): the
@@ -417,6 +432,7 @@ class CustomResourceDefinition(KubeObject):
 
     KIND = "CustomResourceDefinition"
     API_VERSION = "apiextensions.k8s.io/v1"
+    NAMESPACED = False
 
     @property
     def group(self) -> str:
@@ -440,8 +456,8 @@ class CustomResourceDefinition(KubeObject):
 
 KINDS: dict[str, type] = {
     cls.KIND: cls
-    for cls in (Node, Pod, DaemonSet, ControllerRevision, Service, Event, NodeMaintenance,
-                Lease, CustomResourceDefinition)
+    for cls in (Node, Pod, DaemonSet, ControllerRevision, Event, Service, ConfigMap, Lease,
+                CustomResourceDefinition, NodeMaintenance)
 }
 
 

@@ -16,8 +16,7 @@ server's watch surface, so the client's ``WatchHandle`` and the
 informer's resume need no fork. Every other request is refused with 400:
 LISTs and writes go to the API server; the relay shares exactly the
 streams that were duplicated. The plural of a path maps to its kind
-through the port client's own table (``kube/rest.py``'s ``RESOURCES``);
-a registry of resources by plural is ROADMAP A19 (a)'s.
+through the resource registry (``kube/resources.py``).
 
 Threads, not asyncio: the relay serves a bounded set of long-lived
 streams (the worker processes of one host), and each stream is one
@@ -50,7 +49,8 @@ from typing import Any, Iterator, Mapping, Optional, Union
 from urllib.parse import parse_qsl, urlsplit
 
 from .client import ApiError, Client, WatchExpiredError
-from .rest import RESOURCES, RestClient, RestConfig
+from .resources import resource_for_plural
+from .rest import RestClient, RestConfig
 from .watchhub import (
     DEFAULT_JOURNAL_WINDOW,
     WatchHub,
@@ -90,15 +90,6 @@ _PATH_RE = re.compile(
     r"(?:/(?P<name>[^/]+))?"
     r"(?:/(?P<subresource>status|eviction))?$"
 )
-
-
-def kind_for_plural(group: str, plural: str) -> str:
-    """The kind ``RESOURCES`` serves as ``group``/``plural``; KeyError
-    where it serves none."""
-    for kind, (api_version, kind_plural, _namespaced) in RESOURCES.items():
-        if kind_plural == plural and api_version.rpartition("/")[0] == group:
-            return kind
-    raise KeyError(plural)
 
 
 def _read_http_request(
@@ -413,7 +404,7 @@ class WatchRelay:
                 encoding, keep_alive,
             )
         try:
-            kind = kind_for_plural(
+            info = resource_for_plural(
                 match.group("group") or "", match.group("plural")
             )
         except KeyError:
@@ -424,7 +415,7 @@ class WatchRelay:
             )
         return self._stream_watch(
             conn,
-            kind=kind,
+            kind=info.kind,
             namespace=match.group("namespace") or "",
             query=query,
             encoding=encoding,

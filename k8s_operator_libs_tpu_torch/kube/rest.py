@@ -44,7 +44,7 @@ events, resumable from a revision and cancelled through a
 :class:`WatchHandle`), ``create``, ``update``, ``update_status``,
 ``apply`` (server-side apply), ``patch``, ``patch_many``, ``delete``,
 ``delete_collection`` and ``evict`` (the pod's eviction subresource), on
-the kinds of :data:`RESOURCES`; and ``discover``, the API's discovery
+the kinds of the resource registry (``kube/resources.py``); and ``discover``, the API's discovery
 document of one group/version. Objects come back as the views of
 ``kube/objects.py``. An API error is raised with the API's
 ``Status.reason`` (and its HTTP ``code``), as the classes of
@@ -78,17 +78,6 @@ import urllib.parse
 from dataclasses import dataclass, field
 from typing import Any, Iterator, Mapping, Optional, Sequence
 
-from ..api.fleet_v1alpha1 import (
-    FLEET_ROLLOUT_API_VERSION,
-    FLEET_ROLLOUT_KIND,
-    FLEET_ROLLOUT_PLURAL,
-)
-from ..api.telemetry_v1alpha1 import NODE_HEALTH_REPORT_API_VERSION
-from ..api.upgrade_v1alpha1 import (
-    WORKLOAD_CHECKPOINT_API_VERSION,
-    WORKLOAD_CHECKPOINT_KIND,
-    WORKLOAD_CHECKPOINT_PLURAL,
-)
 from .client import (
     AlreadyExistsError,
     ApiError,
@@ -102,6 +91,7 @@ from .client import (
     WatchExpiredError,
 )
 from .objects import KubeObject, wrap
+from .resources import resource_for_kind
 from .wire import (
     CLIENT_ACCEPT_COMPACT,
     COMPACT_CONTENT_TYPE,
@@ -115,24 +105,6 @@ from ..utils import tracing
 
 #: Where a pod's service-account credentials are mounted.
 SERVICE_ACCOUNT_DIR = "/var/run/secrets/kubernetes.io/serviceaccount"
-
-#: kind -> (apiVersion, plural, namespaced).
-RESOURCES: dict[str, tuple[str, str, bool]] = {
-    "Node": ("v1", "nodes", False),
-    "Pod": ("v1", "pods", True),
-    "Service": ("v1", "services", True),
-    "Event": ("v1", "events", True),
-    "DaemonSet": ("apps/v1", "daemonsets", True),
-    "ControllerRevision": ("apps/v1", "controllerrevisions", True),
-    "NodeHealthReport": (NODE_HEALTH_REPORT_API_VERSION, "nodehealthreports", False),
-    "NodeMaintenance": ("maintenance.nvidia.com/v1alpha1", "nodemaintenances", True),
-    "Lease": ("coordination.k8s.io/v1", "leases", True),
-    WORKLOAD_CHECKPOINT_KIND: (WORKLOAD_CHECKPOINT_API_VERSION, WORKLOAD_CHECKPOINT_PLURAL, True),
-    FLEET_ROLLOUT_KIND: (FLEET_ROLLOUT_API_VERSION, FLEET_ROLLOUT_PLURAL, False),
-    "CustomResourceDefinition": (
-        "apiextensions.k8s.io/v1", "customresourcedefinitions", False,
-    ),
-}
 
 _ERRORS_BY_REASON = {
     cls.reason: cls
@@ -909,14 +881,13 @@ class RestClient:
 
     def _path(self, kind: str, namespace: str = "", name: str = "", sub: str = "") -> str:
         try:
-            api_version, plural, namespaced = RESOURCES[kind]
+            info = resource_for_kind(kind)
         except KeyError:
             raise ValueError(f"kind {kind!r} is not one this client serves") from None
-        prefix = f"/apis/{api_version}" if "/" in api_version else f"/api/{api_version}"
-        parts = [prefix]
-        if namespaced and namespace:
+        parts = [info.path_prefix]
+        if info.namespaced and namespace:
             parts.append(f"/namespaces/{urllib.parse.quote(namespace)}")
-        parts.append(f"/{plural}")
+        parts.append(f"/{info.plural}")
         if name:
             parts.append(f"/{urllib.parse.quote(name)}")
             if sub:
@@ -924,7 +895,7 @@ class RestClient:
         return "".join(parts)
 
     def _namespace(self, kind: str, namespace: str) -> str:
-        return namespace or (self.config.namespace if RESOURCES[kind][2] else "")
+        return namespace or (self.config.namespace if resource_for_kind(kind).namespaced else "")
 
     def _headers(self, body: Optional[bytes] = None,
                  content_type: str = JSON_CONTENT_TYPE) -> dict[str, str]:
@@ -1036,7 +1007,7 @@ class RestClient:
     @staticmethod
     def _wrap(kind: str, data: dict) -> KubeObject:
         data.setdefault("kind", kind)
-        data.setdefault("apiVersion", RESOURCES[kind][0])
+        data.setdefault("apiVersion", resource_for_kind(kind).api_version)
         return wrap(data)
 
     @staticmethod

@@ -50,9 +50,22 @@ watch of the process's informers through a ``kube/relay.py`` ``WatchRelay``
 at URL (a ``RelayWatchSource``, adopted as ``relay-source``): the worker
 processes of one host then share one upstream watch a kind, and a dead
 relay degrades the process to direct watches for a bounded window, then
-the relay is tried again; lists and writes stay on the API server. What
-the port does not run yet it refuses, naming the ROADMAP item and taking
-no step: ``--demo`` (the in-memory cluster, A19).
+the relay is tried again; lists and writes stay on the API server.
+
+``--demo`` needs no cluster: the process rolls a driver update over the
+port's in-memory cluster (``kube/fake.py``), four Ready GPU nodes of one
+NVLink domain (one ``nvidia.com/gpu.clique``) whose ``gpu-installer``
+DaemonSet (``kube/sim.py``'s ``DaemonSetSimulator``) moves from one
+driver revision to the next. Each uncordon is gated by the in-process
+health gate of ``--ici-gate``, run on ``--gate-device`` (the card by
+default; ``cpu`` only when asked for: without a card the gate raises and
+the node stays in validation); ``--validation-pod`` has the probe pods
+run by ``ValidationPodSimulator`` instead, and ``--requestor`` has
+``MaintenanceOperatorSimulator`` play the maintenance operator. The
+manager's tasks run inline, each gate verdict is printed (``demo gate:
+...``), and the process exits 0 with ``demo: rolling upgrade complete in
+N passes``, or 1 when the roll has not converged within the pass cap.
+``--watch`` and ``--watch-relay`` do not apply to the demo.
 """
 
 from __future__ import annotations
@@ -68,8 +81,7 @@ import time
 
 from .api.upgrade_v1alpha1 import DriverUpgradePolicySpec
 from .runtime import FuncComponent, Supervisor
-from .upgrade import ClusterUpgradeStateManager, DeviceClass, TaskRunner
-from .upgrade.state_manager import not_ported
+from .upgrade import ClusterUpgradeStateManager, DeviceClass, TaskRunner, UpgradeState
 
 #: The workqueue key of triggers that cannot be scoped to one node (a
 #: DaemonSet or ControllerRevision delta, the periodic resync, a
@@ -90,10 +102,17 @@ WAKE_S = 0.5
 #: background tasks included.
 COMPONENT_TIMEOUT_S = 10.0
 
-#: Flags of the JAX command this port refuses, and the item each waits for.
-REFUSED = {
-    "demo": ("--demo (the in-memory cluster)", "A19"),
-}
+#: The demo's pool: its nodes, the NVLink domain they share, and the
+#: driver revisions it rolls between.
+DEMO_POOL = "h100-pool"
+DEMO_NODES = 4
+DEMO_CLIQUE = "demo-nvl-domain.1"
+DEMO_DRIVER_HASHES = ("nvidia-driver-550", "nvidia-driver-560")
+
+#: The pass cap of a demo roll: four nodes converge in under 40 passes,
+#: and the fleet demo spends passes between grant waves.
+MAX_DEMO_PASSES = 100
+MAX_FLEET_DEMO_PASSES = 300
 
 
 def parse_selector(raw: str) -> dict[str, str]:
@@ -203,18 +222,79 @@ def build_parser() -> argparse.ArgumentParser:
                         help="also issue the FleetRollout's grants under its global "
                         "budget, behind the 'fleet-orchestrator' Lease; needs "
                         "--fleet-rollout")
-    # Refused: parsed so that the refusal can name its item.
-    parser.add_argument("--demo", action="store_true", help=argparse.SUPPRESS)
+    parser.add_argument("--demo", action="store_true",
+                        help="roll a driver update over an in-memory pool of four GPU "
+                        "nodes, no cluster needed")
+    parser.add_argument("--gate-device", default="cuda", metavar="DEVICE",
+                        help="the device of the in-process health gate (--ici-gate, and "
+                        "the demo's): 'cuda' (every visible card) or 'cpu'")
     return parser
+
+
+def build_demo(args):
+    """The in-memory pool of ``--demo``: four Ready GPU nodes with the GFD
+    labels of one NVLink domain, the driver DaemonSet settled at one
+    revision and then bumped to the next, and, with ``--fleet-rollout``,
+    the FleetRollout its grants come from. Returns the cluster and the
+    DaemonSet's simulator."""
+    from .kube.fake import FakeCluster
+    from .kube.objects import Node
+    from .kube.sim import DaemonSetSimulator
+    from .parallel.topology import (
+        GPU_CLIQUE_LABEL,
+        GPU_COUNT_LABEL,
+        GPU_MEMORY_LABEL,
+        GPU_PRESENT_LABEL,
+        GPU_PRODUCT_LABEL,
+    )
+
+    cluster = FakeCluster()
+    node_names = []
+    for i in range(DEMO_NODES):
+        node = Node.new(
+            f"{DEMO_POOL}-{i}",
+            labels={
+                GPU_PRESENT_LABEL: "true",
+                GPU_PRODUCT_LABEL: "NVIDIA-H100-80GB-HBM3",
+                GPU_COUNT_LABEL: "8",
+                GPU_MEMORY_LABEL: "81559",
+                GPU_CLIQUE_LABEL: DEMO_CLIQUE,
+            },
+        )
+        node.set_ready(True)
+        cluster.create(node)
+        node_names.append(node.name)
+    if args.fleet_rollout:
+        # Each node is its own pool (no --pool-prefix-sep); a budget of
+        # half the pools makes the grant waves visible.
+        from .api.fleet_v1alpha1 import make_fleet_rollout
+        from .kube.objects import KubeObject
+
+        cluster.create(KubeObject(make_fleet_rollout(args.fleet_rollout, node_names, "50%")))
+    first, second = DEMO_DRIVER_HASHES
+    sim = DaemonSetSimulator(cluster, name="gpu-installer", namespace=args.namespace,
+                             match_labels=parse_selector(args.selector), initial_hash=first)
+    sim.settle()
+    sim.set_template_hash(second)  # the update the controller must roll
+    return cluster, sim
+
+
+def _printed_verdicts(hook):
+    """The demo's gate hook: the gate's verdict on each node, printed."""
+
+    def verdict(node) -> bool:
+        began = time.monotonic()
+        ok = hook(node)
+        print(f"demo gate: node={node.name} ok={ok} seconds={time.monotonic() - began:.3f}",
+              flush=True)
+        return ok
+
+    return verdict
 
 
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, (what, item) in REFUSED.items():
-        value = getattr(args, dest)
-        if value is not None and value is not False:
-            parser.error(str(not_ported(what, item)))
     if args.orchestrate and not args.fleet_rollout:
         parser.error("--orchestrate requires --fleet-rollout")
     logging.basicConfig(level=logging.INFO, format="%(levelname)s %(message)s")
@@ -241,15 +321,20 @@ def main(argv: list[str] | None = None) -> int:
         device = DeviceClass.nvidia("gpu")
         policy = load_policy(args.policy)
         selector = parse_selector(args.selector)
-        try:
-            from .kube.rest import RestClient
+        sims = Demo()
+        if args.demo:
+            client, sims.driver = build_demo(args)
+        else:
+            try:
+                from .kube.rest import RestClient
 
-            client = RestClient.from_environment()
-        except Exception as e:  # noqa: BLE001 - RestConfigError when unconfigured
-            raise SystemExit(f"no cluster access configured ({e})")
+                client = RestClient.from_environment()
+            except Exception as e:  # noqa: BLE001 - RestConfigError when unconfigured
+                raise SystemExit(f"no cluster access configured ({e}); use --demo for the "
+                                 "in-memory pool")
 
         relay_source = None
-        if args.watch_relay:
+        if args.watch_relay and not args.demo:
             from .kube.relay import RelayWatchSource
 
             # Every informer below streams through the relay; lists and
@@ -260,7 +345,7 @@ def main(argv: list[str] | None = None) -> int:
 
         # The holder identity of every Lease this process campaigns for.
         identity = args.leader_elect_id or f"{socket.gethostname()}_{os.getpid()}"
-        runner = TaskRunner()
+        runner = TaskRunner(inline=args.demo)
         mgr = ClusterUpgradeStateManager(client, device, runner=runner)
         probe_selector = ""
         tasks_ended = threading.Event()
@@ -298,16 +383,25 @@ def main(argv: list[str] | None = None) -> int:
                 provisioner = ValidationPodManager(client, spec)
             mgr.with_validation_enabled(pod_provisioner=provisioner)
             probe_selector = spec.pod_selector
-        elif args.ici_gate:
+            if args.demo:
+                # The demo has no kubelet: a simulated one runs the probe pods.
+                from .kube.sim import ValidationPodSimulator
+
+                sims.validation_pods = ValidationPodSimulator(client, namespace=args.namespace)
+        elif args.ici_gate or args.demo:
             from .tpu.health import IciHealthGate, SliceScopedGate
 
-            gate = IciHealthGate(payload_mb=1.0, matmul_size=1024, run_burnin=True)
+            # The plain product on purpose, as the JAX command's gate takes
+            # XLA's dot: the gate of the probe pods is the one of the kernels.
+            gate = IciHealthGate(payload_mb=1.0, matmul_size=1024, run_burnin=True,
+                                 device=args.gate_device)
             hook = (
                 SliceScopedGate(gate).validation_hook()
                 if args.slice_aware
                 else gate.validation_hook()
             )
-            mgr.with_validation_enabled(validation_hook=hook)
+            mgr.with_validation_enabled(
+                validation_hook=_printed_verdicts(hook) if args.demo else hook)
         if args.slice_aware:
             from .tpu.planner import enable_slice_aware_planning
 
@@ -322,7 +416,7 @@ def main(argv: list[str] | None = None) -> int:
                 opts.namespace = args.namespace
             if args.post_maintenance:
                 opts.use_post_maintenance = True
-                if args.ici_gate and not args.validation_pod:
+                if args.ici_gate and not args.validation_pod and not args.demo:
                     # An in-process warm-up only where the in-process gate
                     # applies (this process owns the node's cards); with
                     # probe pods this process is off the node.
@@ -330,13 +424,17 @@ def main(argv: list[str] | None = None) -> int:
 
                     opts.post_maintenance_hook = cache_warmup_hook()
             enable_requestor_mode(mgr, opts)
+            if args.demo:
+                from .kube.sim import MaintenanceOperatorSimulator
+
+                sims.maintenance = MaintenanceOperatorSimulator(client, namespace=args.namespace)
 
         if args.shards:
             # Before the watch wiring: the worker's scoped source is the
             # snapshot source, and its informers are the triggers too.
             worker = _shard_worker(args, client, mgr, selector, identity, relay_source)
 
-        if args.watch:
+        if args.watch and not args.demo:
             queue = _watch(args, client, mgr, selector, sup, probe_selector, worker,
                            relay_source)
 
@@ -352,7 +450,8 @@ def main(argv: list[str] | None = None) -> int:
                       "Leases to expire", file=sys.stderr, flush=True)
                 worker.stop(release=False)
 
-            worker_deps = ["nm-informer"] if (args.watch and args.requestor) else []
+            worker_deps = ["nm-informer"] if (args.watch and not args.demo
+                                              and args.requestor) else []
             if args.leader_elect:
                 worker_deps.append("leader-elector")
             if relay_source is not None:
@@ -364,7 +463,10 @@ def main(argv: list[str] | None = None) -> int:
 
             orchestrator = OrchestratorDaemon(
                 client, args.fleet_rollout, namespace=args.namespace, identity=identity,
-                interval_s=min(args.interval, 2.0),
+                # The demo's passes run at full tilt: the grant rounds keep
+                # pace on a short interval, not on watch wakeups.
+                interval_s=0.1 if args.demo else min(args.interval, 2.0),
+                use_wakeups=not args.demo,
             ).start()
             sup.adopt(orchestrator)
             print(f"fleet orchestrator: campaigning as {identity!r}", flush=True)
@@ -410,7 +512,7 @@ def main(argv: list[str] | None = None) -> int:
             print("leader election: leading; starting reconciles", flush=True)
 
         return _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup,
-                               worker, orchestrator, relay_source)
+                               worker, orchestrator, relay_source, sims)
     finally:
         # Every exit (--once, SIGTERM even in the setup, the lease lost, an
         # error) drains what the supervisor adopted; a Lease is released
@@ -563,8 +665,36 @@ def _watch(args, client, mgr, selector, sup, probe_selector: str = "", worker=No
     return queue
 
 
+class Demo:
+    """The demo's simulators, stepped around each pass: the driver
+    DaemonSet's, and where the flags ask for them, the probe pods' kubelet
+    and the maintenance operator. All ``None`` outside the demo."""
+
+    def __init__(self) -> None:
+        self.driver = None
+        self.validation_pods = None
+        self.maintenance = None
+
+    def step_before_pass(self) -> None:
+        for sim in (self.driver, self.maintenance, self.validation_pods):
+            if sim is not None:
+                sim.step()
+
+    def complete(self, mgr) -> bool:
+        """Every node ``upgrade-done`` and every driver pod Ready at the
+        newest revision, read from the node labels: never an extra
+        ``build_state``, which would consume an incremental source's dirty
+        set."""
+        objs = mgr.client.list("Node")
+        return bool(objs) and all(
+            ((o.raw.get("metadata") or {}).get("labels") or {}).get(mgr.keys.state_label)
+            == UpgradeState.DONE
+            for o in objs
+        ) and self.driver.all_pods_ready_and_current()
+
+
 def _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup,
-                    worker=None, orchestrator=None, relay_source=None):
+                    worker=None, orchestrator=None, relay_source=None, sims=None):
     # The stats file is written on every exit. With --watch, ``woken_by``
     # counts the passes after the first by what woke them: a node's key, the
     # world's key alone, or the interval running out. A fleet worker adds
@@ -578,7 +708,7 @@ def _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup,
     started = time.monotonic()
     try:
         return _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup,
-                                 stats, worker)
+                                 stats, worker, sims or Demo())
     finally:
         if orchestrator is not None:
             orch = orchestrator.orchestrator
@@ -599,11 +729,20 @@ def _reconcile_loop(args, mgr, policy, selector, elector, queue, metrics, sup,
 
 
 def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup, stats,
-                      worker=None):
+                      worker, sims):
     # A fleet worker renews its shard Leases in its ticks, so it ticks at
     # least every retry period whatever the interval.
     interval = (min(args.interval, worker.config.retry_period_s) if worker is not None
                 else args.interval)
+    demo = sims.driver is not None
+    max_demo_passes = MAX_FLEET_DEMO_PASSES if args.fleet_rollout else MAX_DEMO_PASSES
+    if demo:
+        # The demo spins at full speed, but over a fleet worker it paces
+        # its passes a little: the orchestrator's grant rounds, and the
+        # deliveries of the informers the worker's snapshot is kept from,
+        # land between them (at full speed the pass cap can run out while
+        # the informers still lag a driver pod's restart).
+        interval = 0.02 if worker is not None else 0.0
     passes = 0
     consecutive_failures = 0
     #: The workqueue keys the current pass reconciles (--watch). A pass
@@ -626,6 +765,11 @@ def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup,
             stats["woken_by"][woken] += 1
         passes += 1
         stats["passes"] = passes
+        if demo and passes > max_demo_passes:
+            print(f"demo: did not converge within {max_demo_passes} passes",
+                  file=sys.stderr, flush=True)
+            return 1
+        sims.step_before_pass()
         try:
             if worker is not None:
                 # One tick: the shard Leases, a pass over the shards held,
@@ -664,7 +808,8 @@ def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup,
             delay = min(0.5 * 2 ** min(consecutive_failures - 1, 10), 30.0)
             print(f"pass {passes}: reconcile failed (retry #{consecutive_failures} in "
                   f"{delay:.1f}s): {e}", file=sys.stderr, flush=True)
-            _pause(delay, sup, elector)  # a signal wakes the backoff at once
+            # A signal wakes the backoff at once; the demo does not back off.
+            _pause(0.0 if demo else delay, sup, elector)
             continue
         consecutive_failures = 0
         if queue is not None:
@@ -680,6 +825,8 @@ def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup,
         else:
             if metrics is not None:
                 metrics.observe(state)
+            if demo:
+                sims.driver.step()
             shard_note = (f" | shards={','.join(sorted(worker.owned_shards()))}"
                           if worker is not None else "")
             print(
@@ -689,6 +836,9 @@ def _reconcile_passes(args, mgr, policy, selector, elector, queue, metrics, sup,
                 f"failed={mgr.get_upgrades_failed(state)}{shard_note}",
                 flush=True,
             )
+            if demo and sims.complete(mgr):
+                print(f"demo: rolling upgrade complete in {passes} passes", flush=True)
+                return 0
         if args.once:
             return 0
         if queue is not None:

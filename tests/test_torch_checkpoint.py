@@ -68,7 +68,8 @@ from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import (
 )
 from k8s_operator_libs_tpu_torch.kube.client import ApiError
 from k8s_operator_libs_tpu_torch.kube.objects import KubeObject, Node
-from k8s_operator_libs_tpu_torch.kube.rest import RESOURCES, RestClient, RestConfig
+from k8s_operator_libs_tpu_torch.kube.resources import resource_for_kind
+from k8s_operator_libs_tpu_torch.kube.rest import RestClient, RestConfig
 from k8s_operator_libs_tpu_torch.kube.sim import CheckpointingWorkloadSimulator
 from k8s_operator_libs_tpu_torch.models.burnin import BurninConfig
 from k8s_operator_libs_tpu_torch.tpu.slice_gate import _GANG_CONSUMER_STATES
@@ -942,7 +943,8 @@ def test_rest_client_serves_workload_checkpoints():
             got.raw["spec"]
         assert [o.name for o in rest.list(WORKLOAD_CHECKPOINT_KIND, namespace=TRAIN_NS)] == \
             ["p-checkpoint"]
-    assert RESOURCES[WORKLOAD_CHECKPOINT_KIND] == (
+    info = resource_for_kind(WORKLOAD_CHECKPOINT_KIND)
+    assert (info.api_version, info.plural, info.namespaced) == (
         WORKLOAD_CHECKPOINT_API_VERSION, "workloadcheckpoints", True)
 
 

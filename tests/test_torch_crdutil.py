@@ -448,6 +448,54 @@ def test_demo_missing_path_clean_error(kubeconfig, capsys):
     assert "does not exist" in ours
 
 
-def test_demo_flag_is_refused_naming_a19():
-    with pytest.raises(NotImplementedError, match="ROADMAP A19"):
-        port_cli.main(["--crds-path", CRDS, "--demo"])
+@pytest.mark.parametrize("operation", ["apply", "delete"])
+def test_port_demo_prints_what_the_jax_demo_prints(operation, capsys):
+    """``--demo`` on both commands: each over its own package's in-memory
+    cluster (a fresh one a process, so a delete finds nothing to delete
+    and still counts the documents it processed)."""
+    args = ["--crds-path", CRDS, "--operation", operation, "--demo"]
+    assert jax_example().main(args) == 0
+    theirs = capsys.readouterr().out.strip().splitlines()[-1]
+    assert port_cli.main(args) == 0
+    ours = capsys.readouterr().out.strip().splitlines()[-1]
+    assert ours == theirs == f"{operation}: processed 2 CRD(s)"
+
+
+def test_port_demo_waits_for_its_cluster_to_establish_the_crds(monkeypatch):
+    """The demo's cluster is the port's ``FakeCluster`` with the JAX
+    example's establishment delay; the wait sees both CRDs established
+    and discoverable, and the command closes the cluster."""
+    from k8s_operator_libs_tpu_torch.kube.fake import FakeCluster
+
+    made = []
+
+    def build(args):
+        made.append(FakeCluster(crd_establish_delay=0.05))
+        return made[-1]
+
+    monkeypatch.setattr(port_cli, "build_client", build)
+    assert port_cli.main(["--crds-path", CRDS, "--demo"]) == 0
+    (cluster,) = made
+    crds = cluster.list(CRD)
+    assert sorted(o.name for o in crds) == ["gadgets.example.dev", "widgets.example.dev"]
+    assert all(o.is_established() for o in crds)
+    assert cluster._pending_timers == []  # closed: close() cancels and clears them
+
+
+def test_port_demo_client_is_the_ports_in_memory_cluster():
+    from k8s_operator_libs_tpu_torch.kube.fake import FakeCluster
+
+    client = port_cli.build_client(port_cli.argparse.Namespace(demo=True))
+    try:
+        assert type(client) is FakeCluster and client._crd_establish_delay == 0.05
+    finally:
+        client.close()
+
+
+def test_port_demo_missing_path_clean_error(capsys):
+    assert jax_example().main(["--crds-path", "/nope", "--demo"]) == 1
+    theirs = capsys.readouterr().err.strip().splitlines()[-1]
+    assert port_cli.main(["--crds-path", "/nope", "--demo"]) == 1
+    ours = capsys.readouterr().err.strip().splitlines()[-1]
+    assert ours == theirs
+    assert "does not exist" in ours

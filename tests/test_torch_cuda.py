@@ -770,9 +770,8 @@ def _payload_env(**extra):
 def test_monitor_cycle_on_the_card(cuda):
     """One monitor cycle whose subprocess gate runs the card's payload with
     both kernels: the condition, the Event and the NodeHealthReport."""
-    from k8s_operator_libs_tpu.kube import FakeCluster
-
     from k8s_operator_libs_tpu_torch.kube.events import EventRecorder
+    from k8s_operator_libs_tpu_torch.kube.fake import FakeCluster
     from k8s_operator_libs_tpu_torch.kube.objects import Node, condition_status
     from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
     from k8s_operator_libs_tpu_torch.tpu.health import SubprocessHealthGate
@@ -897,3 +896,22 @@ def test_two_pod_gang_between_cards(cards_world, tmp_path):
         assert f"slice={2 * k}/{2 * k} over 2 hosts" in (tmp_path / f"{i}.ready").read_text()
         other = ("node-a", "node-b")[1 - i]
         assert any(h.peer == other and h.ok for h in report.links), report.links
+
+
+def test_demo_rolls_on_the_card(cuda):
+    """``upgrade_controller --demo`` with its in-process gate on the card
+    (the default ``--gate-device``): the JAX demo's 33 passes, and every
+    node of the demo pool passed the gate."""
+    import re
+    import subprocess
+    import sys
+
+    env, repo = _payload_env()
+    proc = subprocess.run(
+        [sys.executable, "-m", "k8s_operator_libs_tpu_torch.upgrade_controller", "--demo"],
+        env=env, cwd=repo, capture_output=True, text=True, timeout=600,
+    )
+    assert proc.returncode == 0, proc.stdout[-2000:] + proc.stderr[-2000:]
+    assert proc.stdout.splitlines()[-1] == "demo: rolling upgrade complete in 33 passes"
+    verdicts = re.findall(r"^demo gate: node=(\S+) ok=(\w+) ", proc.stdout, re.M)
+    assert sorted(verdicts) == [(f"h100-pool-{i}", "True") for i in range(4)]

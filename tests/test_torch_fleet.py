@@ -35,7 +35,7 @@ from k8s_operator_libs_tpu.kube import FakeCluster, LocalApiServer, Node
 from k8s_operator_libs_tpu.kube.client import ApiError as JaxApiError
 from k8s_operator_libs_tpu.kube.client import ConflictError as JaxConflictError
 from k8s_operator_libs_tpu.kube.objects import KubeObject
-from k8s_operator_libs_tpu.kube.resources import resource_for_kind
+from k8s_operator_libs_tpu.kube.resources import resource_for_kind as jax_resource_for_kind
 from k8s_operator_libs_tpu.kube.sim import DaemonSetSimulator
 from k8s_operator_libs_tpu.upgrade.health_source import HealthSource as JaxHealthSource
 from k8s_operator_libs_tpu.upgrade.requestor import RequestorOptions as JaxRequestorOptions
@@ -48,7 +48,8 @@ from k8s_operator_libs_tpu_torch.api import fleet_v1alpha1 as port_fleet_v1
 from k8s_operator_libs_tpu_torch.api import telemetry_v1alpha1 as port_telemetry
 from k8s_operator_libs_tpu_torch.api.upgrade_v1alpha1 import DriverUpgradePolicySpec
 from k8s_operator_libs_tpu_torch.kube.client import ApiError
-from k8s_operator_libs_tpu_torch.kube.rest import RESOURCES, RestClient, RestConfig
+from k8s_operator_libs_tpu_torch.kube.resources import resource_for_kind
+from k8s_operator_libs_tpu_torch.kube.rest import RestClient, RestConfig
 from k8s_operator_libs_tpu_torch.upgrade.health_source import HealthSource
 from k8s_operator_libs_tpu_torch.upgrade.requestor import RequestorOptions
 from k8s_operator_libs_tpu_torch.upgrade.requestor import enable_requestor_mode
@@ -327,8 +328,9 @@ class TestFleetRollout:
         self.run(case)
 
     def test_registry_matches_contract(self):
-        info = resource_for_kind(port_fleet_v1.FLEET_ROLLOUT_KIND)
-        assert RESOURCES[port_fleet_v1.FLEET_ROLLOUT_KIND] == (
+        info = jax_resource_for_kind(port_fleet_v1.FLEET_ROLLOUT_KIND)
+        port = resource_for_kind(port_fleet_v1.FLEET_ROLLOUT_KIND)
+        assert (port.api_version, port.plural, port.namespaced) == (
             info.api_version, info.plural, info.namespaced
         ) == (port_fleet_v1.FLEET_ROLLOUT_API_VERSION, port_fleet_v1.FLEET_ROLLOUT_PLURAL, False)
         # The JAX and the port's objects round-trip the same dict.

@@ -14,8 +14,9 @@
   is still held, and the Lease is released only after it; where the drain
   outlives the stop budget, the shard Lease is left to expire and the
   drain's write never lands.
-* ``--demo`` still exits non-zero naming its ROADMAP item, and
-  ``--orchestrate`` without ``--fleet-rollout`` is refused.
+* ``--orchestrate`` without ``--fleet-rollout`` is refused (the fleet
+  demo, ``--demo --shards 1 --fleet-rollout ... --orchestrate``, is in
+  ``tests/test_torch_demo_modes.py``).
 * ``--watch-relay`` in fleet mode: one worker process of each package's
   command (``--shards 1 --orchestrate``) rolls two pools under a budget of
   one through its own package's ``WatchRelay``; the two rolls end alike,
@@ -338,16 +339,6 @@ def test_sigterm_during_a_fleet_drain_writes_only_under_the_shard_lease(
             assert "leaving the shard Leases to expire" in text
         recorded = json.loads(stats.read_text())
         assert recorded["shards"] == ["shard-00"] and recorded["idle_ticks"] == 0
-
-
-@pytest.mark.parametrize("flag, item", [
-    (["--demo"], "A19"),
-], ids=["demo"])
-def test_kept_refusals_still_exit_nonzero_naming_their_items(tmp_path, flag, item):
-    proc = child("--shards", "2", "--shard-index", "0", "--fleet-rollout", "roll", *flag)
-    out, _ = proc.communicate(timeout=60)
-    assert proc.returncode == 2, out
-    assert flag[0] in out and f"(ROADMAP {item})" in out
 
 
 def test_orchestrate_requires_a_fleet_rollout():

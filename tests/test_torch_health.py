@@ -455,10 +455,15 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     "k8s_operator_libs_tpu_torch.fleet.worker",
     "k8s_operator_libs_tpu_torch.fleet.metrics",
     "k8s_operator_libs_tpu_torch.runtime.daemon",
+    "k8s_operator_libs_tpu_torch.kube.resources",
+    "k8s_operator_libs_tpu_torch.kube.structural",
+    "k8s_operator_libs_tpu_torch.kube.ssa",
+    "k8s_operator_libs_tpu_torch.kube.fake",
+    "k8s_operator_libs_tpu_torch.kube.cache",
 ])
 def test_controller_runtime_imports_with_jax_and_torch_blocked(module):
-    """The controller runtime, the test doubles, the command and the fleet
-    tier are control-plane code: they import neither JAX, nor the JAX
+    """The controller runtime, the test doubles, the command, the fleet
+    tier and the in-memory cluster are control-plane code: they import neither JAX, nor the JAX
     package, nor torch."""
     code = (
         "import importlib, sys\n"
@@ -494,6 +499,11 @@ def test_port_imports_with_jax_blocked():
         "import k8s_operator_libs_tpu_torch.kube.informer\n"
         "import k8s_operator_libs_tpu_torch.kube.selectors\n"
         "import k8s_operator_libs_tpu_torch.kube.jsonpath\n"
+        "import k8s_operator_libs_tpu_torch.kube.resources\n"
+        "import k8s_operator_libs_tpu_torch.kube.structural\n"
+        "import k8s_operator_libs_tpu_torch.kube.ssa\n"
+        "import k8s_operator_libs_tpu_torch.kube.fake\n"
+        "import k8s_operator_libs_tpu_torch.kube.cache\n"
         "import k8s_operator_libs_tpu_torch.utils.lifecycle\n"
         "import k8s_operator_libs_tpu_torch.runtime as rt\n"
         "[getattr(rt, name) for name in rt.__all__]\n"

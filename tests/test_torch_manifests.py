@@ -26,7 +26,7 @@ import yaml
 from k8s_operator_libs_tpu.kube import FakeCluster
 from k8s_operator_libs_tpu.kube.objects import Node, Pod
 from k8s_operator_libs_tpu_torch.kube.events import EventRecorder
-from k8s_operator_libs_tpu_torch.kube.rest import RESOURCES
+from k8s_operator_libs_tpu_torch.kube.resources import resource_for_kind
 from k8s_operator_libs_tpu_torch.ops import flash_attention as flash_mod
 from k8s_operator_libs_tpu_torch.ops import matmul as matmul_mod
 from k8s_operator_libs_tpu_torch.ops._build import KERNEL_DIR_ENV
@@ -348,9 +348,8 @@ def api_requests(calls) -> list[tuple[str, str, str]]:
         assert method in VERBS, f"unmapped client call {method}"
         verb, sub = VERBS[method]
         kind = args[0] if isinstance(args[0], str) else args[0].raw["kind"]
-        api_version, plural, _ = RESOURCES[kind]
-        group = api_version.split("/")[0] if "/" in api_version else ""
-        out.append((group, plural + sub, verb))
+        info = resource_for_kind(kind)
+        out.append((info.group, info.plural + sub, verb))
     return out
 
 

@@ -198,10 +198,16 @@ def test_relay_kill_resumes_with_watch_not_list():
                 informer = p.Informer(direct, "Node", stream_source=stream,
                                       watch_timeout_seconds=30).start()
                 assert wait_until(lambda: len(informer.list()) == 1)
+                # The kill must find the informer's stream open through the
+                # relay and delivering: a client is connected, and a write
+                # made now reaches the informer only through that stream.
+                assert wait_until(lambda: relay.active_clients() >= 1)
+                direct.create(p.node("k-warm"))
+                assert wait_until(lambda: len(informer.list()) == 2)
                 log = server.start_request_log()
                 killed = relay.kill_connections() >= 1
                 direct.create(p.node("k-1"))
-                assert wait_until(lambda: len(informer.list()) == 2)
+                assert wait_until(lambda: len(informer.list()) == 3)
                 return killed, list_requests(log), len(watch_requests(log))
             finally:
                 server.stop_request_log()

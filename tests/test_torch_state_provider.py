@@ -12,7 +12,10 @@ provider reads only ``.raw``, so any client's objects do). The cache lags
 on purpose (manual sync, or a lag in the auto mode). Each run makes the
 JAX case's checks and returns what it observed (whether the write waited
 for the cache, raised, and what the cache and the cluster hold), and the
-two packages' observations must be equal.
+two packages' observations must be equal. The same cases run once more
+with the port's provider over the port's own ``FakeCluster``, reading
+back through the port's ``CachedClient`` of it (``port-fake``), against
+the JAX side.
 """
 
 from __future__ import annotations
@@ -27,6 +30,8 @@ from builders import make_node
 from k8s_operator_libs_tpu.kube import CachedClient, FakeCluster, LocalApiServer
 from k8s_operator_libs_tpu.upgrade import consts as jax_consts
 from k8s_operator_libs_tpu.upgrade import state_provider as jax_provider
+from k8s_operator_libs_tpu_torch.kube.cache import CachedClient as PortCachedClient
+from k8s_operator_libs_tpu_torch.kube.fake import FakeCluster as PortFakeCluster
 from k8s_operator_libs_tpu_torch.kube.objects import Node
 from k8s_operator_libs_tpu_torch.kube.rest import RestClient, RestConfig
 from k8s_operator_libs_tpu_torch.upgrade import consts as port_consts
@@ -41,13 +46,15 @@ class Side:
         self.consts = jax_consts if name == "jax" else port_consts
         self.mod = jax_provider if name == "jax" else port_provider
         self.keys = self.consts.UpgradeKeys(self.consts.DeviceClass.nvidia("gpu"))
-        self.cluster = FakeCluster()
-        self.cluster.create(make_node("n1"))
+        own = name == "port-fake"
+        self.cluster = PortFakeCluster() if own else FakeCluster()
+        stack.callback(self.cluster.close)
+        self.cluster.create(Node(make_node("n1").raw) if own else make_node("n1"))
         client = self.cluster
         if name == "port":
             server = stack.enter_context(LocalApiServer(cluster=self.cluster))
             client = RestClient(RestConfig(server=server.url))
-        self.cached = CachedClient(self.cluster, **cache_kwargs)
+        self.cached = (PortCachedClient if own else CachedClient)(self.cluster, **cache_kwargs)
         stack.callback(self.cached.close)
         self.client = client
         self.name = name
@@ -65,22 +72,22 @@ class Side:
     def node_from_backing(self):
         """The node read past the cache, in this package's view."""
         raw = self.cluster.get("Node", "n1").raw
-        return Node(raw) if self.name == "port" else jax_provider.Node(raw)
+        return jax_provider.Node(raw) if self.name == "jax" else Node(raw)
 
     def state_in(self, client) -> str:
         return client.get("Node", "n1").labels.get(self.keys.state_label, "")
 
 
-def on_both(case, **cache_kwargs):
+def on_both(case, port="port", **cache_kwargs):
     outcomes = {}
-    for name in ("jax", "port"):
+    for name in ("jax", port):
         with contextlib.ExitStack() as stack:
             outcomes[name] = case(Side(name, stack, **cache_kwargs))
-    assert outcomes["port"] == outcomes["jax"]
-    return outcomes["port"]
+    assert outcomes[port] == outcomes["jax"]
+    return outcomes[port]
 
 
-def test_waits_for_stale_cache_to_catch_up():
+def test_waits_for_stale_cache_to_catch_up(port="port"):
     def case(s):
         p = s.provider()
         node = s.node_from_backing()
@@ -94,10 +101,10 @@ def test_waits_for_stale_cache_to_catch_up():
         assert waited and s.state_in(s.cached) == "cordon-required"
         return waited, s.state_in(s.cached)
 
-    on_both(case, sync_mode="manual")
+    on_both(case, port, sync_mode="manual")
 
 
-def test_raises_when_cache_never_syncs():
+def test_raises_when_cache_never_syncs(port="port"):
     def case(s):
         p = s.provider(timeout=0.3)
         node = s.node_from_backing()
@@ -107,10 +114,10 @@ def test_raises_when_cache_never_syncs():
         assert s.state_in(s.cluster) == "cordon-required"
         return s.state_in(s.cluster), s.state_in(s.cached)
 
-    on_both(case, sync_mode="manual")
+    on_both(case, port, sync_mode="manual")
 
 
-def test_auto_cache_mode_end_to_end():
+def test_auto_cache_mode_end_to_end(port="port"):
     def case(s):
         p = s.provider()
         node = p.get_node("n1")
@@ -121,4 +128,15 @@ def test_auto_cache_mode_end_to_end():
         assert s.state_in(s.cluster) == "wait-for-jobs-required"
         return s.state_in(s.cluster), node.labels.get(s.keys.state_label)
 
-    on_both(case, sync_mode="auto", lag_seconds=0.02)
+    on_both(case, port, sync_mode="auto", lag_seconds=0.02)
+
+
+@pytest.mark.parametrize("case", [
+    test_waits_for_stale_cache_to_catch_up,
+    test_raises_when_cache_never_syncs,
+    test_auto_cache_mode_end_to_end,
+], ids=lambda f: f.__name__[len("test_"):])
+def test_reads_back_through_the_ports_own_cache(case):
+    """The port's provider over the port's ``FakeCluster``, its read-back
+    waiting on the port's ``CachedClient``, against the JAX side."""
+    case(port="port-fake")

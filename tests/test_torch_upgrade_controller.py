@@ -18,9 +18,8 @@ kubelets played by the port's ``DaemonSetSimulator``:
   the drain's write never lands;
 * a stolen Lease: the deposed leader exits 3, printing no pass after the
   elector reports the loss, within the renew deadline and a wake slice;
-* ``--once`` prints exactly one pass;
-* each refused flag exits non-zero naming its ROADMAP item, before any
-  step;
+* ``--once`` prints exactly one pass (``--demo``, which the command no
+  longer refuses, has its own files: ``tests/test_torch_demo*.py``);
 * ``--watch --watch-relay`` on twin clusters: the JAX command through the
   JAX ``WatchRelay`` on one, the port's through the port's on the other,
   each roll driven by watch events alone; every node takes the JAX
@@ -313,20 +312,6 @@ def test_once_prints_exactly_one_pass(pool, capsys):
     passes = [line for line in capsys.readouterr().out.splitlines() if line.startswith("pass ")]
     assert len(passes) == 1 and passes[0].startswith("pass 1: unknown=2 ")
     assert set(_states(server.cluster).values()) == {"upgrade-done"}
-
-
-@pytest.mark.parametrize("flag, item", [
-    (["--demo"], "A19"),
-])
-def test_refused_flags_exit_nonzero_naming_their_item(pool, capsys, flag, item):
-    server, _ = pool
-    before = _states(server.cluster)
-    with pytest.raises(SystemExit) as exc:
-        upgrade_controller.main(flag)
-    assert exc.value.code != 0
-    err = capsys.readouterr().err
-    assert flag[0] in err and f"(ROADMAP {item})" in err
-    assert _states(server.cluster) == before  # no step taken
 
 
 @pytest.mark.parametrize("flags, shards, states", [

@@ -353,6 +353,27 @@ Phases, in order; any failure raises and the script exits non-zero:
     node: each pod must launch both kernels as often as the gate phase
     did and the controller neither (``{"fake_roll": ...}``: the roll's
     fields, the cluster's node count and the provider's read-back waits);
+    then server_roll (``controller_roll_phase(..., server=True)``), in the
+    same kernel-cache block: the port's own ``LocalApiServer`` in this
+    process (a random token, bookmarks every ``SERVER_BOOKMARK_S``, the
+    loop-stall watchdog at ``SERVER_STALL_S``, the default priority and
+    fairness), ``SERVER_NODES`` labelled from the card among
+    ``SERVER_POOL_NODES`` GPU nodes of another pool, one replica of the
+    controller_roll's command over the kubeconfig the server writes (its
+    kernel directory an empty one it must leave empty), the kubelets'
+    simulators over the port's ``RestClient`` at the server (their Node
+    reads by name, scoped to the two nodes), every connection killed once
+    when the first node is done, a Table read of the two nodes after the
+    roll, then SIGTERM. Both nodes must end ``upgrade-done`` uncordoned
+    with each probe pod the gate's counts; the command's Node list paged
+    (two or more continue tokens); the lease, reconcile and informer flows
+    each admitting, none shedding; no server-loop stall over the
+    threshold; after the kill, watches resumed and no full Node LIST; the
+    Table Name and Age with two rows; a ``server.request`` span joined to
+    a span of the command's exported trace; exit 0 and the Lease empty
+    (``{"server_roll": ...}``: the roll's fields, the server's counters,
+    flows, stalls, continue tokens, the requests after the kill by verb
+    and resource, the spans, the Table);
 23. calibration phase, after the gang phase: ``python -m
     k8s_operator_libs_tpu_torch.tools.calibration`` as a child on every
     card; its one line is printed as ``{"calibration": ...}`` and must
@@ -391,8 +412,8 @@ roll's hook calls together and its probe pods together, the checkpoint
 roll's probe pods together, the monitor's payload, the quarantine
 hand-off's probe pod, the informer roll's probe pods together, the
 controller roll's probe pods together, the fleet roll's probe pods
-together, the relay roll's and the fake roll's probe pods together, the
-gang's payload and the first full-tier monitor pod's
+together, the relay roll's, the fake roll's and the server roll's probe
+pods together, the gang's payload and the first full-tier monitor pod's
 payload),
 the card's name and power limit, and
 ``{"ok": true, "device": {...}}``. Without a card,
@@ -402,6 +423,7 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -552,6 +574,18 @@ LEASE_DURATION_S = 15.0
 KUBELET_TICK_S = 0.2
 CONTROLLER_START_S = 120.0
 CONTROLLER_QUIET_S = 2.0
+#: The server roll (``controller_roll_phase(..., server=True)``): its two
+#: nodes, the GPU nodes beside them in the cluster (more than two of the
+#: client's list pages of 500, so the command's first Node LIST comes in
+#: three), their pool label, the one replica's identity, and the server's
+#: bookmark interval and loop-stall threshold.
+SERVER_NODES = ("gpu-srv-0", "gpu-srv-1")
+SERVER_POOL_NODES = 1024
+SERVER_OTHER_POOL = {"cloud.google.com/gke-nodepool": "gpu-pool"}
+SERVER_ID = "ctl-srv"
+SERVER_BOOKMARK_S = 1.0
+SERVER_STALL_S = 0.5
+TABLE_ACCEPT = "application/json;as=Table;v=v1;g=meta.k8s.io"
 #: The fleet roll: one node a pool, the FleetRollout over both pools with a
 #: global budget of one pool, the workers' shard count and identities (the
 #: first also the orchestrator), and their interval. The pool of a node is
@@ -4158,16 +4192,17 @@ class ControllerReplica:
     into ``lines`` (seconds on this process's clock, line). ``flags``
     replace the controller_roll's own (a leader-elected replica woken by
     watch events); ``--trace-export`` and ``--stats-json`` are always
-    given."""
+    given; ``env`` adds to the child's environment."""
 
     def __init__(self, identity: str, kubeconfig: str, policy: str, workdir: str,
-                 flags: Optional[list] = None, label: str = "controller_roll") -> None:
+                 flags: Optional[list] = None, label: str = "controller_roll",
+                 env: Optional[dict] = None) -> None:
         self.identity = identity
         self.label = label
         self.metrics_port = free_port()
         self.trace = os.path.join(workdir, f"{identity}.trace.jsonl")
         self.stats = os.path.join(workdir, f"{identity}.stats.json")
-        env = child_env(KUBECONFIG=kubeconfig, HOME=workdir)
+        env = child_env(KUBECONFIG=kubeconfig, HOME=workdir, **(env or {}))
         env.pop("KUBERNETES_SERVICE_HOST", None)
         if flags is None:
             flags = ["--watch", "--interval", str(CONTROLLER_INTERVAL_S), "--validation-pod",
@@ -4281,14 +4316,199 @@ def read_pod_run(workdir: str, pod_name: str, label: str = "controller_roll") ->
             "build_s": kernels["build_s"], "launches": kernels["launches"]}
 
 
-def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
+class NodeScope:
+    """A client whose Node reads see only ``nodes`` (each read by name, never
+    by a LIST): the kubelets of a pool that shares its cluster with other
+    nodes. Everything else is the client's."""
+
+    def __init__(self, client, nodes) -> None:
+        self.client = client
+        self.nodes = tuple(nodes)
+
+    def list(self, kind: str, *args, **kwargs) -> list:
+        from k8s_operator_libs_tpu_torch.kube.client import get_or_none
+
+        if kind != "Node":
+            return self.client.list(kind, *args, **kwargs)
+        found = (get_or_none(self.client, "Node", name) for name in self.nodes)
+        return [node for node in found if node is not None]
+
+    def __getattr__(self, name: str):
+        return getattr(self.client, name)
+
+
+class ServerRoll:
+    """The server side of the server_roll: the port's ``LocalApiServer`` in
+    this process (a random bearer token, bookmarks every
+    ``SERVER_BOOKMARK_S``, the loop-stall watchdog at ``SERVER_STALL_S``,
+    the default priority and fairness), its cluster seeded with
+    ``SERVER_POOL_NODES`` GPU nodes of another pool, every request it
+    serves logged, a tracer installed for its ``server.request`` and
+    ``apf.queue`` spans, and the kubelets' client: the port's
+    ``RestClient`` at the server, its Node reads scoped to the rolled
+    nodes."""
+
+    def __init__(self, nodes) -> None:
+        import secrets
+
+        from k8s_operator_libs_tpu_torch.kube.apiserver import LocalApiServer
+        from k8s_operator_libs_tpu_torch.kube.rest import RestClient, RestConfig
+        from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
+        from k8s_operator_libs_tpu_torch.utils import tracing
+
+        self.token = secrets.token_hex(16)
+        self.tracer = tracing.Tracer()
+        tracing.install_tracer(self.tracer)
+        self.server = LocalApiServer(token=self.token, bookmark_interval_s=SERVER_BOOKMARK_S,
+                                     stall_watchdog_threshold_s=SERVER_STALL_S).start()
+        self.cluster = self.server.cluster
+        labels = {**local_gpu_labels(), **SERVER_OTHER_POOL}
+        for i in range(SERVER_POOL_NODES):
+            self.cluster.create(pool_node(f"gpu-pool-{i:04d}", labels))
+        self.rest = RestClient(RestConfig(server=self.server.url, token=self.token))
+        self.kubelet_client = NodeScope(self.rest, nodes)
+        self.log = self.server.start_request_log()
+        #: The request log's length when every connection was killed, and
+        #: when the Table read went out: the requests between are the roll's
+        #: after the kill.
+        self.killed_at: Optional[int] = None
+        self.table_at: Optional[int] = None
+        self.killed_wall = 0.0
+        self.connections_killed = 0
+
+    def kill_once(self) -> None:
+        if self.killed_at is None:
+            self.killed_at = len(self.log)
+            self.killed_wall = time.perf_counter()
+            self.connections_killed = self.server.kill_connections()
+
+    def table(self, state_label: str) -> dict:
+        """One GET of the rolled nodes (by their state label) as a Table."""
+        import urllib.parse
+        import urllib.request
+
+        self.table_at = len(self.log)
+        query = urllib.parse.urlencode({"labelSelector": f"{state_label}=upgrade-done"})
+        request = urllib.request.Request(
+            f"{self.server.url}/api/v1/nodes?{query}",
+            headers={"Accept": TABLE_ACCEPT, "Authorization": f"Bearer {self.token}"})
+        with urllib.request.urlopen(request, timeout=30) as response:
+            table = json.load(response)
+        return {"kind": table.get("kind"),
+                "columns": [c["name"] for c in table.get("columnDefinitions", [])],
+                "rows": len(table.get("rows", [])),
+                "names": sorted(row["cells"][0] for row in table.get("rows", []))}
+
+    def close(self) -> None:
+        from k8s_operator_libs_tpu_torch.utils import tracing
+
+        self.rest.close()
+        self.server.stop()
+        tracing.clear_tracer()
+
+    def report(self, command_trace: str) -> dict:
+        """The counters, flows, stalls and continue tokens, the requests
+        after the kill by verb and resource, and the server's spans with
+        how many of them join a span of the command's exported trace."""
+        import urllib.parse
+
+        from k8s_operator_libs_tpu_torch.tools import trace_view
+
+        log = list(self.log)
+        end = self.table_at if self.table_at is not None else len(log)
+        roll = log[:end]
+        after_kill = roll[self.killed_at if self.killed_at is not None else end:]
+        node_lists = [q for method, path, q in roll
+                      if method == "GET" and path == "/api/v1/nodes" and q.get("watch") != "true"]
+        after: dict = {}
+        for method, path, query in after_kill:
+            url = path + ("?" + urllib.parse.urlencode(query) if query else "")
+            name = request_name(rbac_request(method, url))
+            after[name] = after.get(name, 0) + 1
+        full_node_lists_after = sum(
+            1 for method, path, q in after_kill
+            if method == "GET" and path == "/api/v1/nodes" and q.get("watch") != "true"
+            and not q.get("sinceResourceVersion"))
+        records = self.tracer.records()
+        command = {(r["trace"], r["span"]): r for r in trace_view.load_spans(command_trace)}
+
+        def joins_command(record: dict) -> bool:
+            parent = command.get((record["trace"], record.get("parent")))
+            if parent is None or not parent["name"].startswith("http."):
+                return False
+            attrs, mine = parent.get("attrs") or {}, record.get("attrs") or {}
+            return (attrs.get("method") == mine.get("method")
+                    and attrs.get("path", mine.get("path")) == mine.get("path"))
+
+        served = [r for r in records if r["name"] == "server.request"]
+        server = self.server
+        return {
+            "pool_nodes": SERVER_POOL_NODES,
+            "counters": {"connections_opened": server.connections_opened,
+                         "requests_served": server.requests_served,
+                         "watch_streams": server.watch_streams,
+                         "watch_frames_sent": server.watch_frames_sent,
+                         "bytes_sent": server.bytes_sent,
+                         "watch_bytes_sent": server.watch_bytes_sent},
+            "apf": server.apf_stats(),
+            "loop_stall": server.loop_stall_stats(),
+            "node_lists": len(node_lists),
+            "continue_tokens": len({q["continue"] for q in node_lists if q.get("continue")}),
+            "connections_killed": self.connections_killed,
+            "requests_after_kill": dict(sorted(after.items())),
+            "full_node_lists_after_kill": full_node_lists_after,
+            "node_watches_after_kill": after.get("watch nodes", 0),
+            "spans": {"server.request": len(served),
+                      "apf.queue": sum(1 for r in records if r["name"] == "apf.queue")},
+            "server_requests_joined_to_command": sum(1 for r in served if joins_command(r)),
+        }
+
+
+def check_server_roll(result: dict) -> None:
+    """server_roll's own checks, on its printed result."""
+    server = result["server"]
+    apf = server["apf"]
+    if server["continue_tokens"] < 2:
+        raise AssertionError(f"server_roll: the Node list was not paged: {server}")
+    if any(apf[flow]["admitted_total"] < 1 for flow in ("lease", "reconcile", "informer")):
+        raise AssertionError(f"server_roll: a flow admitted nothing: {apf}")
+    if any(stats["shed_429_total"] for stats in apf.values()):
+        raise AssertionError(f"server_roll: a flow shed: {apf}")
+    if server["loop_stall"].get("stalls_over_threshold", 1):
+        raise AssertionError(f"server_roll: the server's loop stalled: {server['loop_stall']}")
+    if not server["connections_killed"] or not server["node_watches_after_kill"]:
+        raise AssertionError(f"server_roll: no watch resumed after the kill: {server}")
+    if server["full_node_lists_after_kill"]:
+        raise AssertionError(f"server_roll: the informers re-listed Nodes after the kill: "
+                             f"{server['requests_after_kill']}")
+    table = result["table"]
+    if table["columns"][:2] != ["Name", "Age"] or table["rows"] != 2 or \
+            table["names"] != sorted(SERVER_NODES):
+        raise AssertionError(f"server_roll: the Table read {table}")
+    if not server["server_requests_joined_to_command"]:
+        raise AssertionError(f"server_roll: no server.request joined the command's trace: "
+                             f"{server['spans']}")
+    if result["command_kernel_files"]:
+        raise AssertionError(f"server_roll: the command built kernels: "
+                             f"{result['command_kernel_files']}")
+
+
+def controller_roll_phase(card: str, gate_launches: dict, cache_root: str,
+                          server: bool = False) -> dict:
     """Two GPU nodes rolled 550 -> 560 by the port's ``upgrade_controller``
     command, run as two replicas (``ctl-a``, then ``ctl-b`` standing by)
     over ``ApiStub``; the port's ``DaemonSetSimulator`` and
     ``ValidationPodSimulator`` with a ``KubeletPayloadExecutor`` play the
     kubelets here, each probe pod's payload on the card with a kernel
     cache an earlier phase warmed. Then ``/metrics`` scraped once, ``ctl-a``
-    stopped by SIGTERM, ``ctl-b`` taking over, ``ctl-b`` stopped."""
+    stopped by SIGTERM, ``ctl-b`` taking over, ``ctl-b`` stopped.
+
+    With ``server``, the server_roll: ``SERVER_NODES`` among
+    ``SERVER_POOL_NODES`` more GPU nodes in the port's own
+    ``LocalApiServer`` (``ServerRoll``), one replica over the kubeconfig the
+    server writes, the kubelets over the port's ``RestClient`` at the
+    server; every connection killed once when the first node is done; after
+    the roll, a Table read of the two nodes, then SIGTERM."""
     from k8s_operator_libs_tpu_torch.kube.client import get_or_none
     from k8s_operator_libs_tpu_torch.kube.objects import Node
     from k8s_operator_libs_tpu_torch.kube.sim import (
@@ -4302,25 +4522,43 @@ def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
     from k8s_operator_libs_tpu_torch.tpu.validation_pod import ValidationPodSpec
     from k8s_operator_libs_tpu_torch.upgrade import DeviceClass, UpgradeKeys
 
+    label = "server_roll" if server else "controller_roll"
+    roll_nodes = SERVER_NODES if server else CONTROLLER_NODES
+    identities = (SERVER_ID,) if server else CONTROLLER_IDS
     start = time.perf_counter()
     keys = UpgradeKeys(DeviceClass.nvidia("gpu"))
-    client = DictClient()
-    pool_nodes(client, CONTROLLER_NODES)
-    installer = LibtpuDaemonSetManager(client, LibtpuSpec(version=ROLL_VERSIONS[0]))
-    lease_name, lease_ns = "upgrade-controller-nvidia", installer.spec.namespace
-    driver = DaemonSetSimulator(client, name=installer.name, namespace=installer.spec.namespace,
-                                match_labels=installer.match_labels,
-                                initial_hash=ROLL_VERSIONS[0])
-    driver.settle()
-    # The new driver's pods block on the safe-load key until the machine
-    # has drained their node.
-    driver.safe_load_annotation = keys.safe_driver_load_annotation
     cache = os.path.join(cache_root, ROLL_NODES[0])
-    print(f"controller_roll: probe pods on the kernel cache of {ROLL_NODES[0]}", flush=True)
+    print(f"{label}: probe pods on the kernel cache of {ROLL_NODES[0]}", flush=True)
     spec = ValidationPodSpec()
     replicas: list = []
-    with ApiStub(client) as stub, tempfile.TemporaryDirectory(prefix="controller-") as workdir:
-        kubeconfig = write_kubeconfig(workdir, stub.url)
+    served: Optional[ServerRoll] = None
+    with contextlib.ExitStack() as stack:
+        workdir = stack.enter_context(tempfile.TemporaryDirectory(prefix="controller-"))
+        if server:
+            served = ServerRoll(roll_nodes)
+            stack.callback(served.close)
+            client, kubelet_client = served.cluster, served.kubelet_client
+            kubeconfig = served.server.write_kubeconfig(os.path.join(workdir, "kubeconfig"))
+            # The command's kernel directory: empty at its end, or it built.
+            command_kernels = os.path.join(workdir, "command-kernels")
+            os.makedirs(command_kernels)
+            command_env = {KERNEL_DIR_ENV: command_kernels}
+        else:
+            client = kubelet_client = DictClient()
+            stub = stack.enter_context(ApiStub(client))
+            kubeconfig = write_kubeconfig(workdir, stub.url)
+            command_env = None
+        pool_nodes(client, roll_nodes)
+        installer = LibtpuDaemonSetManager(client, LibtpuSpec(version=ROLL_VERSIONS[0]))
+        lease_name, lease_ns = "upgrade-controller-nvidia", installer.spec.namespace
+        driver = DaemonSetSimulator(kubelet_client, name=installer.name,
+                                    namespace=installer.spec.namespace,
+                                    match_labels=installer.match_labels,
+                                    initial_hash=ROLL_VERSIONS[0])
+        driver.settle()
+        # The new driver's pods block on the safe-load key until the machine
+        # has drained their node.
+        driver.safe_load_annotation = keys.safe_driver_load_annotation
         policy = os.path.join(workdir, "policy.json")
         with open(policy, "w") as f:
             json.dump(ROLL_POLICY, f)
@@ -4328,9 +4566,9 @@ def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
             env=child_env(**{KERNEL_DIR_ENV: cache}), timeout_seconds=POD_READY_TIMEOUT_S,
             argv_transform=controller_pod_argv(workdir),
         )
-        pods = ValidationPodSimulator(client, namespace=spec.namespace,
+        pods = ValidationPodSimulator(kubelet_client, namespace=spec.namespace,
                                       label_selector=spec.pod_selector, executor=executor)
-        trajectories: dict[str, list] = {name: [] for name in CONTROLLER_NODES}
+        trajectories: dict[str, list] = {name: [] for name in roll_nodes}
         pod_seen: dict[str, float] = {}
         pod_ready: dict[str, float] = {}
         stop, failure = threading.Event(), []
@@ -4357,11 +4595,13 @@ def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
         ticker = threading.Thread(target=kubelet, daemon=True)
         ticker.start()
         try:
-            a = ControllerReplica(CONTROLLER_IDS[0], kubeconfig, policy, workdir)
+            a = ControllerReplica(identities[0], kubeconfig, policy, workdir, label=label,
+                                  env=command_env)
             replicas.append(a)
             a.wait_for("leader election: leading", CONTROLLER_START_S)
-            b = ControllerReplica(CONTROLLER_IDS[1], kubeconfig, policy, workdir)
-            replicas.append(b)
+            if not server:
+                b = ControllerReplica(identities[1], kubeconfig, policy, workdir)
+                replicas.append(b)
             a.wait_for("pass 1: ", CONTROLLER_START_S)
             reset_counts()
             bumped = last_change = time.perf_counter()
@@ -4371,24 +4611,28 @@ def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
                 if failure:
                     raise failure[0]
                 if a.proc.poll() is not None:
-                    raise AssertionError(f"controller_roll: ctl-a exited {a.proc.returncode}: "
+                    raise AssertionError(f"{label}: {a.identity} exited {a.proc.returncode}: "
                                          f"{a.tail()}")
-                nodes = {n: Node(client.get("Node", n).raw) for n in CONTROLLER_NODES}
+                nodes = {n: Node(client.get("Node", n).raw) for n in roll_nodes}
                 states = {n: node.labels.get(keys.state_label, "") for n, node in nodes.items()}
                 now = time.perf_counter()
                 for name, state in states.items():
                     if not trajectories[name] or trajectories[name][-1][0] != state:
                         trajectories[name].append([state, round(now - bumped, 3)])
                         last_change = now
+                if served is not None and any(
+                        len(steps) > 1 and steps[-1][0] == "upgrade-done"
+                        for steps in trajectories.values()):
+                    served.kill_once()  # the fault in mid-roll: the first node done
                 if "upgrade-failed" in states.values():
-                    raise AssertionError(f"controller_roll: a node failed: {trajectories}")
+                    raise AssertionError(f"{label}: a node failed: {trajectories}")
                 if (set(states.values()) == {"upgrade-done"}
                         and not any(n.unschedulable for n in nodes.values())
                         and driver.all_pods_ready_and_current()
-                        and len(pod_ready) == len(CONTROLLER_NODES)):
+                        and len(pod_ready) == len(roll_nodes)):
                     break
                 if time.perf_counter() - last_change > ROLL_STALL_S:
-                    raise AssertionError(f"controller_roll: no node changed state for "
+                    raise AssertionError(f"{label}: no node changed state for "
                                          f"{ROLL_STALL_S} s: {trajectories} {a.tail()}")
                 time.sleep(0.1)
             wall_s = time.perf_counter() - bumped
@@ -4399,18 +4643,23 @@ def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
             ticker.join(timeout=30)
             a.wait_quiet(CONTROLLER_START_S)
             a_passes = len(a.passes())
-            gauges = a.scrape()
-            b_before = len(b.attempts())
-            b.wait_for("leader election: campaigning", CONTROLLER_START_S)
-            rc_a, a_signalled, a_ended = a.terminate()
-            holder_after_a = lease_holder(client, lease_name, lease_ns)
-            a_stopped = a.first("shutdown requested; draining")
-            led_at = b.wait_for("leader election: leading", LEASE_DURATION_S + 30)
-            takeover_s = led_at - a_signalled
-            b.wait_for("pass 1: ", 60)
-            b.wait_quiet(CONTROLLER_START_S)
-            rc_b, _, _ = b.terminate()
-            holder_after_b = lease_holder(client, lease_name, lease_ns)
+            if server:
+                table = served.table(keys.state_label)
+                rc_a, a_signalled, a_ended = a.terminate()
+                holder_after_a = lease_holder(client, lease_name, lease_ns)
+            else:
+                gauges = a.scrape()
+                b_before = len(b.attempts())
+                b.wait_for("leader election: campaigning", CONTROLLER_START_S)
+                rc_a, a_signalled, a_ended = a.terminate()
+                holder_after_a = lease_holder(client, lease_name, lease_ns)
+                a_stopped = a.first("shutdown requested; draining")
+                led_at = b.wait_for("leader election: leading", LEASE_DURATION_S + 30)
+                takeover_s = led_at - a_signalled
+                b.wait_for("pass 1: ", 60)
+                b.wait_quiet(CONTROLLER_START_S)
+                rc_b, _, _ = b.terminate()
+                holder_after_b = lease_holder(client, lease_name, lease_ns)
             transitions = get_or_none(client, "Lease", lease_name, lease_ns).lease_transitions
         finally:
             stop.set()
@@ -4420,9 +4669,9 @@ def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
             executor.close()
         runs = {}
         for name, seen_at in sorted(pod_seen.items()):
-            run = read_pod_run(workdir, name)
+            run = read_pod_run(workdir, name, label)
             run["seconds_to_ready"] = pod_ready[name] - seen_at
-            check_launches(f"controller_roll probe pod {name}", run["launches"], gate_launches)
+            check_launches(f"{label} probe pod {name}", run["launches"], gate_launches)
             runs[name] = run
         spans = {}
         for replica in replicas:
@@ -4437,9 +4686,14 @@ def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
         printed = {r.identity: len(r.passes()) for r in replicas}
         attempted = {r.identity: len(r.attempts()) for r in replicas}
         tails = {r.identity: r.tail(8) for r in replicas}
+        if served is not None:
+            server_report = served.report(a.trace)
+            server_report["killed_after_s"] = served.killed_wall - bumped
+            command_kernel_files = sorted(os.listdir(command_kernels))
+        pods_left = sorted(p.name for p in client.list("Pod"))
     controller = counts()
     result = {
-        "nodes": list(CONTROLLER_NODES),
+        "nodes": list(roll_nodes),
         "versions": list(ROLL_VERSIONS),
         "policy": ROLL_POLICY,
         "interval_s": CONTROLLER_INTERVAL_S,
@@ -4450,55 +4704,79 @@ def controller_roll_phase(card: str, gate_launches: dict, cache_root: str) -> di
         "trajectories": trajectories,
         "probe_pods": runs,
         "pod_launches": total_launches(runs.values()),
-        "reconcile_passes_total": gauges.get("reconcile_passes_total"),
-        "leader_passes_at_scrape": a_passes,
-        "standby_passes_while_leader_ran": b_before,
-        "seconds_to_campaign": {r.identity: r.first("leader election: campaigning") - r.started
-                                for r in replicas},
-        "takeover_s": takeover_s,
-        "ctl_a_exit_s": a_ended - a_signalled,
-        "return_codes": {"ctl-a": rc_a, "ctl-b": rc_b},
-        "lease_holder_after": {"ctl-a": holder_after_a, "ctl-b": holder_after_b},
-        "lease_transitions": transitions,
+    }
+    if server:
+        result.update({
+            "server": server_report,
+            "table": table,
+            "return_code": rc_a,
+            "exit_s": a_ended - a_signalled,
+            "lease_holder_after": holder_after_a,
+            "lease_transitions": transitions,
+            "command_kernel_files": command_kernel_files,
+        })
+    else:
+        result.update({
+            "reconcile_passes_total": gauges.get("reconcile_passes_total"),
+            "leader_passes_at_scrape": a_passes,
+            "standby_passes_while_leader_ran": b_before,
+            "seconds_to_campaign": {r.identity: r.first("leader election: campaigning")
+                                    - r.started for r in replicas},
+            "takeover_s": takeover_s,
+            "ctl_a_exit_s": a_ended - a_signalled,
+            "return_codes": {"ctl-a": rc_a, "ctl-b": rc_b},
+            "lease_holder_after": {"ctl-a": holder_after_a, "ctl-b": holder_after_b},
+            "lease_transitions": transitions,
+        })
+    result.update({
         "spans_by_name": spans,
         "stats_json": stats,
         "controller_launches": {lib: controller[lib] for lib in ("matmul", "flash_attention")},
         "phase_wall_s": time.perf_counter() - start,
-    }
-    print(json.dumps({"controller_roll": result, "card": card}), flush=True)
-    # ctl-a stops reconciling when it prints that it drains, and releases
-    # the Lease only after that: no pass of ctl-b may come before it.
-    b_first = min(replicas[1].attempts(), default=None)
-    if b_before or a_stopped is None or (b_first is not None and b_first < a_stopped):
-        raise AssertionError(f"controller_roll: the standby reconciled while ctl-a led: {tails}")
-    if rc_a != 0 or rc_b != 0:
-        raise AssertionError(f"controller_roll: return codes {rc_a}, {rc_b}: {tails}")
-    if holder_after_a == CONTROLLER_IDS[0] or holder_after_b:
-        raise AssertionError(f"controller_roll: the Lease was left held: {holder_after_a!r} "
-                             f"after ctl-a, {holder_after_b!r} after ctl-b")
-    if not takeover_s < LEASE_DURATION_S:
-        raise AssertionError(f"controller_roll: the takeover took {takeover_s} s")
-    if result["reconcile_passes_total"] != a_passes:
-        raise AssertionError(f"controller_roll: /metrics counted "
-                             f"{result['reconcile_passes_total']} passes, ctl-a printed {a_passes}")
-    if any(stats[r]["passes"] != attempted[r] for r in attempted):
-        raise AssertionError(f"controller_roll: stats {stats}, printed {attempted}")
-    # The kubelet's ticks write nothing that changes (a no-op write is no
-    # event): the interval never ran out, and node and pod events, not the
-    # world's key, woke most of ctl-a's passes.
-    woken = stats[CONTROLLER_IDS[0]]["woken_by"]
-    if woken["interval"] or woken["nodes"] <= woken["resync"]:
-        raise AssertionError(f"controller_roll: ctl-a's passes were not woken by node and "
-                             f"pod events: {woken}")
+    })
+    print(json.dumps({label: result, "card": card}), flush=True)
+    if server:
+        check_server_roll(result)
+        if rc_a != 0 or holder_after_a:
+            raise AssertionError(f"server_roll: return code {rc_a}, the Lease held by "
+                                 f"{holder_after_a!r}: {tails}")
+        if stats[SERVER_ID]["passes"] != attempted[SERVER_ID] or a_passes != printed[SERVER_ID]:
+            raise AssertionError(f"server_roll: stats {stats}, printed {attempted}")
+    else:
+        # ctl-a stops reconciling when it prints that it drains, and releases
+        # the Lease only after that: no pass of ctl-b may come before it.
+        b_first = min(replicas[1].attempts(), default=None)
+        if b_before or a_stopped is None or (b_first is not None and b_first < a_stopped):
+            raise AssertionError(f"controller_roll: the standby reconciled while ctl-a led: "
+                                 f"{tails}")
+        if rc_a != 0 or rc_b != 0:
+            raise AssertionError(f"controller_roll: return codes {rc_a}, {rc_b}: {tails}")
+        if holder_after_a == CONTROLLER_IDS[0] or holder_after_b:
+            raise AssertionError(f"controller_roll: the Lease was left held: {holder_after_a!r} "
+                                 f"after ctl-a, {holder_after_b!r} after ctl-b")
+        if not takeover_s < LEASE_DURATION_S:
+            raise AssertionError(f"controller_roll: the takeover took {takeover_s} s")
+        if result["reconcile_passes_total"] != a_passes:
+            raise AssertionError(f"controller_roll: /metrics counted "
+                                 f"{result['reconcile_passes_total']} passes, ctl-a printed "
+                                 f"{a_passes}")
+        if any(stats[r]["passes"] != attempted[r] for r in attempted):
+            raise AssertionError(f"controller_roll: stats {stats}, printed {attempted}")
+        # The kubelet's ticks write nothing that changes (a no-op write is no
+        # event): the interval never ran out, and node and pod events, not
+        # the world's key, woke most of ctl-a's passes.
+        woken = stats[CONTROLLER_IDS[0]]["woken_by"]
+        if woken["interval"] or woken["nodes"] <= woken["resync"]:
+            raise AssertionError(f"controller_roll: ctl-a's passes were not woken by node and "
+                                 f"pod events: {woken}")
     if not all(s.get("lease.round") for s in spans.values()):
-        raise AssertionError(f"controller_roll: no lease.round span: {spans}")
-    if sorted(run_node(name) for name in runs) != sorted(CONTROLLER_NODES):
-        raise AssertionError(f"controller_roll: probe pods ran for {sorted(runs)}")
+        raise AssertionError(f"{label}: no lease.round span: {spans}")
+    if sorted(run_node(name) for name in runs) != sorted(roll_nodes):
+        raise AssertionError(f"{label}: probe pods ran for {sorted(runs)}")
     if controller["matmul"] or controller["flash_attention"]:
-        raise AssertionError(f"controller_roll: the parent launched kernels: {controller}")
-    pods_left = sorted(p.name for p in client.list("Pod"))
+        raise AssertionError(f"{label}: the parent launched kernels: {controller}")
     if any(name.startswith("train-") for name in pods_left):
-        raise AssertionError(f"controller_roll: the drain left workload pods: {pods_left}")
+        raise AssertionError(f"{label}: the drain left workload pods: {pods_left}")
     return result
 
 
@@ -5323,6 +5601,7 @@ def main() -> int:
                                        nodes=RELAY_NODES, pools=RELAY_POOLS,
                                        rollout=RELAY_ROLLOUT, ids=RELAY_IDS, relay=True)
             in_memory = in_memory_phase(card, launches, cache_root)
+            server_roll = controller_roll_phase(card, launches, cache_root, server=True)
     finally:
         watched = watch.stop()
     print(json.dumps({"watch": watched, "card": card}), flush=True)
@@ -5347,6 +5626,7 @@ def main() -> int:
         row["launches_fleet_roll"] = fleet["pod_launches"][kernel]
         row["launches_relay_roll"] = relayed["pod_launches"][kernel]
         row["launches_fake_roll"] = in_memory["fake_roll"]["launches"][kernel]
+        row["launches_server_roll"] = server_roll["pod_launches"][kernel]
         row["launches_gang"] = gang["one_pod"]["launches"][kernel]
         row["launches_monitor_manifest"] = manifest["full_1"]["launches"][kernel]
         if kernel == "matmul":

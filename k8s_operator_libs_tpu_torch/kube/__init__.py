@@ -8,12 +8,14 @@ watch over it (``WatchHub`` in one process, ``WatchRelay`` and
 them: the rate-limited workqueue, the informer-fed ``Controller`` and
 Lease-based leader election; and the in-memory cluster of the tests and
 demos (``FakeCluster`` with its patch engines, server-side apply and
-structural schemas, ``CachedClient`` over it, ``FakeRecorder``) with the
-resource registry every client routes through. The operator passes in its own client and
+structural schemas, ``CachedClient`` over it, ``FakeRecorder``), the
+HTTP API server over that cluster (``LocalApiServer``) and the resource
+registry every client routes through. The operator passes in its own client and
 objects; the port reads them by duck typing and imports none of the
 operator's code. The monitor, run as a pod, builds its own
 ``rest.RestClient``."""
 
+from .apiserver import LocalApiServer
 from .cache import CachedClient
 from .client import ListDelta, UnsupportedMediaTypeError, WatchExpiredError, patch_many
 from .controller import Controller, Request, Result
@@ -79,6 +81,7 @@ __all__ = [
     "LeaderElector",
     "Lease",
     "ListDelta",
+    "LocalApiServer",
     "LoopStallWatchdog",
     "MaxOfRateLimiter",
     "RateLimitingQueue",

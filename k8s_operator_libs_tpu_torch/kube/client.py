@@ -20,34 +20,45 @@ T = TypeVar("T")
 
 
 class ApiError(Exception):
-    """An API error; ``reason`` is the ``Status.reason`` it carries."""
+    """An API error; ``reason`` is the ``Status.reason`` it carries and
+    ``status`` the HTTP code an API server answers it with."""
 
+    status = 500
     reason = "InternalError"
+
+    def __init__(self, message: str = "") -> None:
+        super().__init__(message or self.reason)
+        self.message = message or self.reason
 
 
 class NotFoundError(ApiError):
+    status = 404
     reason = "NotFound"
 
 
 class AlreadyExistsError(ApiError):
+    status = 409
     reason = "AlreadyExists"
 
 
 class ConflictError(ApiError):
     """Optimistic-concurrency failure (stale resourceVersion)."""
 
+    status = 409
     reason = "Conflict"
 
 
 class BadRequestError(ApiError):
     """Malformed request parameters (400)."""
 
+    status = 400
     reason = "BadRequest"
 
 
 class InvalidError(ApiError):
     """The object failed validation (422)."""
 
+    status = 422
     reason = "Invalid"
 
 
@@ -55,6 +66,7 @@ class WatchExpiredError(ApiError):
     """The watch's resume revision fell out of the server's event journal
     (410 Gone): the caller must re-list and start a fresh watch."""
 
+    status = 410
     reason = "Expired"
 
 
@@ -62,10 +74,11 @@ class TooManyRequestsError(ApiError):
     """Shed by the server's flow control (429); ``retry_after_s`` is the
     server's Retry-After hint."""
 
+    status = 429
     reason = "TooManyRequests"
 
     def __init__(self, message: str = "", retry_after_s: float = 1.0) -> None:
-        super().__init__(message or self.reason)
+        super().__init__(message)
         self.retry_after_s = retry_after_s
 
 
@@ -74,6 +87,7 @@ class UnsupportedMediaTypeError(ApiError):
     takes strategic merge patches only for built-in types; a custom
     resource takes JSON and merge patches."""
 
+    status = 415
     reason = "UnsupportedMediaType"
 
 

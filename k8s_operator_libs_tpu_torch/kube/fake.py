@@ -4,8 +4,8 @@ The port's copy of the JAX package's ``kube/fake.py``: the patch engines
 (RFC 7386 merge, strategic merge, RFC 6902 JSON patch), the watch framing
 an HTTP server shares (``classify_watch_event``, ``WatchFrameSource``) and
 ``FakeCluster``, which implements the port's ``kube/client.py`` ``Client``.
-The HTTP server over it (``LocalApiServer``) is not ported yet (ROADMAP
-A19 (b)); its watch handler would read the framing here.
+The HTTP server over it, ``kube/apiserver.py``'s ``LocalApiServer``,
+streams its watches through the framing here.
 
 Plays the role envtest plays in the reference's suites — a real apiserver+etcd
 booted locally with no kubelets, against which Node/Pod/CR objects are plain

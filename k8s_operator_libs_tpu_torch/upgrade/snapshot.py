@@ -4,7 +4,9 @@ The JAX package's ``upgrade/snapshot.py``. Three sources:
 
 * :class:`ClientSnapshotSource` reads three LISTs a pass, the driver
   DaemonSets, their pods and every node, whatever the pool's size (and a
-  fourth, the ControllerRevisions, where the pod manager asks it);
+  fourth, the ControllerRevisions, where the pod manager asks it); over
+  a client with ``list_peek`` (the in-memory cluster) all but the nodes
+  are the store's own frozen documents, not copies;
 * :class:`InformerSnapshotSource` keeps Node, Pod, DaemonSet and
   ControllerRevision informers (``kube/informer.py``: one list, then the
   watch, with a resync as the safety net) and serves every snapshot from
@@ -89,10 +91,25 @@ class ClientSnapshotSource:
         self._node_reader = node_reader if node_reader is not None else client
         self._reads_lock = threading.Lock()
         self._reads = 0
+        # Zero-copy bulk reads where the client offers them: FakeCluster's
+        # copy-on-write store hands out its stored dicts from
+        # ``list_peek``, read-only references that later writes never
+        # touch, one whole-object copy saved a pod, DaemonSet and revision
+        # a pass. Only for the kinds the managers never mutate; nodes stay
+        # on list() (the provider writes labels back and cordoning flips
+        # ``unschedulable`` on the state's node objects). RestClient has no
+        # peek: its decoded JSON is private already.
+        self._list_refs = getattr(client, "list_peek", None)
 
     def _count(self) -> None:
         with self._reads_lock:
             self._reads += 1
+
+    def _docs(self, kind: str, namespace: str, labels: Mapping[str, str]) -> list:
+        if self._list_refs is not None:
+            return self._list_refs(kind, namespace=namespace, label_selector=dict(labels))
+        return [o.raw for o in self._client.list(kind, namespace=namespace,
+                                                  label_selector=dict(labels))]
 
     def consume_reads(self) -> int:
         with self._reads_lock:
@@ -101,19 +118,11 @@ class ClientSnapshotSource:
 
     def daemonsets(self, namespace: str, labels: Mapping[str, str]) -> list[DaemonSet]:
         self._count()
-        return [
-            DaemonSet(o.raw)
-            for o in self._client.list(
-                "DaemonSet", namespace=namespace, label_selector=dict(labels)
-            )
-        ]
+        return [DaemonSet(d) for d in self._docs("DaemonSet", namespace, labels)]
 
     def pods(self, namespace: str, labels: Mapping[str, str]) -> list[Pod]:
         self._count()
-        return [
-            Pod(o.raw)
-            for o in self._client.list("Pod", namespace=namespace, label_selector=dict(labels))
-        ]
+        return [Pod(d) for d in self._docs("Pod", namespace, labels)]
 
     def nodes(self) -> dict[str, Node]:
         self._count()
@@ -123,12 +132,7 @@ class ClientSnapshotSource:
         self, namespace: str, labels: Mapping[str, str]
     ) -> list[ControllerRevision]:
         self._count()
-        return [
-            ControllerRevision(o.raw)
-            for o in self._client.list(
-                "ControllerRevision", namespace=namespace, label_selector=dict(labels)
-            )
-        ]
+        return [ControllerRevision(d) for d in self._docs("ControllerRevision", namespace, labels)]
 
 
 @lifecycle_resource(acquire="start", release="stop")

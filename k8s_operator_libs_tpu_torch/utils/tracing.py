@@ -35,8 +35,9 @@ the informer's ``informer.deliver``, the client's ``http.request``, the
 leader election's ``lease.round`` (``kube/leader.py``) and the fleet's
 ``fleet.grant_round`` (with a ``fleet.grant`` event a pool granted) and
 ``fleet.report_done`` (``fleet/``). The server side's ``server.request``
-and ``apf.queue`` are the in-memory API server's, which waits for ROADMAP
-A19.
+(joined to the client's trace by its ``traceparent``) and ``apf.queue``
+(its priority-and-fairness queue wait) are the in-memory API server's
+(``kube/apiserver.py``).
 """
 
 from __future__ import annotations
@@ -54,7 +55,7 @@ from .faultpoints import wall_now
 #: covers), never stamped on a span. The port's machine stamps
 #: ``reconcile``, ``wire``, ``drain``, ``checkpoint``, ``probe`` and
 #: ``write``, the leader election ``lease``, the fleet ``grant``;
-#: ``queue`` is an API server's (ROADMAP A19).
+#: ``queue`` is the API server's (``kube/apiserver.py``).
 CATEGORIES = (
     "grant",      # the fleet orchestrator's grant rounds / done reports
     "lease",      # the leader election's protocol rounds

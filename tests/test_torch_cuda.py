@@ -20,7 +20,8 @@ requestor``) runs the post-maintenance warm-up hook on the card in this
 process. The checkpoint roll's trainer (``-k trainer``) saves, restores
 and trains again the flagship model on the card. The NodeHealthReport
 informer over ``chip_smoke.py``'s ``DictClient`` (``-k informer``) sees the
-report of a monitor cycle that ran the card's payload.
+report of a monitor cycle that ran the card's payload. The payload publishes
+its report to the port's own API server (``-k publishes``).
 """
 
 import importlib.util
@@ -806,6 +807,43 @@ def test_monitor_cycle_on_the_card(cuda):
         json.loads(ln) for ln in reversed(gate.last_stderr.splitlines())
         if ln.startswith("{") and "kernels" in ln
     )
+    assert line["kernels"]["launches"]["matmul"] > 0
+    assert line["kernels"]["launches"]["flash_attention"] > 0
+
+
+def test_payload_publishes_its_report_to_the_ports_server(cuda, tmp_path):
+    """The probe payload on the card with ``--publish-report`` against the
+    port's ``LocalApiServer`` (bearer token, default priority and fairness):
+    the stored NodeHealthReport reads back as the payload's
+    ``HealthReport.observation()``, the telemetry flow admitted its writes
+    and shed none, and both kernels ran."""
+    import subprocess
+    import sys
+
+    from k8s_operator_libs_tpu_torch.kube.apiserver import LocalApiServer
+    from k8s_operator_libs_tpu_torch.tpu.health import HealthReport
+
+    node = "gpu-report-0"
+    with LocalApiServer(token="publish-token") as server:
+        kubeconfig = server.write_kubeconfig(str(tmp_path / "kubeconfig"))
+        env, repo = _payload_env(KUBECONFIG=kubeconfig, NODE_NAME=node, HOME=str(tmp_path))
+        env.pop("KUBERNETES_SERVICE_HOST", None)
+        proc = subprocess.run(
+            [sys.executable, "-m", "k8s_operator_libs_tpu_torch.tpu.health",
+             "--publish-report", "--ready-file", str(tmp_path / "ready")],
+            env=env, cwd=repo, capture_output=True, text=True, timeout=900,
+        )
+        assert proc.returncode == 0, proc.stderr[-3000:]
+        report = HealthReport.from_dict(json.loads(proc.stdout.strip().splitlines()[-1]))
+        stored = server.cluster.get("NodeHealthReport", node).raw
+        flows = server.apf_stats()
+    checks, metrics = report.observation()
+    assert (stored["status"]["checks"], stored["status"]["metrics"]) == (checks, metrics)
+    assert stored["spec"] == {"nodeName": node, "source": "gate"}
+    assert flows["telemetry"]["admitted_total"] >= 1
+    assert all(flow["shed_429_total"] == 0 for flow in flows.values())
+    line = next(json.loads(ln) for ln in reversed(proc.stderr.splitlines())
+                if ln.startswith("{") and "kernels" in ln)
     assert line["kernels"]["launches"]["matmul"] > 0
     assert line["kernels"]["launches"]["flash_attention"] > 0
 

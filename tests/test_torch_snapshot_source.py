@@ -356,3 +356,79 @@ def test_pure_read_accessors_do_not_insert(package):
     for obj in (pod, node, ds, cr):
         assert "status" not in obj.raw and "spec" not in obj.raw
         assert "labels" not in obj.raw["metadata"]
+
+
+# ----------------------------------------------------------------------
+# The client source's zero-copy path over the in-memory cluster
+# ----------------------------------------------------------------------
+
+def test_client_source_peeks_like_the_jax_source_pass_by_pass(monkeypatch):
+    """Over each package's own ``FakeCluster`` (uids seeded alike), each
+    package's machine rolls three nodes with its ``ClientSnapshotSource``:
+    both sources take ``list_peek`` for pods, DaemonSets and revisions and
+    ``list`` for nodes, and pass by pass they count the same reads, make
+    the same calls, build the same state and leave the same nodes. The
+    port's pods are the store's own documents, not copies."""
+    import random
+
+    from k8s_operator_libs_tpu.kube import fake as jax_fake
+    from k8s_operator_libs_tpu_torch.kube import fake as port_fake
+    from k8s_operator_libs_tpu_torch.kube.objects import wrap
+    from k8s_operator_libs_tpu_torch.kube.sim import DaemonSetSimulator as PortSimulator
+    from k8s_operator_libs_tpu.kube.sim import DaemonSetSimulator as JaxSimulator
+    from torch_twins import PKGS, Recorder
+
+    for mod in (jax_fake, port_fake):
+        monkeypatch.setattr(mod, "_UID_RNG", random.Random(20))
+    clusters = {"jax": jax_fake.FakeCluster(), "port": port_fake.FakeCluster()}
+    sims, managers, sources = {}, {}, {}
+    for name, cluster in clusters.items():
+        sim_cls = JaxSimulator if name == "jax" else PortSimulator
+        for i in range(3):
+            node = make_node(f"node-{i}")
+            cluster.create(node if name == "jax" else wrap(node.raw))
+        sims[name] = sim_cls(cluster, name="driver", namespace=NS, match_labels=LABELS)
+        sims[name].settle()
+        up = PKGS[name].upgrade
+        managers[name] = up.ClusterUpgradeStateManager(
+            cluster, PKGS[name].device, runner=up.TaskRunner(inline=True), recorder=Recorder())
+        sources[name] = managers[name].snapshot_source
+        assert isinstance(sources[name], up.ClientSnapshotSource)
+        assert sources[name]._list_refs is not None
+        sims[name].set_template_hash("v2")
+    for _ in range(40):
+        seen = {}
+        for name, cluster in clusters.items():
+            sims[name].step()
+            log = cluster.start_call_log()
+            state = managers[name].build_state(NS, LABELS)
+            cluster.stop_call_log()
+            seen[name] = (state_shape(state), sources[name].consume_reads(),
+                          [c for c in log if c[0] in ("get", "list")])
+            if name == "port":
+                with cluster._lock:
+                    stored = [data for (kind, _, _), data in cluster._store.items()
+                              if kind == "Pod"]
+                pods = [ns.driver_pod.raw for entries in state.node_states.values()
+                        for ns in entries]
+                assert pods and all(any(raw is data for data in stored) for raw in pods)
+            managers[name].apply_state(state, PKGS[name].policy)
+        assert seen["port"] == seen["jax"]
+        assert seen["port"][2] == [("list", "DaemonSet", ""), ("list", "Pod", ""),
+                                   ("list", "Node", "")]
+        assert node_view_of(clusters["port"]) == node_view_of(clusters["jax"])
+        if all((clusters["port"].get("Node", f"node-{i}").labels or {}).get(KEYS.state_label)
+               == "upgrade-done" for i in range(3)):
+            break
+    else:
+        raise AssertionError("the roll did not converge")
+    for cluster in clusters.values():
+        cluster.close()
+
+
+def node_view_of(cluster) -> dict:
+    prefix = f"{KEYS.device.domain}/"
+    return {o.name: ({k: v for k, v in (o.labels or {}).items() if k.startswith(prefix)},
+                     {k: v for k, v in (o.annotations or {}).items() if k.startswith(prefix)},
+                     bool((o.raw.get("spec") or {}).get("unschedulable")))
+            for o in cluster.list("Node")}

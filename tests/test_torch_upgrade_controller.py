@@ -378,7 +378,7 @@ def test_chip_smoke_controller_roll_on_the_cpu(monkeypatch, tmp_path, capsys):
             "time.sleep(600)\n")
     monkeypatch.setattr(smoke, "controller_pod_argv", lambda workdir: (
         lambda pod, argv: [sys.executable, "-c", stub, "--ready-file", "unset"]))
-    monkeypatch.setattr(smoke, "read_pod_run", lambda workdir, name: {
+    monkeypatch.setattr(smoke, "read_pod_run", lambda workdir, name, label="": {
         "launches": dict(launches), "build_s": {"matmul": 0.0, "flash_attention": 0.0}})
     result = smoke.controller_roll_phase("cpu", launches, str(tmp_path))
     out = capsys.readouterr().out.splitlines()
@@ -395,6 +395,49 @@ def test_chip_smoke_controller_roll_on_the_cpu(monkeypatch, tmp_path, capsys):
     assert all(spans["lease.round"] for spans in result["spans_by_name"].values())
     assert result["pod_launches"] == {k: 2 * v for k, v in launches.items()}
     for node in smoke.CONTROLLER_NODES:
+        states = [state for state, _ in result["trajectories"][node]]
+        assert states[-1] == "upgrade-done" and "validation-required" in states
+
+
+def test_chip_smoke_server_roll_on_the_cpu(monkeypatch, tmp_path, capsys):
+    """``chip_smoke.py``'s server_roll phase whole on the CPU, each probe
+    pod's payload a stub that writes its ready file and parks: the port's
+    command over the port's ``LocalApiServer`` among 1024 more nodes, the
+    Node list paged, every connection killed once mid-roll and the
+    informers resuming by watch, the flows admitted and none shed, no loop
+    stall, a two-row Table, server spans joined to the command's trace,
+    exit 0 and the Lease released."""
+    from k8s_operator_libs_tpu_torch.parallel import topology
+    from test_torch_cuda import chip_smoke_module
+
+    smoke = chip_smoke_module()
+    monkeypatch.setattr(topology, "local_gpu_labels", lambda: {
+        "nvidia.com/gpu.present": "true", "nvidia.com/gpu.count": "1",
+        "nvidia.com/gpu.product": "NVIDIA-H100-80GB-HBM3",
+    })
+    launches = {"matmul": 4657, "flash_attention": 4}
+    stub = ("import sys, time\n"
+            "open(sys.argv[sys.argv.index('--ready-file') + 1], 'w').write('ok=True')\n"
+            "time.sleep(600)\n")
+    monkeypatch.setattr(smoke, "controller_pod_argv", lambda workdir: (
+        lambda pod, argv: [sys.executable, "-c", stub, "--ready-file", "unset"]))
+    monkeypatch.setattr(smoke, "read_pod_run", lambda workdir, name, label="": {
+        "launches": dict(launches), "build_s": {"matmul": 0.0, "flash_attention": 0.0}})
+    result = smoke.controller_roll_phase("cpu", launches, str(tmp_path), server=True)
+    out = capsys.readouterr().out.splitlines()
+    (printed,) = [json.loads(line)["server_roll"] for line in out
+                  if line.startswith('{"server_roll"')]
+    assert printed == result
+    assert result["return_code"] == 0 and result["lease_holder_after"] == ""
+    server = result["server"]
+    assert server["continue_tokens"] >= 2
+    assert server["full_node_lists_after_kill"] == 0 and server["node_watches_after_kill"] >= 1
+    assert all(flow["shed_429_total"] == 0 for flow in server["apf"].values())
+    assert server["loop_stall"]["stalls_over_threshold"] == 0
+    assert result["table"]["rows"] == 2
+    assert server["server_requests_joined_to_command"] >= 1
+    assert result["pod_launches"] == {k: 2 * v for k, v in launches.items()}
+    for node in smoke.SERVER_NODES:
         states = [state for state, _ in result["trajectories"][node]]
         assert states[-1] == "upgrade-done" and "validation-required" in states
 

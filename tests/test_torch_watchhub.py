@@ -16,7 +16,9 @@ cases run the fleet roll of ``tests/test_torch_fleet.py`` on hub-fed
 workers, a fault plan answering ``overflow`` at ``watchhub.deliver`` in
 each package's ``utils.faultpoints`` for a window of the roll, the JAX
 case's three seeds' windows; the JAX chaos harness that drew them waits
-for ROADMAP A19.
+for ROADMAP A19 (c). The server half of ``TestApf``, ``TestDeltaList`` and
+``TestServerSideFieldSelectors`` runs against the port's server in
+``tests/test_torch_apiserver_apf.py``.
 """
 
 from __future__ import annotations

@@ -16,7 +16,8 @@ packages must observe the same. One call sequence (writes, lists, a
 primed batch, pipelined patches, watch windows) runs through both
 clients against twin servers, and their ``transport_stats`` agree on
 connections, requests, pipelined batches and watch frames.
-``TestTableWatch`` needs the Table transform of A19 (b)'s server.
+``TestTableWatch`` and ``TestNegotiation`` run against the port's server
+in ``tests/test_torch_apiserver_transport.py``.
 """
 
 from __future__ import annotations

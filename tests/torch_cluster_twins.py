@@ -24,6 +24,17 @@ each subscriber received are compared, and both clusters are closed.
 A ``LocalApiServer`` the case starts serves a twin cluster, so the wire
 cases drive both clusters too.
 
+The server's parity files (``adopt_cases(..., server=True)``) hand the
+case the port's ``LocalApiServer``, ``ApfConfig``, ``FlowConfig``,
+``render_table``, ``accepts_table``, ``classify_flow`` and ``evaluate``
+in place of the JAX names: the server the case starts is the port's,
+serving a twin cluster, and the case's assertions, made over HTTP
+through the JAX client, hold the port's server. The pure functions run
+on both sides and are compared; the case gets the port's result. An
+error a twin cluster raises to the port's server is then an instance of
+the JAX class and of the port's class of the same name, so the port's
+server maps it to its Status and the case still catches the JAX class.
+
 Normalized before any comparison, and only these: ``creationTimestamp``
 and ``deletionTimestamp`` (the wall clock at the write) and the ``time``
 of each ``managedFields`` entry. uids and continue tokens are made equal
@@ -44,7 +55,7 @@ import time
 import types
 import uuid
 from collections import deque
-from typing import Any, Callable
+from typing import Any, Callable, Optional
 
 import pytest
 
@@ -52,16 +63,21 @@ import k8s_operator_libs_tpu.kube as jax_kube
 import k8s_operator_libs_tpu.kube.apiserver as jax_apiserver
 import k8s_operator_libs_tpu.kube.cache as jax_cache
 import k8s_operator_libs_tpu.kube.fake as jax_fake
+import k8s_operator_libs_tpu.kube.jsonpath as jax_jsonpath
 import k8s_operator_libs_tpu.kube.resources as jax_resources
 import k8s_operator_libs_tpu.kube.ssa as jax_ssa
 import k8s_operator_libs_tpu.kube.structural as jax_structural
+import k8s_operator_libs_tpu.kube.table as jax_table
 from k8s_operator_libs_tpu.kube.objects import KubeObject as JaxKubeObject
+import k8s_operator_libs_tpu_torch.kube.apiserver as port_apiserver
 import k8s_operator_libs_tpu_torch.kube.cache as port_cache
 import k8s_operator_libs_tpu_torch.kube.client as port_client
 import k8s_operator_libs_tpu_torch.kube.fake as port_fake
+import k8s_operator_libs_tpu_torch.kube.jsonpath as port_jsonpath
 import k8s_operator_libs_tpu_torch.kube.resources as port_resources
 import k8s_operator_libs_tpu_torch.kube.ssa as port_ssa
 import k8s_operator_libs_tpu_torch.kube.structural as port_structural
+import k8s_operator_libs_tpu_torch.kube.table as port_table
 from k8s_operator_libs_tpu_torch.kube.objects import KubeObject as PortKubeObject
 from k8s_operator_libs_tpu_torch.kube.objects import wrap as port_wrap
 
@@ -72,6 +88,17 @@ PORT_MODULES = {
                               (jax_structural, port_structural), (jax_cache, port_cache),
                               (jax_resources, port_resources))
 }
+#: The server side: a server parity file's case gets these modules' names
+#: from the port.
+SERVER_MODULES = {
+    jax_mod.__name__: port_mod
+    for jax_mod, port_mod in ((jax_apiserver, port_apiserver), (jax_table, port_table),
+                              (jax_jsonpath, port_jsonpath))
+}
+#: Pure functions among them: run on both sides and compared.
+COMPARED = frozenset({"evaluate", "accepts_table", "classify_flow", "render_table"})
+#: The JAX cache's class (the world replaces the module's name).
+JAX_CACHED_CLIENT = jax_cache.CachedClient
 #: Keys whose values are the wall clock at a write.
 TIME_KEYS = frozenset({"creationTimestamp", "deletionTimestamp"})
 
@@ -123,7 +150,7 @@ def to_port(value: Any) -> Any:
     callable (a ``retry`` body, a predicate) is passed as it is."""
     if isinstance(value, Twin):
         return value.port
-    if isinstance(value, JaxKubeObject):
+    if isinstance(value, (JaxKubeObject, PortKubeObject)):
         return port_wrap(port_fake.deep_copy_json(value.raw))
     if isinstance(value, dict):
         return {k: to_port(v) for k, v in value.items()}
@@ -135,8 +162,12 @@ def to_port(value: Any) -> Any:
 
 
 def to_jax(value: Any) -> Any:
+    """The JAX side's argument: the port's views (what the port's server
+    hands a twin cluster) as JAX views of a copy of their document."""
     if isinstance(value, Twin):
         return value.jax
+    if isinstance(value, PortKubeObject):
+        return jax_fake.wrap(jax_fake.deep_copy_json(value.raw))
     if isinstance(value, list):
         return [to_jax(v) for v in value]
     if isinstance(value, tuple):
@@ -179,6 +210,54 @@ def port_error(exc: BaseException) -> BaseException:
     return exc
 
 
+_DUAL_ERRORS: dict[tuple[type, type], type] = {}
+
+
+def dual_error(exc: BaseException) -> BaseException:
+    """A JAX error as an instance of its own class and of the port's class
+    of the same name (its attributes and arguments kept), else the error
+    itself."""
+    port_cls = getattr(port_client, type(exc).__name__, None) or \
+        getattr(port_ssa, type(exc).__name__, None)
+    if not (isinstance(port_cls, type) and issubclass(port_cls, BaseException)) or \
+            isinstance(exc, port_cls):
+        return exc
+    key = (type(exc), port_cls)
+    cls = _DUAL_ERRORS.get(key)
+    if cls is None:
+        cls = _DUAL_ERRORS.setdefault(key, type(type(exc).__name__, key,
+                                                 {"__module__": type(exc).__module__}))
+    dual = cls.__new__(cls)
+    dual.args = exc.args
+    vars(dual).update(vars(exc))
+    return dual
+
+
+class PairedDeque(deque):
+    """A twin's deque attribute (the event journal): it reads as the JAX
+    side's, and each edit (``cluster._history.popleft()``) is made to
+    both sides' deques."""
+
+    def __init__(self, iterable=(), maxlen=None, sides=()) -> None:
+        super().__init__(iterable, maxlen)
+        self.sides = sides
+
+
+def _paired_edit(name: str) -> Callable:
+    def edit(self, *args):
+        for side in self.sides:
+            getattr(side, name)(*args)
+        return getattr(deque, name)(self, *args)
+
+    edit.__name__ = name
+    return edit
+
+
+for _name in ("append", "appendleft", "clear", "extend", "extendleft", "pop", "popleft",
+              "remove", "rotate"):
+    setattr(PairedDeque, _name, _paired_edit(_name))
+
+
 # -- the twins ---------------------------------------------------------------
 class Twin:
     """A JAX object and its port counterpart, driven call by call."""
@@ -189,31 +268,43 @@ class Twin:
         object.__setattr__(self, "port", port_obj)
         object.__setattr__(self, "_label", label)
         object.__setattr__(self, "_subscribers", {})
+        object.__setattr__(self, "_overrides", {})
 
     def __getattr__(self, name: str) -> Any:
         jattr = getattr(self.jax, name)
         if not callable(jattr):
             pattr = getattr(self.port, name)
             self._world.check(f"{self._label}.{name}", norm(jattr), norm(pattr))
+            if isinstance(jattr, deque) and isinstance(pattr, deque):
+                return PairedDeque(jattr, jattr.maxlen, (jattr, pattr))
             return jattr
+        override = self._overrides.get(name)
+        if override is not None:
+            return override
         handler = getattr(self, "_twin_" + name, None)
         if handler is not None:
             return handler
-        return lambda *a, **k: self._world.call(
-            f"{self._label}.{name}", getattr(self.jax, name), getattr(self.port, name), a, k)
+        # Bound now: a replacement installed later may call this one.
+        pattr = getattr(self.port, name)
+        return lambda *a, **k: self._world.call(f"{self._label}.{name}", jattr, pattr, a, k)
 
     def __setattr__(self, name: str, value: Any) -> None:
-        # ``monkeypatch.setattr(cluster, "evict", ...)``: both sides get it;
-        # its undo hands back one of this twin's own methods, which
-        # restores both sides' class methods.
+        # ``monkeypatch.setattr(cluster, "evict", ...)`` or
+        # ``server.cluster.list_page = sabotaged``: whoever calls through
+        # the twin gets the replacement, once (it may call the twin's
+        # original, taken before, which drives both sides). Handing back
+        # one of this twin's own methods undoes it.
         if callable(value) and getattr(value, "__self__", None) is None and \
                 getattr(value, "__qualname__", "").startswith("Twin."):
-            value = None
-        for side in (self.jax, self.port):
-            if value is None and name in vars(side):
-                delattr(side, name)
-            elif value is not None:
-                setattr(side, name, value)
+            self._overrides.pop(name, None)
+        elif callable(value):
+            self._overrides[name] = value
+        else:
+            for side in (self.jax, self.port):
+                if isinstance(value, deque):
+                    setattr(side, name, deque(value, maxlen=value.maxlen))
+                else:
+                    setattr(side, name, value)
 
     def __len__(self) -> int:
         return self._world.call(f"{self._label}.__len__", self.jax.__len__,
@@ -285,7 +376,12 @@ class Twin:
             self.port.unsubscribe(port_fn)
 
     def _twin_watch(self, *args, **kwargs):
-        raise NotImplementedError("the twin cluster does not pair watch streams")
+        """The port's watch stream, its objects as JAX views: a stream's
+        frames depend on when each side's clock ticks, so the case's own
+        assertions hold the port's; ``test_torch_fake_cluster.py``
+        compares the two streams scenario by scenario."""
+        for event, obj in self.port.watch(*args, **kwargs):
+            yield event, _as_jax(obj)
 
     def _twin_wait_until(self, predicate: Callable, timeout: float) -> bool:
         # Each side waits on its own cache, outside the lock (another
@@ -309,6 +405,8 @@ class World:
         self.failures: list[str] = []
         self.clusters: list[Twin] = []
         self.others: list[Twin] = []
+        #: Raise :func:`dual_error`s (a server parity file's world).
+        self.dual_errors = False
         self._port_callables: dict[int, Callable] = {}
 
     def fail(self, message: str) -> None:
@@ -348,7 +446,7 @@ class World:
                            error_view(pexc) if pexc else None)
             if jexc is not None:
                 self.check(f"{what} error", error_view(jexc), error_view(pexc))
-                raise jexc
+                raise dual_error(jexc) if self.dual_errors else jexc
             if port_args is None:
                 self.check(f"{what} arguments after the call",
                            norm([jargs, jkwargs]), norm([pargs, pkwargs]))
@@ -404,6 +502,12 @@ def _is_plain(value: Any) -> bool:
 
 def _factory(world: World, jax_cls: type, port_cls: type, registry: list) -> Callable:
     def make(*args, **kwargs):
+        backing = args[0] if args else kwargs.get("backing")
+        if jax_cls is JAX_CACHED_CLIENT and not isinstance(backing, Twin):
+            # A cache over one HTTP client: twinned, each side would send
+            # the writes again (and hold the lock the server's twin
+            # cluster waits for). The server behind it is the twin.
+            return jax_cls(*args, **kwargs)
         with world.lock:
             jax_obj = jax_cls(*(to_jax(a) for a in args),
                               **{k: to_jax(v) for k, v in kwargs.items()})
@@ -423,6 +527,55 @@ def _function(world: World, jax_fn: Callable, port_fn: Callable) -> Callable:
 
     call.__name__ = jax_fn.__name__
     return call
+
+
+_CLOCK_LOCK = threading.Lock()
+
+
+def _compared(world: World, jax_fn: Callable, port_fn: Callable) -> Callable:
+    """A pure function of the server side, run on both sides with the
+    Table's clock pinned for the pair (an Age cell reads it); the results,
+    or the errors' class names, compared; the port's handed back."""
+    name = jax_fn.__name__
+
+    def call(*args, **kwargs):
+        now = time.time()
+        pinned = types.SimpleNamespace(time=lambda: now)
+        with _CLOCK_LOCK:
+            clocks = jax_table.time, port_table.time
+            jax_table.time = port_table.time = pinned
+            try:
+                outcomes = []
+                for fn, a, k in ((jax_fn, args, kwargs),
+                                 (port_fn, to_port(args), to_port(kwargs))):
+                    try:
+                        outcomes.append((fn(*a, **k), None))
+                    except Exception as e:  # noqa: BLE001 - compared below
+                        outcomes.append((None, e))
+            finally:
+                jax_table.time, port_table.time = clocks
+        (jres, jexc), (pres, pexc) = outcomes
+        world.check(f"{name} raised", type(jexc).__name__ if jexc else None,
+                    type(pexc).__name__ if pexc else None)
+        if pexc is not None:
+            raise pexc
+        world.check(f"{name} result", norm(jres), norm(pres))
+        return pres
+
+    call.__name__ = name
+    return call
+
+
+def _served(world: World, name: str, value: Any) -> Any:
+    """The port's counterpart of one server-side JAX name, or None."""
+    port_mod = SERVER_MODULES.get(getattr(value, "__module__", None) or "")
+    if port_mod is None or not callable(value):
+        return None
+    port_value = getattr(port_mod, getattr(value, "__name__", name), None)
+    assert port_value is not None, f"the port has no {port_mod.__name__}.{name}"
+    if port_value.__name__ in COMPARED:
+        return _compared(world, value, port_value)
+    return port_value
 
 
 def _twinned(world: World, name: str, value: Any) -> Any:
@@ -473,6 +626,14 @@ def twin_world(request, monkeypatch):
     register = _twinned(world, "register_resource", jax_resources.register_resource)
     monkeypatch.setattr(jax_kube, "register_resource", register)
     monkeypatch.setattr(jax_resources, "register_resource", register)
+    if getattr(request.module, "PORT_SERVER", False):
+        world.dual_errors = True
+        for name, value in list(vars(jax_module).items()):
+            served = _served(world, name, value)
+            if served is not None:
+                monkeypatch.setattr(jax_module, name, served)
+        monkeypatch.setattr(jax_kube, "LocalApiServer", port_apiserver.LocalApiServer)
+        monkeypatch.setattr(port_apiserver, "FakeCluster", cluster_factory)
     yield world
     try:
         if not world.failures:
@@ -482,14 +643,33 @@ def twin_world(request, monkeypatch):
     assert not world.failures, "\n".join(world.failures)
 
 
-def adopt_cases(jax_module: types.ModuleType, namespace: dict) -> None:
+def adopt_cases(jax_module: types.ModuleType, namespace: dict, *, server: bool = False,
+                only: Optional[list[str]] = None) -> None:
     """Collect every case of ``jax_module`` again in the parity file
     whose ``globals()`` is ``namespace``: its test classes, its test
     functions and the fixtures they take; ``JAX_CASES`` names the module
-    for :func:`twin_world`."""
+    for :func:`twin_world`. ``server=True`` hands the cases the port's
+    server side (``PORT_SERVER``). ``only`` names the classes and
+    functions to collect, a class's cases as ``Class.test_name``."""
     namespace["JAX_CASES"] = jax_module
+    namespace["PORT_SERVER"] = server
+    picked: dict[str, list[str]] = {}
+    for entry in only or ():
+        owner, _, case = entry.partition(".")
+        picked.setdefault(owner, []).extend([case] if case else [])
     for name, value in vars(jax_module).items():
         fixture = hasattr(value, "_fixture_function_marker")
-        if name.startswith(("Test", "test_")) or fixture:
-            assert name not in namespace, f"{name} is already defined here"
-            namespace[name] = value
+        if not (name.startswith(("Test", "test_")) or fixture):
+            continue
+        if only is not None and not fixture:
+            if name not in picked:
+                continue
+            if picked[name]:
+                # The named cases of the class, with its fixtures.
+                body = {k: v for k, v in vars(value).items()
+                        if not k.startswith("test_") or k in picked[name]}
+                assert all(case in body for case in picked[name]), f"{name}: {picked[name]}"
+                value = type(name, (), {k: v for k, v in body.items()
+                                        if k not in ("__dict__", "__weakref__")})
+        assert name not in namespace, f"{name} is already defined here"
+        namespace[name] = value

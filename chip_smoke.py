@@ -347,7 +347,8 @@ Phases, in order; any failure raises and the script exits non-zero:
     apply then delete, each printing ``processed 2 CRD(s)``
     (``{"crdutil_demo": ...}``: seconds), beside the demo children;
     ``fake_roll``, the roll phase's
-    scenario over the port's ``FakeCluster`` with 256 more GPU nodes, the
+    scenario cut to one node (``FAKE_ROLL_NODES``; ``roll`` rolls two)
+    over the port's ``FakeCluster`` with 256 more GPU nodes, the
     manager and the provider reading through ``CachedClient`` in its auto
     mode, each probe pod on the kernel cache the roll phase left for its
     node: each pod must launch both kernels as often as the gate phase
@@ -403,8 +404,26 @@ Phases, in order; any failure raises and the script exits non-zero:
     ``{"monitor_manifest": ...}`` gives each pod's seconds, build seconds,
     launches and ``.so`` files, the seconds the cache saved the restart,
     the quick report's checks, the flaps and Warning counts, and each
-    pod's requests by verb and resource.
+    pod's requests by verb and resource;
+25. chaos phase, after monitor_manifest: the port's chaos harness
+    (``testing/chaos.py``) through its command, ``python -m
+    k8s_operator_libs_tpu_torch.tools.chaos_run``, run twice as a child
+    process, both at once, at its default 64 pools: a corpus of seeds 0
+    to 2 over the wire path (``--wire --relay --replicas 2``: a
+    ``LocalApiServer``, a ``WatchRelay`` and two read replicas) and seed 0
+    with the watch hub and checkpointed drains run twice (``--hub --checkpoint
+    --verify-determinism``). Simulators only: no probe pod, no kernel
+    launch. Any violation, a seed that does not converge, a replay that
+    differs, a nonzero exit, a child that ends with ``jax``, PyYAML or
+    the JAX package in ``sys.modules``, or more than ``CHAOS_BUDGET_S``
+    seconds for the two fails the script. ``{"chaos": ...}`` gives each
+    run's schedules, violations by kind, convergence, fires, final
+    digests and seconds.
 
+After each phase a line ``{"phase": <name>, "seconds": <s>}`` gives the
+seconds since the previous one (the build and the kernel rows are
+phases too; the watch phase's span is that of the phases it wraps), and
+``{"phase": "total", ...}`` the whole script's before the kernel table.
 The last lines are the kernel table as one JSON object (each row with the
 launches of the gate, the burn-in forward, the flagship MoE flash
 forward, the probe pod, the roll's probe pods together, the requestor
@@ -606,17 +625,40 @@ RELAY_ROLLOUT = "gpu-relay-fleet"
 RELAY_IDS = ("relay-w0", "relay-w1")
 #: The in-memory phase: the demo pool's nodes (``upgrade_controller``'s
 #: ``DEMO_POOL``), the seconds a demo child may take, and the nodes
-#: ``fake_roll`` rolls, each on the kernel cache ``roll`` left for the
-#: node of ``ROLL_NODES`` in its place.
+#: ``fake_roll`` rolls (one: ``roll``'s scenario cut in depth), each on
+#: the kernel cache ``roll`` left for the node of ``ROLL_NODES`` in its place.
 DEMO_NODES = tuple(f"h100-pool-{i}" for i in range(4))
 DEMO_TIMEOUT_S = 300
-FAKE_ROLL_NODES = ("gpu-fake-0", "gpu-fake-1")
+FAKE_ROLL_NODES = ("gpu-fake-0",)
 #: The port's monitor DaemonSets (package data), the seconds a pod of
 #: them may take to what it is waited for, and the flapping pod's cadence.
 FULL_MANIFEST = "monitor-daemonset.yaml"
 QUICK_MANIFEST = "monitor-quickprobe-daemonset.yaml"
 MONITOR_POD_TIMEOUT_S = 300.0
 FLAP_INTERVAL_S = 0.2
+#: The chaos phase: the port's ``chaos_run`` runs (label, arguments) at its
+#: default 64 pools, the seconds both may take together, and the modules a
+#: run of it must not have imported.
+CHAOS_RUNS = (
+    ("corpus", ("--seeds", "3", "--wire", "--relay", "--replicas", "2", "--quiet")),
+    ("determinism", ("--seed", "0", "--hub", "--checkpoint", "--verify-determinism", "--quiet")),
+)
+CHAOS_BUDGET_S = 60.0
+CHAOS_FORBIDDEN = ("jax", "yaml", "k8s_operator_libs_tpu")
+#: Runs the command as ``__main__`` and, after it, writes the forbidden
+#: modules it finds in ``sys.modules`` as the last line of its stderr.
+CHAOS_CHILD = (
+    "import json, runpy, sys\n"
+    "sys.argv = ['chaos_run', *sys.argv[1:]]\n"
+    "code = 0\n"
+    "try:\n"
+    "    runpy.run_module('k8s_operator_libs_tpu_torch.tools.chaos_run', run_name='__main__')\n"
+    "except SystemExit as exc:\n"
+    "    code = exc.code\n"
+    f"found = sorted(m for m in {CHAOS_FORBIDDEN!r} if m in sys.modules)\n"
+    "print(json.dumps({'imported': found}), file=sys.stderr, flush=True)\n"
+    "sys.exit(code)\n"
+)
 #: The keys of the calibration line (``tools/calibration.py``).
 CALIBRATION_KEYS = {
     "platform", "n_devices", "links_exercised", "ok", "failures", "mxu_tflops",
@@ -2795,7 +2837,7 @@ def in_memory_phase(card: str, gate_launches: dict, cache_root: str) -> dict:
     as child processes, then ``roll``'s scenario over a ``FakeCluster`` of
     256 more GPU nodes, the manager and provider reading through a
     ``CachedClient`` in its auto mode, each probe pod on the kernel cache
-    ``roll`` left for its node."""
+    ``roll`` left for its node (one node: ``roll`` rolls two)."""
     from k8s_operator_libs_tpu_torch.kube.cache import CachedClient
     from k8s_operator_libs_tpu_torch.kube.fake import FakeCluster
     from k8s_operator_libs_tpu_torch.parallel.topology import local_gpu_labels
@@ -5532,6 +5574,88 @@ def monitor_manifest_phase(card: str, gate_launches: dict) -> dict:
     return info
 
 
+def chaos_child(label: str, args, timeout: float) -> dict:
+    """One run of ``python -m k8s_operator_libs_tpu_torch.tools.chaos_run``
+    (through :data:`CHAOS_CHILD`): its exit status, last line, per-seed
+    lines, the forbidden modules it imported, and its seconds."""
+    start = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", CHAOS_CHILD, *args], cwd=REPO,
+                          env=child_env(), capture_output=True, text=True, timeout=timeout)
+    seconds = time.perf_counter() - start
+    tail = proc.stdout[-2000:] + proc.stderr[-2000:]
+    err = [json.loads(ln) for ln in proc.stderr.splitlines() if ln.startswith("{")]
+    if not err or "imported" not in err[-1]:
+        raise AssertionError(f"chaos {label}: no module line: rc {proc.returncode}: {tail}")
+    lines = proc.stdout.strip().splitlines()
+    summary = json.loads(lines[-1]) if lines and lines[-1].startswith("{") else None
+    if summary is None:
+        raise AssertionError(f"chaos {label}: no summary line: rc {proc.returncode}: {tail}")
+    return {"rc": proc.returncode, "seconds": seconds, "summary": summary,
+            "seeds": [e for e in err[:-1] if "seed" in e], "imported": err[-1]["imported"]}
+
+
+def chaos_phase(card: str) -> dict:
+    """The port's chaos harness by its command on this machine's own
+    installation: a seeded corpus over the wire path (a ``LocalApiServer``,
+    a ``WatchRelay``, two read replicas) and one seed with the watch hub
+    and checkpointed drains run twice. Simulators only: no probe pod, no
+    kernel launch."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    phase_start = time.perf_counter()
+    # The two children at once: each is a process of its own, on one
+    # virtual clock of its own.
+    with ThreadPoolExecutor(max_workers=len(CHAOS_RUNS)) as pool:
+        futures = {label: pool.submit(chaos_child, label, args, CHAOS_BUDGET_S)
+                   for label, args in CHAOS_RUNS}
+        runs = {label: future.result() for label, future in futures.items()}
+    corpus, seed = runs["corpus"]["summary"], runs["determinism"]["summary"]
+    info = {
+        "corpus": {
+            "args": list(CHAOS_RUNS[0][1]),
+            "schedules_explored": corpus["schedules_explored"],
+            "invariant_violations": corpus["invariant_violations"],
+            "violations_by_kind": corpus["violations_by_kind"],
+            "not_converged": corpus["not_converged"],
+            "fault_points_fired": corpus["fault_points_fired"],
+            "seeds": {e["seed"]: {"fired": e["fired"], "final_digest": e["final_digest"],
+                                  "steps": e["steps"], "wall_s": e["wall_s"]}
+                      for e in runs["corpus"]["seeds"]},
+            "seconds": runs["corpus"]["seconds"],
+        },
+        "determinism": {
+            "args": list(CHAOS_RUNS[1][1]),
+            "schedules_explored": 1,
+            "violations_by_kind": seed["violations"],
+            "not_converged": 0 if seed["converged"] else 1,
+            "fired": seed["fired"],
+            "async_engaged": seed["async_engaged"],
+            "final_digest": seed["final_digest"],
+            "deterministic_replay": seed.get("deterministic_replay"),
+            "seconds": runs["determinism"]["seconds"],
+        },
+        "imported": {label: run["imported"] for label, run in runs.items()},
+        "rc": {label: run["rc"] for label, run in runs.items()},
+        "phase_wall_s": time.perf_counter() - phase_start,
+    }
+    print(json.dumps({"chaos": info, "card": card}), flush=True)
+    for label, run in runs.items():
+        if run["imported"]:
+            raise AssertionError(f"chaos {label}: the command imported {run['imported']}")
+        if run["rc"] != 0:
+            raise AssertionError(f"chaos {label}: exit status {run['rc']}: {run['summary']}")
+    if (corpus["schedules_explored"] != 3 or corpus["invariant_violations"]
+            or corpus["not_converged"] or corpus["failing_seeds"]
+            or sorted(info["corpus"]["seeds"]) != [0, 1, 2]):
+        raise AssertionError(f"chaos corpus: {corpus}")
+    if (seed["total_violations"] or not seed["converged"]
+            or seed.get("deterministic_replay") is not True):
+        raise AssertionError(f"chaos determinism: {seed}")
+    if info["phase_wall_s"] > CHAOS_BUDGET_S:
+        raise AssertionError(f"chaos: {info['phase_wall_s']:.1f} s, over {CHAOS_BUDGET_S} s")
+    return info
+
+
 def lease_holder(client, name: str, namespace: str) -> str:
     from k8s_operator_libs_tpu_torch.kube.client import get_or_none
 
@@ -5546,6 +5670,26 @@ def run_node(pod_name: str) -> str:
     return pod_name[len(VALIDATION_APP) + 1:]
 
 
+class PhaseClock:
+    """Prints ``{"phase": <name>, "seconds": <s>}`` as each phase of
+    :func:`main` ends (the seconds since the previous mark), and the
+    script's whole time at the end."""
+
+    def __init__(self) -> None:
+        self.start = self.last = time.perf_counter()
+        self.seconds: dict[str, float] = {}
+
+    def mark(self, name: str) -> None:
+        now = time.perf_counter()
+        self.seconds[name] = now - self.last
+        self.last = now
+        print(json.dumps({"phase": name, "seconds": self.seconds[name]}), flush=True)
+
+    def total(self) -> None:
+        print(json.dumps({"phase": "total", "seconds": time.perf_counter() - self.start}),
+              flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -5555,6 +5699,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     from k8s_operator_libs_tpu_torch.ops import _build
 
+    phases = PhaseClock()
     card = card_line()
     name = torch.cuda.get_device_name(0)
     print(f"card: {card} | torch: {name} | torch {torch.__version__} cuda "
@@ -5568,46 +5713,73 @@ def main() -> int:
         for line in _build.ptxas_report(lib).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
                 print(f"ptxas {lib}: {line.strip()}", flush=True)
+    phases.mark("build")
 
     rows = kernel_phase()
+    phases.mark("kernels")
     launches = gate_phase(
         next(r["ms"] for r in rows if r["name"] == "matmul" and r["shape"][0] == 1024)
     )
+    phases.mark("gate")
     collectives_phase(card)
+    phases.mark("collectives")
     burnin_phase()
+    phases.mark("burnin")
     burnin_launches = burnin_flash_phase()
+    phases.mark("burnin_flash")
     flagship = entry_phase(card)
+    phases.mark("entry")
     dryrun_phase(card)
+    phases.mark("dryrun")
     cli_phase()
+    phases.mark("cli")
     pod = device_class_phase(card, launches)
+    phases.mark("device_class")
     watch = WatchPhase()
     try:
         with tempfile.TemporaryDirectory(prefix="kernel-caches-") as cache_root:
             roll = roll_phase(card, launches, cache_root, DictClient())
+            phases.mark("roll")
             requestor_client = DictClient()
             watch.start_maintenance(requestor_client)
             requestor = requestor_roll_phase(card, launches, cache_root, requestor_client)
             watch.check_maintenance(requestor_client)
+            phases.mark("requestor_roll")
             checkpoint = checkpoint_roll_phase(card, launches, cache_root)
+            phases.mark("checkpoint_roll")
             client = monitor_client()
             watch.start_pool(client)
             monitor = monitor_phase(card, launches, client, watch)
             watch.check_monitor(client)
+            phases.mark("monitor")
             quarantine = quarantine_phase(card, launches, cache_root, monitor["reports"])
+            phases.mark("quarantine")
             informer = informer_roll_phase(card, launches, cache_root)
+            phases.mark("informer_roll")
             controller = controller_roll_phase(card, launches, cache_root)
+            phases.mark("controller_roll")
             fleet = fleet_roll_phase(card, launches, cache_root)
+            phases.mark("fleet_roll")
             relayed = fleet_roll_phase(card, launches, cache_root, label="relay_roll",
                                        nodes=RELAY_NODES, pools=RELAY_POOLS,
                                        rollout=RELAY_ROLLOUT, ids=RELAY_IDS, relay=True)
+            phases.mark("relay_roll")
             in_memory = in_memory_phase(card, launches, cache_root)
+            phases.mark("in_memory")
             server_roll = controller_roll_phase(card, launches, cache_root, server=True)
+            phases.mark("server_roll")
     finally:
         watched = watch.stop()
     print(json.dumps({"watch": watched, "card": card}), flush=True)
+    phases.mark("watch_stop")
     gang = gang_phase(card, launches)
+    phases.mark("gang")
     calibration_phase(card)
+    phases.mark("calibration")
     manifest = monitor_manifest_phase(card, launches)
+    phases.mark("monitor_manifest")
+    chaos_phase(card)
+    phases.mark("chaos")
 
     for row in rows:
         kernel = "matmul" if row["name"] == "matmul" else "flash_attention"
@@ -5631,6 +5803,7 @@ def main() -> int:
         row["launches_monitor_manifest"] = manifest["full_1"]["launches"][kernel]
         if kernel == "matmul":
             row["path_launches"] = launches["matmul_by_path"].get(row["path"], 0)
+    phases.total()
     print(json.dumps({"kernels": rows}), flush=True)
     print(card, flush=True)
     print(json.dumps({

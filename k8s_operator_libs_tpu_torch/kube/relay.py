@@ -224,6 +224,13 @@ class WatchRelay:
         self._started = False
         listener, self._listener = self._listener, None
         if listener is not None:
+            # Closing a socket does not wake a thread blocked in its
+            # accept(); shutting it down does, so the join below returns
+            # at once instead of waiting out its timeout.
+            try:
+                listener.shutdown(socket.SHUT_RDWR)
+            except OSError:  # pragma: no cover - not connected on some kernels
+                pass
             try:
                 listener.close()
             except OSError:  # pragma: no cover - close is best-effort

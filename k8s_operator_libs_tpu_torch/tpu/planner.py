@@ -34,7 +34,6 @@ by attribute.
 
 from __future__ import annotations
 
-import time
 from dataclasses import dataclass, field
 from typing import Optional
 
@@ -42,6 +41,7 @@ from ..api.telemetry_v1alpha1 import LINK_VERDICT_SCORES, fold_link_topology, tr
 from ..kube.objects import condition_status
 from ..policy import BudgetView, CandidateView, UpgradePolicy, for_spec, tier_of
 from ..upgrade.consts import NULL_STRING, TRUE_STRING, UpgradeState
+from ..utils.faultpoints import wall_now
 from ..utils.log import get_logger
 from .detector import TpuNodeDetector
 
@@ -103,7 +103,7 @@ class SliceAssessment:
             candidates=len(self.candidates),
             max_parallel=policy.max_parallel_upgrades,
             max_unavailable=policy.resolved_max_unavailable(self.total_slices),
-            now=time.time(),
+            now=wall_now(),
         )
 
     def budget(self, policy, plugin: Optional[UpgradePolicy] = None) -> tuple[int, int]:

@@ -1,31 +1,44 @@
 """The wall clock behind the state machine's durable clocks, and the
 named fault points.
 
-The part of the JAX package's ``utils/faultpoints.py`` that the upgrade
-managers read: :func:`wall_now` is ``time.time`` unless a clock is
-installed, and the annotation-backed deadlines (the validation timeout,
-the wait for workload pods) read it. A test installs a virtual clock, an
-object with a ``wall()`` method, so a deadline passes when the test says
-time passed; the same clock object may be installed here and in the JAX
-package to drive both machines alike.
+A copy of the JAX package's ``utils/faultpoints.py``. :func:`wall_now` is
+``time.time`` unless a clock is installed, and the annotation-backed
+deadlines (the validation timeout, the wait for workload pods, the
+checkpoint escalation) and the slice planner's budget view read it.
+:func:`mono_now` is ``time.monotonic`` unless the installed clock has a
+``now()``. A test installs a virtual clock, an object with a ``wall()``
+method, so a deadline passes when the test says time passed; the same
+clock object may be installed here and in the JAX package to drive both
+machines alike. :class:`ChaosClock` is the chaos harness's clock
+(``testing/chaos.py``): virtual monotonic and wall time, advanced only by
+the schedule's driver.
 
 A fault plan (an object with ``consult(point, ctx) -> FaultAction or
-None``) answers :func:`fault_point` at the named points the port consults:
-the write batcher's ``upgrade.write_batch_partial`` (``RAISE``), the
-informer's ``watch.deliver``, where :func:`chaos_hold` blocks a watch
-stream while the plan answers ``HOLD`` (a lagging stream: the consumer's
-view goes stale until the plan lets go), and the watch hub's
-``watchhub.deliver``, where ``OVERFLOW`` forces every live subscriber's
-buffer over its bound (``kube/watchhub.py``). With no plan installed a
-consult is one global read, and :func:`plan_active` lets a site skip the
-work of building its consult's context. :func:`mono_now` is
-``time.monotonic`` unless a clock with a ``now()`` is installed. The
-JAX module's other points serve its chaos harness, which waits for
-ROADMAP A19.
+None``) answers :func:`fault_point` at the named points the port
+consults:
+
+* ``lease.round`` in ``kube/leader.py`` (``DENY`` fails the round before
+  any Lease write);
+* ``fleet.grant_write`` in ``fleet/orchestrator.py`` and
+  ``fleet.status_write`` in ``fleet/worker.py`` (``RAISE``);
+* ``upgrade.write_batch_partial`` in ``upgrade/write_batch.py``, one
+  consult per batch entry (``RAISE``);
+* ``watch.deliver`` in ``kube/informer.py``, where :func:`chaos_hold`
+  blocks a watch stream while the plan answers ``HOLD`` (a lagging
+  stream: the consumer's view goes stale until the plan lets go);
+* ``watchhub.deliver`` in ``kube/watchhub.py``, where ``OVERFLOW`` forces
+  every live subscriber's buffer over its bound;
+* ``wire.partition`` in the chaos harness's ``PartitionedClient``
+  (``RAISE``: the participant is cut from the apiserver).
+
+With no plan installed a consult is one global read, and
+:func:`plan_active` lets a site skip the work of building its consult's
+context.
 """
 
 from __future__ import annotations
 
+import threading
 import time
 from dataclasses import dataclass
 from typing import Any, Callable, Optional, Protocol
@@ -34,7 +47,7 @@ from typing import Any, Callable, Optional, Protocol
 #: ``deny`` fails a protocol round benignly, ``raise`` raises
 #: ``FaultAction.exc`` at the site, ``hold`` blocks a delivery while the
 #: plan keeps answering it, ``overflow`` forces a watch hub's buffers over
-#: their bound. The port's sites read ``raise``, ``hold`` and ``overflow``.
+#: their bound.
 DENY = "deny"
 RAISE = "raise"
 HOLD = "hold"
@@ -52,6 +65,35 @@ class FaultAction:
 
 class WallClock(Protocol):
     def wall(self) -> float: ...
+
+
+class ChaosClock:
+    """Virtual monotonic and wall time, advanced only by the schedule's
+    driver: Lease expiry, failover probes and the durable-clock deadlines
+    move when the schedule says time passed, never because the host was
+    slow. Thread-safe: watch and pump threads read it while the driver
+    advances it."""
+
+    def __init__(self, start: float = 100.0, wall_start: float = 1_700_000_000.0) -> None:
+        self._lock = threading.Lock()
+        self._mono = float(start)
+        self._wall = float(wall_start)
+
+    def now(self) -> float:
+        """The monotonic reading (a ``LeaderElector``'s or
+        ``ShardWorker``'s ``now_fn``)."""
+        with self._lock:
+            return self._mono
+
+    def wall(self) -> float:
+        """The wall reading (``wall_fn`` and :func:`wall_now`)."""
+        with self._lock:
+            return self._wall
+
+    def advance(self, dt: float) -> None:
+        with self._lock:
+            self._mono += dt
+            self._wall += dt
 
 
 _clock: Optional[WallClock] = None
@@ -87,7 +129,8 @@ def fault_point(point: str, **ctx: Any) -> Optional[FaultAction]:
 
 
 def install_clock(clock: Optional[WallClock]) -> None:
-    """Install the clock behind :func:`wall_now`; one at a time."""
+    """Install the clock behind :func:`wall_now` and :func:`mono_now` (a
+    :class:`ChaosClock`, or any object with a ``wall()``); one at a time."""
     global _clock
     if _clock is not None and clock is not None:
         raise RuntimeError("a clock is already installed")

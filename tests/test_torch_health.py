@@ -463,11 +463,14 @@ def test_port_imports_neither_jax_nor_the_jax_package(path):
     "k8s_operator_libs_tpu_torch.kube.apiserver",
     "k8s_operator_libs_tpu_torch.kube.table",
     "k8s_operator_libs_tpu_torch.kube.jsonpath",
+    "k8s_operator_libs_tpu_torch.testing.chaos",
+    "k8s_operator_libs_tpu_torch.tools.chaos_run",
 ])
 def test_controller_runtime_imports_with_jax_and_torch_blocked(module):
     """The controller runtime, the test doubles, the command, the fleet
-    tier, the in-memory cluster and its HTTP server are control-plane code: they import neither
-    JAX, nor the JAX package, nor torch."""
+    tier, the in-memory cluster, its HTTP server and the chaos harness are
+    control-plane code: they import neither JAX, nor the JAX package, nor
+    torch."""
     code = (
         "import importlib, sys\n"
         "for name in ('jax', 'k8s_operator_libs_tpu', 'tools', 'torch'):\n"

@@ -445,3 +445,42 @@ def test_enabling_twice_keeps_one_wrapper():
     assert pool.mgr.inplace is inplace
     assert not isinstance(inplace.base, port.SliceAwareInplaceManager)
     assert type(pool.mgr).__name__ == "ClusterUpgradeStateManager"
+
+
+@pytest.mark.parametrize("hours,open_", [(22.0, False), (3.0, True)], ids=["outside", "inside"])
+def test_budget_view_stamps_the_installed_clock_as_jax_does(hours, open_):
+    """``SliceAssessment.budget_view`` stamps ``now`` from
+    ``faultpoints.wall_now``, as the JAX planner does, so that a
+    ``maintenance-window`` policy admits and budgets by the installed
+    clock: a virtual wall time 22:00 UTC is outside a 02:00-04:00 window
+    and 03:00 is inside, in both packages alike."""
+    from k8s_operator_libs_tpu.policy import CandidateView as JaxCandidate
+    from k8s_operator_libs_tpu.policy.plugins import MaintenanceWindowPolicy as JaxWindow
+    from k8s_operator_libs_tpu.utils import faultpoints as jax_faultpoints
+    from k8s_operator_libs_tpu_torch.policy import CandidateView
+    from k8s_operator_libs_tpu_torch.policy.plugins import MaintenanceWindowPolicy
+    from k8s_operator_libs_tpu_torch.utils import faultpoints
+    from k8s_operator_libs_tpu_torch.utils.intstr import IntOrString as PortIntOrString
+
+    wall = 1_700_006_400.0 + hours * 3600.0  # 1_700_006_400 is 00:00 UTC
+    seen = {}
+    for name, planner, window, candidate, fp, spec in (
+        ("jax", jax_planner, JaxWindow, JaxCandidate, jax_faultpoints, POLICY),
+        ("port", port, MaintenanceWindowPolicy, CandidateView, faultpoints,
+         PortPolicy(auto_upgrade=True, max_parallel_upgrades=1,
+                    max_unavailable=PortIntOrString(1))),
+    ):
+        assessment = planner.SliceAssessment(total_slices=4, candidates={"s0": [], "s1": []})
+        plugin = window(windows=((2.0, 4.0),))
+        fp.install_clock(fp.ChaosClock(wall_start=wall))
+        try:
+            view = assessment.budget_view(spec)
+            seen[name] = (view.now, assessment.budget(spec, plugin),
+                          plugin.admit(candidate("s0"), view).allowed)
+        finally:
+            fp.clear_clock()
+    assert seen["port"] == seen["jax"]
+    now, (available, _), admitted = seen["port"]
+    assert now == wall
+    assert admitted is open_
+    assert (available > 0) is open_

@@ -316,6 +316,21 @@ def test_component_protocol_and_idempotent_stop():
     assert on_both(case) == ["watch-relay", False, True, False]
 
 
+def test_stop_ends_the_accept_thread_at_once():
+    """The port's ``stop`` shuts its listener down, which wakes the thread
+    blocked in ``accept()``: the stop returns within a second and no
+    accept thread is left (the JAX relay's waits out its 5 s join and
+    leaves it; ROADMAP queue C, C19)."""
+    relay = WatchRelay(RestConfig(server="http://127.0.0.1:1")).start()
+    thread = relay._accept_thread
+    assert thread.is_alive()
+    time.sleep(0.2)  # let the thread block in accept()
+    start = time.monotonic()
+    relay.stop()
+    assert time.monotonic() - start < 1.0
+    assert not thread.is_alive()
+
+
 # ----------------------------------------------------------------------
 # TestRelayWatchSource
 # ----------------------------------------------------------------------

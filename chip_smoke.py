@@ -495,15 +495,16 @@ MATMUL_CASES = (
     ((4096, 4096, 4096), "wgmma"),
     ((129, 77, 257), "wmma_masked"),
 )
-#: (shape, causal): the probe's shape both ways, ``BurninConfig()`` with the
-#: flash core, a common head_dim, and a size where the bound, not launch
-#: latency, sets the goal.
+#: (shape, causal, the kernel family it must take): the probe's shape both
+#: ways, ``BurninConfig()`` with the flash core, a common head_dim, and a
+#: size where the bound, not launch latency, sets the goal. head_dim 64 and
+#: 128 take the ``wgmma`` family, 32 the ``mma_sync`` one.
 FLASH_CASES = (
-    ((1, 4, 1024, 128), True),
-    ((1, 4, 1024, 128), False),
-    ((8, 4, 128, 32), True),
-    ((1, 4, 1024, 64), True),
-    ((2, 16, 4096, 128), True),
+    ((1, 4, 1024, 128), True, "wgmma"),
+    ((1, 4, 1024, 128), False, "wgmma"),
+    ((8, 4, 128, 32), True, "mma_sync"),
+    ((1, 4, 1024, 64), True, "wgmma"),
+    ((2, 16, 4096, 128), True, "wgmma"),
 )
 CLI_TIMEOUT_S = 600
 #: Seconds a probe pod's payload may take to write its ready file.
@@ -724,7 +725,9 @@ def kernel_phase() -> list[dict]:
     from k8s_operator_libs_tpu_torch.ops.flash_attention import (
         flash_attention,
         flash_attention_reference,
+        flash_path,
         split_plan,
+        wgmma_plan,
     )
     from k8s_operator_libs_tpu_torch.ops.matmul import (
         matmul,
@@ -769,12 +772,15 @@ def kernel_phase() -> list[dict]:
             "bound_ms": bound_ms,
             "bound_by": bound_by,
         })
-    for shape, causal in FLASH_CASES:
+    for shape, causal, family in FLASH_CASES:
         b_, h, s, d = shape
         q, k, v = (
             torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
             for _ in range(3)
         )
+        path = flash_path(q, k, v, causal)
+        if not path.startswith(family):
+            raise AssertionError(f"flash attention {shape} took {path}, not {family}")
         got = flash_attention(q, k, v, causal=causal).float()
         want = flash_attention_reference(q, k, v, causal=causal).float()
         torch.cuda.synchronize()
@@ -789,7 +795,10 @@ def kernel_phase() -> list[dict]:
         pairs = s * (s + 1) // 2 if causal else s * s
         flops = 4.0 * d * pairs * b_ * h
         bound_ms, bound_by = bound(flops, 4 * b_ * h * s * d * 2)
-        split, blocks = split_plan(b_ * h, s, causal, sms)
+        if family == "wgmma":
+            split, blocks, _ = wgmma_plan(b_ * h, s, d, causal, sms)
+        else:
+            split, blocks = split_plan(b_ * h, s, causal, sms)
         reps = max(20, min(200, int(2e11 / flops)))
         rows.append({
             "name": "flash_attention_causal" if causal else "flash_attention",
@@ -797,6 +806,7 @@ def kernel_phase() -> list[dict]:
             "source": "k8s_operator_libs_tpu_torch/ops/csrc/flash_attention.cu",
             "replaces": "k8s_operator_libs_tpu/ops/flash_attention.py:44",
             "shape": list(shape),
+            "path": path,
             "split": split,
             "blocks": blocks,
             "max_abs_err": err,

@@ -70,6 +70,9 @@ SIGNATURES: dict[str, dict[str, list]] = {
         "k2_flash_attention_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
         # (batch_heads, seq, head_dim, split, *f32 elements of scratch)
         "k2_scratch_elems": [_I, _I, _I, _I, _OUT_LL],
+        # the same two for the wgmma family
+        "k2_flash_attention_wgmma_bf16": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+        "k2_wgmma_scratch_elems": [_I, _I, _I, _I, _OUT_LL],
     },
 }
 

@@ -5,7 +5,8 @@
 ``DIR`` is the root of another checkout of the repo, for example the
 parent commit unpacked with ``git archive``. Each checkout's kernels are
 built from its own sources and called through its own wrappers, on the same
-inputs, at the kernel rows of ``chip_smoke.py`` that both versions take.
+inputs, at the kernel rows of ``chip_smoke.py`` that both versions take;
+each flash row names the path this checkout's kernel takes.
 Every row runs other, this, this, other, and each side's time is the mean
 of its two runs: ``ms`` from a CUDA graph of back-to-back calls (the card's
 time), ``call_ms`` from the same calls made one by one from Python (the
@@ -27,12 +28,14 @@ from pathlib import Path
 import torch
 
 MATMUL_SHAPES = ((1024, 1024, 1024), (2048, 2048, 2048), (4096, 4096, 4096), (129, 77, 257))
+#: ``chip_smoke.py``'s rows: (shape, causal, the kernel family this
+#: checkout must take).
 FLASH_CASES = (
-    ((1, 4, 1024, 128), True),
-    ((1, 4, 1024, 128), False),
-    ((8, 4, 128, 32), True),
-    ((1, 4, 1024, 64), True),
-    ((2, 16, 4096, 128), True),
+    ((1, 4, 1024, 128), True, "wgmma"),
+    ((1, 4, 1024, 128), False, "wgmma"),
+    ((8, 4, 128, 32), True, "mma_sync"),
+    ((1, 4, 1024, 64), True, "wgmma"),
+    ((2, 16, 4096, 128), True, "wgmma"),
 )
 
 
@@ -117,6 +120,7 @@ def main(argv: list[str] | None = None) -> int:
     this_root = Path(__file__).resolve().parents[2]
     this_mm, this_fa = _load_port(this_root, "this_port")
     other_mm, other_fa = _load_port(args.other.resolve(), "other_port")
+    this_path = importlib.import_module("this_port.ops.flash_attention").flash_path
     print(subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         check=True, capture_output=True, text=True, timeout=60,
@@ -130,14 +134,17 @@ def main(argv: list[str] | None = None) -> int:
                        {"other": lambda: other_mm(a, b), "this": lambda: this_mm(a, b)},
                        reps)
         print(json.dumps(row), flush=True)
-    for shape, causal in FLASH_CASES:
+    for shape, causal, family in FLASH_CASES:
         q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
                    for _ in range(3))
         b_, h, s, d = shape
         pairs = s * (s + 1) // 2 if causal else s * s
         reps = max(20, min(200, int(2e11 / (4.0 * d * pairs * b_ * h))))
+        path = this_path(q, k, v, causal)
+        if not path.startswith(family):
+            raise AssertionError(f"flash attention {shape} took {path}, not {family}")
         row = _compare(
-            {"kernel": "flash_attention", "shape": list(shape), "causal": causal},
+            {"kernel": "flash_attention", "shape": list(shape), "causal": causal, "path": path},
             {"other": lambda: other_fa(q, k, v, causal=causal),
              "this": lambda: this_fa(q, k, v, causal=causal)},
             reps,

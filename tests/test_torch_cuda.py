@@ -24,6 +24,7 @@ report of a monitor cycle that ran the card's payload. The payload publishes
 its report to the port's own API server (``-k publishes``).
 """
 
+import ctypes
 import importlib.util
 import json
 import math
@@ -38,10 +39,13 @@ from k8s_operator_libs_tpu_torch import entry as port_entry
 from k8s_operator_libs_tpu_torch.models import burnin
 from k8s_operator_libs_tpu_torch.ops import collectives
 from k8s_operator_libs_tpu_torch.ops import matmul as matmul_mod
+from k8s_operator_libs_tpu_torch.ops import _build
 from k8s_operator_libs_tpu_torch.ops.flash_attention import (
     flash_attention,
     flash_attention_reference,
+    flash_path,
     split_plan,
+    wgmma_plan,
 )
 from k8s_operator_libs_tpu_torch.ops.matmul import (
     matmul,
@@ -164,6 +168,122 @@ def test_flash_rejects_what_the_kernel_does_not_take(cuda):
     g = torch.zeros(1, 1, 64, 128, device=cuda, dtype=torch.bfloat16, requires_grad=True)
     with pytest.raises(NotImplementedError):
         flash_attention(g, g, g)
+
+
+def _flash_ok(got, q, k, v, causal):
+    want = flash_attention_reference(q, k, v, causal=causal).float()
+    torch.cuda.synchronize()
+    excess = (got.float() - want).abs() - (FLASH_ATOL + FLASH_RTOL * want.abs())
+    return float(excess.max()) <= 0
+
+
+@pytest.mark.parametrize(
+    "shape,split",
+    [
+        ((1, 1, 1, 0), False),
+        ((2, 3, 77, 0), False),
+        ((1, 2, 100, 0), False),
+        ((1, 2, 128, 0), False),
+        ((2, 2, 129, 0), False),
+        ((1, 2, 1000, 0), True),
+        ((1, 4, 1024, 0), True),
+        ((8, 4, 1024, 0), False),
+        ((1, 2, 4096, 0), True),
+        ((2, 16, 4096, 0), False),
+    ],
+)
+@pytest.mark.parametrize("head_dim", [64, 128])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_family_matches_plain_version(cuda, shape, split, head_dim, causal):
+    """The wgmma family through the wrapper: ragged and whole tiles, one
+    row to 4096, one head to 32, the plan splitting the K/V ranges or not."""
+    b, h, s, _ = shape
+    shape = (b, h, s, head_dim)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert (wgmma_plan(b * h, s, head_dim, causal, sms)[0] > 0) == split
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v = (_randn(shape, gen, cuda) for _ in range(3))
+    assert flash_path(q, k, v, causal) == ("wgmma_split" if split else "wgmma")
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal)
+    assert flash_attention.launches == before + 1
+    assert _flash_ok(got, q, k, v, causal)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 1024, 128), (1, 2, 1000, 64), (3, 1, 700, 128)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_family_at_every_split(cuda, shape, causal):
+    """The C entry at splits the plan would not pick, down to one tile a
+    chunk and up to one chunk a range: each agrees with the plain version."""
+    b, h, s, d = shape
+    gen = torch.Generator(device=cuda).manual_seed(sum(shape))
+    q, k, v = (_randn(shape, gen, cuda) for _ in range(3))
+    lib = _build.load("flash_attention")
+    for split in (0, 1, 2, 3, 8):
+        elems = ctypes.c_longlong()
+        _build.check(lib, lib.k2_wgmma_scratch_elems(b * h, s, d, split, ctypes.byref(elems)),
+                     "scratch")
+        scratch = torch.empty(max(1, elems.value), dtype=torch.float32, device=cuda)
+        out = torch.empty_like(q)
+        rc = lib.k2_flash_attention_wgmma_bf16(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), scratch.data_ptr(),
+            b * h, s, d, int(causal), split, _build.stream_handle(q))
+        _build.check(lib, rc, "wgmma flash launch")
+        assert _flash_ok(out, q, k, v, causal), split
+
+
+@pytest.mark.parametrize("head_dim", [32, 64, 128])
+def test_misaligned_view_takes_the_mma_sync_family(cuda, head_dim):
+    """q two bytes past a 16-byte boundary (storage_offset 1, not a multiple
+    of 8 elements): TMA cannot describe it, so the call takes the first
+    family, whose ``cp.async`` cannot read it either: the wrapper hands it
+    an aligned copy, and the result matches."""
+    shape = (1, 2, 300, head_dim)
+    gen = torch.Generator(device=cuda).manual_seed(head_dim)
+    flat = _randn((math.prod(shape) + 1,), gen, cuda)
+    q = flat[1:].view(shape)
+    k, v = (_randn(shape, gen, cuda) for _ in range(2))
+    assert q.is_contiguous() and q.storage_offset() % 8 != 0
+    assert flash_path(q, k, v, True).startswith("mma_sync")
+    assert flash_path(k, k, v, True).startswith("wgmma" if head_dim >= 64 else "mma_sync")
+    got = flash_attention(q, k, v, causal=True)
+    assert _flash_ok(got, q, k, v, True)
+
+
+@pytest.mark.parametrize("shape", [(1, 4, 1024, 128), (2, 16, 512, 64), (8, 4, 128, 32)])
+def test_flash_graph_replay_equals_eager(cuda, shape):
+    """A call captured into a CUDA graph (tensor maps and all) replays to the
+    eager call's output, bit for bit, and the capture counts no launch."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q, k, v = (_randn(shape, gen, cuda) for _ in range(3))
+    eager = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = flash_attention.launches
+    with torch.cuda.graph(graph):
+        captured = flash_attention(q, k, v, causal=True)
+    assert flash_attention.launches == before
+    captured.zero_()
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, eager)
+
+
+@pytest.mark.parametrize(
+    "bh,seq,head_dim",
+    [(4, 1024, 128), (4, 1024, 64), (2, 1000, 128), (1, 4096, 64), (32, 4096, 128), (1, 1, 64)],
+)
+@pytest.mark.parametrize("causal", [True, False])
+def test_wgmma_scratch_is_the_plans(cuda, bh, seq, head_dim, causal):
+    """``k2_wgmma_scratch_elems`` at the plan's split asks for what
+    ``wgmma_plan`` says."""
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    split, _, scratch = wgmma_plan(bh, seq, head_dim, causal, sms)
+    lib = _build.load("flash_attention")
+    elems = ctypes.c_longlong()
+    _build.check(lib, lib.k2_wgmma_scratch_elems(bh, seq, head_dim, split, ctypes.byref(elems)),
+                 "scratch")
+    assert elems.value == scratch
 
 
 def test_burnin_step_on_card_matches_cpu(cuda):

@@ -428,12 +428,14 @@ def test_chip_smoke_server_roll_on_the_cpu(monkeypatch, tmp_path, capsys):
     (printed,) = [json.loads(line)["server_roll"] for line in out
                   if line.startswith('{"server_roll"')]
     assert printed == result
-    assert result["return_code"] == 0 and result["lease_holder_after"] == ""
+    assert result["return_code"] == 0 and result["lease_holder_after"] == "", (
+        result["return_code"], result["lease_holder_after"], result["exit_s"])
     server = result["server"]
     assert server["continue_tokens"] >= 2
-    assert server["full_node_lists_after_kill"] == 0 and server["node_watches_after_kill"] >= 1
-    assert all(flow["shed_429_total"] == 0 for flow in server["apf"].values())
-    assert server["loop_stall"]["stalls_over_threshold"] == 0
+    assert server["full_node_lists_after_kill"] == 0 and server["node_watches_after_kill"] >= 1, (
+        server["requests_after_kill"])
+    assert all(flow["shed_429_total"] == 0 for flow in server["apf"].values()), server["apf"]
+    assert server["loop_stall"]["stalls_over_threshold"] == 0, server["loop_stall"]
     assert result["table"]["rows"] == 2
     assert server["server_requests_joined_to_command"] >= 1
     assert result["pod_launches"] == {k: 2 * v for k, v in launches.items()}

@@ -21,6 +21,7 @@ import functools
 
 import torch
 
+from ..utils import tracing
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.log import get_logger
 from . import _build
@@ -243,19 +244,24 @@ def flash_attention_probe(
 ) -> ProbeReport:
     """Numerics-checked causal flash attention throughput on one device
     (default ``cuda``). A crash inside the probe becomes a failed report;
-    asking for ``cuda`` without a card raises."""
+    asking for ``cuda`` without a card raises. The operands' making and
+    copy to the device are a ``flash.inputs`` span, the host oracle a
+    ``flash.oracle`` span and the checked call a ``flash.check`` span
+    (category ``probe``)."""
     dev = resolve_device(device)
     try:
-        q_host, k_host, v_host = host_qkv((batch, heads, seq, head_dim), seed=2)
-        q, k, v = (
-            torch.from_numpy(t).to(dtype).to(dev) for t in (q_host, k_host, v_host)
-        )
-        expected = reference_attention(
-            quantize(q_host, dtype),
-            quantize(k_host, dtype),
-            quantize(v_host, dtype),
-            causal=True,
-        )
+        with tracing.span("flash.inputs", "probe"):
+            q_host, k_host, v_host = host_qkv((batch, heads, seq, head_dim), seed=2)
+            q, k, v = (
+                torch.from_numpy(t).to(dtype).to(dev) for t in (q_host, k_host, v_host)
+            )
+        with tracing.span("flash.oracle", "probe"):
+            expected = reference_attention(
+                quantize(q_host, dtype),
+                quantize(k_host, dtype),
+                quantize(v_host, dtype),
+                causal=True,
+            )
         return run_checked_probe(
             "flash attention",
             lambda: flash_attention(q, k, v),

@@ -21,6 +21,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ..utils.device import DeviceLike, resolve_device, synchronize
 from ..utils.log import get_logger
 from . import _build
@@ -250,7 +251,9 @@ def mxu_probe(
     size: the kernel masks ragged edges); ``False`` runs the plain product.
     ``chain`` sets how many dependent matmuls each timed run holds (0 =
     auto: FLOP-budgeted on the card, 1 on the CPU). A crash inside the probe
-    becomes a failed report; asking for ``cuda`` without a card raises.
+    becomes a failed report; asking for ``cuda`` without a card raises. The
+    checked product, its copy to the host and the compare are a
+    ``mxu.check`` span (category ``probe``).
     """
     dev = resolve_device(device)
     try:
@@ -296,9 +299,10 @@ def _mxu_probe_on_default_device(
     product = matmul if use_pallas else matmul_reference
 
     # The numerics check runs on every probe — it is the probe.
-    out = product(a_lp, b_lp)
-    synchronize(device)
-    max_err = float(np.max(np.abs(out.cpu().numpy() - reference)))
+    with tracing.span("mxu.check", "probe"):
+        out = product(a_lp, b_lp)
+        synchronize(device)
+        max_err = float(np.max(np.abs(out.cpu().numpy() - reference)))
     # bf16 products are exact in f32, so device and host differ only in
     # f32 summation order; the tolerance covers that ordering noise.
     tol = 1e-2 * size**0.5

@@ -17,6 +17,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..utils import tracing
 from ..utils.device import synchronize
 from ..utils.log import get_logger
 
@@ -55,6 +56,29 @@ def shard_max_abs_err(
     return float(np.max(np.abs(got - expected[index])))
 
 
+def _card_seconds(run: Callable[[], torch.Tensor], device: torch.device) -> float:
+    """Seconds of one ``run()`` on the card ``device``: between two CUDA
+    events on its current stream, recorded before the call and after it,
+    then waited for. The start event fires at once on an idle stream, so
+    the span holds the host's enqueue of the call as well as the card's
+    work."""
+    stream = torch.cuda.current_stream(device)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record(stream)
+    run()
+    end.record(stream)
+    synchronize(device)
+    return start.elapsed_time(end) / 1e3
+
+
+def _host_seconds(run: Callable[[], torch.Tensor], device: torch.device) -> float:
+    """Seconds of one ``run()`` on the host clock, its output waited for."""
+    start = time.perf_counter()
+    synchronize(run().device)
+    return time.perf_counter() - start
+
+
 def run_checked_probe(
     name: str,
     run: Callable[[], torch.Tensor],
@@ -67,11 +91,15 @@ def run_checked_probe(
     axis: str = "",
 ) -> ProbeReport:
     """Execute, verify against ``expected[index]``, then time 3 further
-    runs. With ``mesh`` (inside a rank) the error and each sample are the
-    maximum over the ranks of ``axis``."""
-    out = run()
-    synchronize(out.device)
-    max_err = shard_max_abs_err(out, expected, index)
+    runs. The checked run, its copy to the host and the compare are a
+    ``<first word of name>.check`` span (category ``probe``). With
+    ``mesh`` (inside a rank) the error and each run's host-clock seconds
+    are the maximum over the ranks of ``axis``; without, on a card, each
+    run is timed on the card's clock (:func:`_card_seconds`)."""
+    with tracing.span(f"{name.split()[0]}.check", "probe"):
+        out = run()
+        synchronize(out.device)
+        max_err = shard_max_abs_err(out, expected, index)
     if mesh is not None:
         from ..parallel.mesh import max_over
 
@@ -82,11 +110,8 @@ def run_checked_probe(
             max_abs_err=max_err,
             error=f"numerics mismatch: max_abs_err={max_err:.4f} > {tol}",
         )
-    samples = []
-    for _ in range(3):
-        start = time.perf_counter()
-        synchronize(run().device)
-        samples.append(time.perf_counter() - start)
+    timed = _card_seconds if mesh is None and out.device.type == "cuda" else _host_seconds
+    samples = [timed(run, out.device) for _ in range(3)]
     if mesh is not None:
         samples = max_over(mesh, axis, samples)
     elapsed = float(np.median(samples))

@@ -57,6 +57,7 @@ from ..ops.matmul import MxuReport, matmul, mxu_probe
 from ..ops.ring_attention import RingAttentionReport, ring_attention_probe
 from ..ops.ulysses import UlyssesReport, ulysses_probe
 from ..parallel.mesh import World, available_devices
+from ..utils import tracing
 from ..utils.device import DeviceLike, resolve_device
 from ..utils.log import get_logger
 
@@ -354,6 +355,17 @@ class IciHealthGate:
             self._world = None
 
     def run(self) -> HealthReport:
+        """One battery, as a ``gate.run`` span (category ``probe``) with
+        its verdict in ``ok`` and the world's ranks in ``world_size``; each
+        probe below it is a ``gate.<probe>`` span."""
+        with tracing.span("gate.run", "probe") as span:
+            report = self._battery()
+            if span is not None:
+                span.attrs["ok"] = report.ok
+                span.attrs["world_size"] = self._world.size
+            return report
+
+    def _battery(self) -> HealthReport:
         start = time.perf_counter()
         failures: list[str] = []
         devices = self.world_devices()
@@ -363,7 +375,8 @@ class IciHealthGate:
         world = self._get_world(devices)
         n = world.size
 
-        collectives = run_ici_probes(world, "x", payload_mb=self.payload_mb)
+        with tracing.span("gate.collectives", "probe"):
+            collectives = run_ici_probes(world, "x", payload_mb=self.payload_mb)
         for c in collectives:
             if not c.ok:
                 failures.append(f"{c.op}: {c.error}")
@@ -403,11 +416,12 @@ class IciHealthGate:
                         f"link {hop.src}->{hop.dst} ({hop.peer}): {hop.error}"
                     )
 
-        mxu = mxu_probe(
-            size=self.matmul_size,
-            use_pallas=self.use_pallas_matmul,
-            device=single_device,
-        )
+        with tracing.span("gate.mxu", "probe"):
+            mxu = mxu_probe(
+                size=self.matmul_size,
+                use_pallas=self.use_pallas_matmul,
+                device=single_device,
+            )
         if not mxu.ok:
             failures.append(f"mxu: {mxu.error}")
         elif self.min_mxu_tflops > 0 and mxu.tflops < self.min_mxu_tflops:
@@ -418,7 +432,8 @@ class IciHealthGate:
 
         burnin_ok: Optional[bool] = None
         if self.run_burnin:
-            burnin_ok = self._burnin(world)
+            with tracing.span("gate.burnin", "probe"):
+                burnin_ok = self._burnin(world)
             if not burnin_ok:
                 failures.append("burn-in train step failed")
 
@@ -444,7 +459,8 @@ class IciHealthGate:
 
         flash: Optional[FlashAttentionReport] = None
         if self.run_flash_attention:
-            flash = flash_attention_probe(device=single_device)
+            with tracing.span("gate.flash", "probe"):
+                flash = flash_attention_probe(device=single_device)
             if not flash.ok:
                 failures.append(f"flash attention: {flash.error}")
 

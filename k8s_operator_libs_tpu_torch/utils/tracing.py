@@ -37,7 +37,10 @@ leader election's ``lease.round`` (``kube/leader.py``) and the fleet's
 ``fleet.report_done`` (``fleet/``). The server side's ``server.request``
 (joined to the client's trace by its ``traceparent``) and ``apf.queue``
 (its priority-and-fairness queue wait) are the in-memory API server's
-(``kube/apiserver.py``).
+(``kube/apiserver.py``). The health gate's battery is ``gate.run``, its
+probes ``gate.collectives``, ``gate.mxu``, ``gate.burnin`` and
+``gate.flash`` below it, and inside those ``mxu.check``, ``flash.inputs``,
+``flash.oracle`` and ``flash.check`` (``tpu/health.py``, ``ops/``).
 """
 
 from __future__ import annotations
@@ -45,7 +48,7 @@ from __future__ import annotations
 import json
 import threading
 from collections import deque
-from typing import Any, Iterable, Optional
+from typing import Any, Optional
 
 from .faultpoints import wall_now
 
@@ -553,10 +556,6 @@ def traceparent() -> Optional[str]:
     return f"00-{span_.trace_id}-{span_.span_id}-01"
 
 
-def format_traceparent(trace_id: str, span_id: str) -> str:
-    return f"00-{trace_id}-{span_id}-01"
-
-
 def parse_traceparent(header: str) -> Optional[tuple[str, str]]:
     """(trace_id, span_id) from a traceparent header; None on anything
     malformed — a bad header must never fail a request."""
@@ -586,13 +585,3 @@ def record_write_origin(rv: Any) -> None:
     if span_ is None:
         return
     t.record_write_origin(str(rv), span_.trace_id, span_.span_id)
-
-
-def iter_jsonl(path: str) -> Iterable[dict[str, Any]]:
-    """Yield span records from an exported JSONL file (tools/trace_view
-    and tests read through this)."""
-    with open(path, encoding="utf-8") as f:
-        for line in f:
-            line = line.strip()
-            if line:
-                yield json.loads(line)

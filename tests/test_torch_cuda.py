@@ -42,6 +42,7 @@ from k8s_operator_libs_tpu_torch.ops import matmul as matmul_mod
 from k8s_operator_libs_tpu_torch.ops import _build
 from k8s_operator_libs_tpu_torch.ops.flash_attention import (
     flash_attention,
+    flash_attention_probe,
     flash_attention_reference,
     flash_path,
     split_plan,
@@ -391,6 +392,20 @@ def test_gate_on_card_launches_both_kernels(cuda):
     assert report.ok, report.failures
     assert matmul.launches == 1 + 4 * matmul_mod._auto_chain(256, True)
     assert flash_attention.launches == 4
+
+
+def test_flash_probe_rate_is_timed_on_the_card_clock(cuda, monkeypatch):
+    from k8s_operator_libs_tpu_torch.ops import probe_harness
+
+    class NoHostClock:
+        @staticmethod
+        def perf_counter():
+            raise AssertionError("the probe timed a call on the card with the host clock")
+
+    monkeypatch.setattr(probe_harness, "time", NoHostClock)
+    report = flash_attention_probe(device=cuda)
+    assert report.ok, report.error
+    assert 0 < report.elapsed_s < 1 and report.tokens_per_s == 1024 / report.elapsed_s
 
 
 def test_calibration_line_on_the_cards(cuda):

@@ -255,7 +255,7 @@ def test_traceparent_roundtrip_and_malformed(tracer):
         header = tracing.traceparent()
     trace_id, span_id = tracing.parse_traceparent(header)
     assert len(trace_id) == 32 and len(span_id) == 16
-    assert tracing.format_traceparent(trace_id, span_id) == header
+    assert f"00-{trace_id}-{span_id}-01" == header
     for bad in ("", "junk", "00-short-x-01", "01-" + "a" * 32 + "-" + "b" * 16 + "-01",
                 "00-" + "g" * 32 + "-" + "b" * 16 + "-01"):
         assert tracing.parse_traceparent(bad) is None
@@ -1052,7 +1052,7 @@ def test_port_export_reads_alike_in_both_tools(tmp_path, clock, tap):
     path = str(tmp_path / "port.jsonl")
     assert tap.port.export_jsonl(path) == len(tap.port.records())
     spans = trace_view.load_spans(path)
-    assert spans == jax_trace_view.load_spans(path) == list(tracing.iter_jsonl(path))
+    assert spans == jax_trace_view.load_spans(path)
     assert trace_view.attribution(spans) == jax_trace_view.attribution(spans)
     for node in ("gpu-00", "gpu-01", "gpu-02", "gpu-03"):
         journey = trace_view.node_journey(spans, node)

@@ -408,6 +408,29 @@ def test_flash_probe_rate_is_timed_on_the_card_clock(cuda, monkeypatch):
     assert 0 < report.elapsed_s < 1 and report.tokens_per_s == 1024 / report.elapsed_s
 
 
+def test_flash_probe_takes_its_second_oracle_from_the_cache(cuda, monkeypatch):
+    import numpy as np
+
+    from k8s_operator_libs_tpu_torch.ops import flash_attention as flash_mod
+    from k8s_operator_libs_tpu_torch.ops.probe_harness import host_qkv, quantize
+    from k8s_operator_libs_tpu_torch.ops.ring_attention import reference_attention
+
+    cache = {}
+    monkeypatch.setattr(flash_mod, "_ORACLE_CACHE", cache)
+    first = flash_attention_probe(device=cuda)
+    hits = flash_attention_probe.oracle_hits
+    second = flash_attention_probe(device=cuda)
+    assert first.ok, first.error
+    assert second.ok, second.error
+    assert flash_attention_probe.oracle_hits == hits + 1
+    (entry,) = cache.values()
+    fresh = reference_attention(
+        *(quantize(t, torch.bfloat16) for t in host_qkv((1, 4, 1024, 128), seed=2)),
+        causal=True,
+    )
+    assert np.array_equal(entry.expected, fresh)
+
+
 def test_calibration_line_on_the_cards(cuda):
     from k8s_operator_libs_tpu_torch.tools.calibration import run_calibration
 

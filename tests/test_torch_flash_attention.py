@@ -163,6 +163,116 @@ def test_probe_without_a_card_raises(monkeypatch):
         port.flash_attention_probe(seq=16, head_dim=8)
 
 
+#: A small probe on the CPU, where flash_attention takes the plain version.
+SMALL = dict(batch=1, heads=2, seq=64, head_dim=16, device="cpu")
+
+
+@pytest.fixture
+def oracle_cache(monkeypatch):
+    """An empty oracle cache for this test alone."""
+    cache = {}
+    monkeypatch.setattr(port, "_ORACLE_CACHE", cache)
+    return cache
+
+
+@pytest.fixture
+def oracle_calls(monkeypatch):
+    """Every reference_attention call the probe makes, by its operands."""
+    calls = []
+
+    def spy(q, k, v, causal=True):
+        calls.append((q, k, v))
+        return reference_attention(q, k, v, causal=causal)
+
+    monkeypatch.setattr(port, "reference_attention", spy)
+    return calls
+
+
+def _drawn(monkeypatch, operands):
+    """Make the probe draw ``operands()`` in place of its seeded q, k, v."""
+    monkeypatch.setattr(port, "host_qkv", lambda shape, seed: operands())
+
+
+def _fresh_oracle(operands, dtype=torch.bfloat16):
+    return reference_attention(*(quantize(t, dtype) for t in operands), causal=True)
+
+
+def test_probe_reuses_its_oracle_for_the_same_operands(oracle_cache, oracle_calls):
+    first = port.flash_attention_probe(**SMALL)
+    hits, misses = port.flash_attention_probe.oracle_hits, port.flash_attention_probe.oracle_misses
+    second = port.flash_attention_probe(**SMALL)
+    assert first.ok and second.ok, (first.error, second.error)
+    assert len(oracle_calls) == 1
+    assert second.max_abs_err == first.max_abs_err
+    assert port.flash_attention_probe.oracle_hits == hits + 1
+    assert port.flash_attention_probe.oracle_misses == misses
+    (entry,) = oracle_cache.values()
+    np.testing.assert_array_equal(entry.expected, _fresh_oracle(host_qkv((1, 2, 64, 16), 2)))
+
+
+def test_probe_rebuilds_its_oracle_for_other_operands(oracle_cache, oracle_calls, monkeypatch):
+    shape = (1, 2, 64, 16)
+    assert port.flash_attention_probe(**SMALL).ok
+    other = host_qkv(shape, seed=3)
+    _drawn(monkeypatch, lambda: other)
+    misses = port.flash_attention_probe.oracle_misses
+    report = port.flash_attention_probe(**SMALL)
+    assert report.ok, report.error
+    assert len(oracle_calls) == 2
+    assert port.flash_attention_probe.oracle_misses == misses + 1
+    (entry,) = oracle_cache.values()
+    np.testing.assert_array_equal(entry.expected, _fresh_oracle(other))
+    for card, host in zip(entry.card, other):
+        assert torch.equal(card, torch.from_numpy(host).to(torch.bfloat16))
+
+
+def test_probe_misses_after_the_callers_arrays_change_in_place(
+    oracle_cache, oracle_calls, monkeypatch
+):
+    operands = host_qkv((1, 2, 64, 16), seed=5)
+    _drawn(monkeypatch, lambda: operands)
+    assert port.flash_attention_probe(**SMALL).ok
+    operands[1][0, 1, 7, 3] += 4.0
+    misses = port.flash_attention_probe.oracle_misses
+    report = port.flash_attention_probe(**SMALL)
+    assert report.ok, report.error
+    assert len(oracle_calls) == 2
+    assert port.flash_attention_probe.oracle_misses == misses + 1
+    (entry,) = oracle_cache.values()
+    np.testing.assert_array_equal(entry.host[1], operands[1])
+    np.testing.assert_array_equal(entry.expected, _fresh_oracle(operands))
+
+
+def test_failed_probe_evicts_its_oracle(oracle_cache, oracle_calls, monkeypatch):
+    assert port.flash_attention_probe(**SMALL).ok
+    assert len(oracle_cache) == 1
+    right = port.flash_attention
+    monkeypatch.setattr(port, "flash_attention", lambda q, k, v, causal=True: right(q, k, v) + 1)
+    wrong = port.flash_attention_probe(**SMALL)
+    assert not wrong.ok and "numerics mismatch" in wrong.error
+    assert oracle_cache == {}
+    monkeypatch.setattr(port, "flash_attention", right)
+    misses = port.flash_attention_probe.oracle_misses
+    report = port.flash_attention_probe(**SMALL)
+    assert report.ok, report.error
+    assert port.flash_attention_probe.oracle_misses == misses + 1
+    assert len(oracle_calls) == 2
+
+
+@pytest.mark.parametrize(
+    "other", [dict(dtype=torch.float32), dict(seq=32)], ids=["dtype", "shape"]
+)
+def test_probe_keeps_an_oracle_per_dtype_and_shape(oracle_cache, oracle_calls, other):
+    assert port.flash_attention_probe(**SMALL).ok
+    assert port.flash_attention_probe(**{**SMALL, **other}).ok
+    assert len(oracle_cache) == 2 and len(oracle_calls) == 2
+    hits = port.flash_attention_probe.oracle_hits
+    assert port.flash_attention_probe(**SMALL).ok
+    assert port.flash_attention_probe(**{**SMALL, **other}).ok
+    assert port.flash_attention_probe.oracle_hits == hits + 2
+    assert len(oracle_calls) == 2
+
+
 def test_host_qkv_and_quantize_match_jax():
     ours = host_qkv((2, 3, 5), seed=11)
     theirs = jax_host_qkv((2, 3, 5), seed=11)

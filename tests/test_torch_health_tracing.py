@@ -11,6 +11,7 @@ import torch
 
 from k8s_operator_libs_tpu_torch.kube import FakeCluster
 from k8s_operator_libs_tpu_torch.kube.objects import Node
+from k8s_operator_libs_tpu_torch.ops.flash_attention import flash_attention_probe
 from k8s_operator_libs_tpu_torch.tpu import health
 from k8s_operator_libs_tpu_torch.upgrade import DeviceClass, UpgradeKeys, ValidationManager
 from k8s_operator_libs_tpu_torch.upgrade.state_provider import NodeUpgradeStateProvider
@@ -77,6 +78,23 @@ def test_a_traced_battery_emits_the_probe_tree(gate, traced):
             assert probe["start"] <= step["start"] <= step["end"] <= probe["end"]
             assert _children(records, step) == []
     assert len(records) == 1 + len(GATE_PROBES) + sum(map(len, PROBE_STEPS.values()))
+
+
+def test_a_second_traced_battery_takes_the_flash_oracle_from_the_cache(gate, traced):
+    """The flash probe's operands are the same at every battery, so the
+    second one's oracle is a hit, and the probe keeps its three steps."""
+    assert gate.run().ok
+    hits = flash_attention_probe.oracle_hits
+    report = gate.run()
+    assert report.ok, report.failures
+    assert flash_attention_probe.oracle_hits == hits + 1
+    records = traced.records()
+    second = [r for r in records if r["name"] == "gate.run"][1]
+    (flash,) = [r for r in _children(records, second) if r["name"] == "gate.flash"]
+    steps = _children(records, flash)
+    assert [r["name"] for r in steps] == PROBE_STEPS["gate.flash"]
+    (oracle,) = [r for r in steps if r["name"] == "flash.oracle"]
+    assert oracle["attrs"] == {"hit": True}
 
 
 def test_an_untraced_battery_records_nothing_and_gives_the_same_verdict(
